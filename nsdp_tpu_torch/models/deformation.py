@@ -1,0 +1,90 @@
+"""Deformation networks (counterpart of ``nsdp_tpu/models/deformation.py`` and
+the inference composition of ``nsdp_tpu/models/fast_predict.py:87-209``).
+
+Input contract (as the reference's): ``surface_samples_inputs`` is
+(B, N, 7) -- source surface xyz, target xyz * handle mask, mask.  The
+"backward" net (``no_input_corr``) conditions on the source xyz only; the
+"forward" net on all 7 channels.  ``points`` (B, Q, 3) are query positions;
+the output is their deformed absolute position.
+"""
+
+import torch
+from torch import nn
+
+
+class DeformationNetwork(nn.Module):
+    """One encoder + one decoder.  ``encode`` and ``decode`` are separate so
+    a caller can encode a conditioning cloud once and decode many query
+    sets."""
+
+    def __init__(self, encoder: nn.Module, decoder: nn.Module,
+                 no_input_corr: bool = False, use_normals: bool = False):
+        super().__init__()
+        self.encoder = encoder
+        self.decoder = decoder
+        self.no_input_corr = no_input_corr
+        self.use_normals = use_normals
+
+    def encode(self, surface_samples_inputs, point_mask=None):
+        if self.no_input_corr:
+            end = 6 if self.use_normals else 3
+            surface_samples_inputs = surface_samples_inputs[:, :, 0:end]
+        return self.encoder(surface_samples_inputs, point_mask)
+
+    def decode(self, points, encoding):
+        return self.decoder(points, encoding)
+
+    def forward(self, points, surface_samples_inputs, point_mask=None):
+        return self.decode(points, self.encode(surface_samples_inputs, point_mask))
+
+    def predict(self, points, surface_samples_inputs, point_mask=None):
+        """The serving convention, the same call as :meth:`forward`."""
+        return self(points, surface_samples_inputs, point_mask)
+
+
+class FlowArbitrary(nn.Module):
+    """Arbitrary-pose deformation: source -> canonical -> target
+    (reference ``model/flow_arbitrary.py:7-27``).
+
+    Split at the canonical pose: :meth:`canonicalize` depends only on the
+    source surface (an editing session runs it once), :meth:`deform` runs per
+    target; ``predict == deform o canonicalize``.  The source surface is
+    encoded once and decoded at both query sets.
+    """
+
+    def __init__(self, model_canonicalize: DeformationNetwork,
+                 model_deform: DeformationNetwork):
+        super().__init__()
+        self.model_canonicalize = model_canonicalize
+        self.model_deform = model_deform
+
+    def canonicalize(self, points, surf_src, point_mask=None):
+        """-> (space_cano (B, Q, 3), surf_cano (B, N, 3))."""
+        net = self.model_canonicalize
+        enc = net.encode(surf_src, point_mask)
+        space_cano = net.decode(points, enc)
+        surf_cano = net.decode(surf_src, enc)
+        if point_mask is not None:
+            # padded rows decode to garbage; re-zero them so the forward
+            # conditioning keeps its padding at the origin
+            surf_cano = surf_cano * point_mask[..., None].to(surf_cano.dtype)
+        return space_cano, surf_cano
+
+    def deform(self, space_cano, surf_cano, surf_tgt, mask, point_mask=None):
+        conditioning = torch.cat([surf_cano, surf_tgt, mask], dim=-1)
+        return self.model_deform(space_cano, conditioning, point_mask)
+
+    def forward(self, space_samples_src, surface_samples_src,
+                surface_samples_tgt, cano_handle_sample_mask, point_mask=None):
+        space_cano, surf_cano = self.canonicalize(
+            space_samples_src, surface_samples_src, point_mask
+        )
+        return self.deform(space_cano, surf_cano, surface_samples_tgt,
+                           cano_handle_sample_mask, point_mask)
+
+    def predict(self, points, surface_samples_inputs, point_mask=None):
+        """The serving convention: ``surface_samples_inputs`` packs
+        [source xyz | masked target xyz | handle mask] (B, N, 7)."""
+        return self(points, surface_samples_inputs[:, :, 0:3],
+                    surface_samples_inputs[:, :, 3:6],
+                    surface_samples_inputs[:, :, 6:7], point_mask)

@@ -1,0 +1,95 @@
+"""Furthest-point sampling: plain PyTorch version and the CUDA kernel's wrapper.
+
+Semantics (``nsdp_tpu/ops/fps.py:1-19``, reference ``sampling_gpu.cu``): the
+first index is always 0; points with ``|p|^2 <= 1e-3`` are never selected and
+never update the running min-distance, which starts at 1e10; each step takes
+the arg-max of the running min-distance, ties to the lowest index; an
+all-invalid cloud picks 0.
+
+The kernel (``csrc/fps.cu``) replaces the TPU kernel
+``nsdp_tpu/ops/fps_pallas.py::_fps_kernel``; see the note at the top of the
+source for what bounds it on the card.  The kernel keeps the whole cloud in
+shared memory, 16 bytes a point, so on the card a cloud holds at most
+``MAX_POINTS`` points; the plain version takes any size.
+"""
+
+import ctypes
+
+import torch
+
+from nsdp_tpu_torch.ops import _build
+
+# (227 KB of shared memory a Hopper block may opt in to, less 512 bytes of
+# static arrays) / 16 bytes a point; the same limit as csrc/fps.cu.
+MAX_POINTS = (232448 - 512) // 16
+_SIGNATURES = {"nsdp_fps": (ctypes.c_int, [
+    ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+    ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
+])}
+
+
+def furthest_point_sample_plain(xyz: torch.Tensor, npoint: int) -> torch.Tensor:
+    """(B, N, 3) -> (B, npoint) int32, one vectorised step per sample.
+
+    Squared norms and distances are summed as ``(x*x + y*y) + z*z`` -- the
+    order the kernel writes out without FMA contraction, so both agree on
+    every index.
+    """
+    if xyz.ndim != 3 or xyz.shape[-1] != 3:
+        raise ValueError(f"expected (B, N, 3) input, got {tuple(xyz.shape)}")
+    B, N, _ = xyz.shape
+    x, y, z = xyz.float().unbind(-1)
+    valid = (x * x + y * y + z * z) > 1e-3
+    min_dist = torch.full((B, N), 1e10, dtype=torch.float32, device=xyz.device)
+    neg_inf = torch.tensor(float("-inf"), device=xyz.device)
+    rows = torch.arange(B, device=xyz.device)
+    idxs = torch.zeros((B, npoint), dtype=torch.int32, device=xyz.device)
+    last = torch.zeros((B,), dtype=torch.long, device=xyz.device)
+    for i in range(1, npoint):
+        dx = x - x[rows, last][:, None]
+        dy = y - y[rows, last][:, None]
+        dz = z - z[rows, last][:, None]
+        d = dx * dx + dy * dy + dz * dz
+        min_dist = torch.where(valid, torch.minimum(min_dist, d), min_dist)
+        last = torch.argmax(torch.where(valid, min_dist, neg_inf), dim=-1)
+        idxs[:, i] = last.to(torch.int32)
+    return idxs
+
+
+def _launch(xyz: torch.Tensor, npoint: int) -> torch.Tensor:
+    if xyz.dtype != torch.float32:
+        raise TypeError(f"furthest_point_sample kernel takes float32, got {xyz.dtype}")
+    if xyz.ndim != 3 or xyz.shape[-1] != 3:
+        raise ValueError(f"expected (B, N, 3) input, got {tuple(xyz.shape)}")
+    B, N, _ = xyz.shape
+    if N > MAX_POINTS:
+        raise ValueError(
+            f"the FPS kernel keeps the cloud in shared memory and takes at most "
+            f"{MAX_POINTS} points, got {N}"
+        )
+    lib = _build.load("fps", _SIGNATURES)
+    xyz = xyz.contiguous()
+    out = torch.empty((B, npoint), dtype=torch.int32, device=xyz.device)
+    err = lib.nsdp_fps(xyz.data_ptr(), B, N, npoint, out.data_ptr(),
+                       xyz.device.index or 0, _build.stream_of(xyz))
+    _build.check(lib, err, f"fps kernel (B={B}, N={N}, npoint={npoint})")
+    furthest_point_sample.launches += 1
+    return out
+
+
+def furthest_point_sample(xyz: torch.Tensor, npoint: int) -> torch.Tensor:
+    """Furthest-point sampling, (B, N, 3) -> (B, npoint) int32 indices.
+
+    A CPU tensor runs :func:`furthest_point_sample_plain`; a CUDA tensor
+    launches the kernel of ``csrc/fps.cu`` and counts the launch in
+    ``furthest_point_sample.launches``.  The kernel takes clouds of at most
+    ``MAX_POINTS`` points and raises ``ValueError`` beyond.
+    """
+    if xyz.device.type == "cpu":
+        return furthest_point_sample_plain(xyz, npoint)
+    if xyz.device.type != "cuda":
+        raise RuntimeError(f"no FPS kernel for device {xyz.device}")
+    return _launch(xyz, npoint)
+
+
+furthest_point_sample.launches = 0

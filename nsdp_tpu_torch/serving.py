@@ -1,0 +1,176 @@
+"""Deformation-field serving: numpy in, numpy out, bucketed query sizes.
+
+Counterpart of ``nsdp_tpu/serving.py`` on PyTorch/CUDA:
+
+    service = DeformationService.from_config("configs/deform4d/arbitrary.yaml")
+    deformed = service.deform(points, surface_samples_inputs)      # numpy
+    session = service.edit_session(points, surface_src)            # once
+    dragged = session.drag(surface_tgt_masked, handle_mask)        # per drag
+
+Queries are zero-padded to a ladder of bucket sizes (exact: field queries
+are independent), so the card sees few distinct shapes.  The model runs
+under ``torch.inference_mode``; every kNN attention and FPS of the path is a
+hand-written CUDA kernel on the card.
+"""
+
+from typing import Dict, Optional, Sequence
+
+import numpy as np
+import torch
+
+from nsdp_tpu_torch import resolve_device
+from nsdp_tpu_torch.models import build_model, init_random
+from nsdp_tpu_torch.utils.padding import pad_queries
+
+
+class DeformationService:
+    """Stateful server around one deformation model.
+
+    Args:
+      config: the YAML config (``utils.config.load_config``).
+      state_dict: the model's weights (e.g. ``utils.convert.from_jax_variables``);
+        None draws seeded random weights (``models.init_random``).
+      buckets: query-count ladder requests are padded to.
+      device: ``cuda`` by default; ``cpu`` runs the plain PyTorch path.
+      seed: seed of the random weights when ``state_dict`` is None.
+    """
+
+    def __init__(self, config: Dict, state_dict: Optional[Dict] = None,
+                 buckets: Sequence[int] = (4096, 16384, 65536), device=None,
+                 seed: int = 0):
+        self.device = resolve_device(device)
+        self.config = config
+        self.buckets = sorted(buckets)
+        self.model_type = config["model"]["type"]
+        self.model = build_model(config, device=self.device)
+        if state_dict is None:
+            init_random(self.model, seed)
+        else:
+            self.model.load_state_dict(state_dict, strict=True)
+
+    @classmethod
+    def from_config(cls, config_path: str, **kwargs) -> "DeformationService":
+        """Service for a YAML config.  The config's ``test.weight_file`` (a
+        reference torch checkpoint) is not loaded by the port yet: pass
+        ``state_dict`` or get seeded random weights."""
+        from nsdp_tpu_torch.utils.config import load_config
+
+        return cls(load_config(config_path), **kwargs)
+
+    def _bucket(self, q: int) -> int:
+        for b in self.buckets:
+            if q <= b:
+                return b
+        big = self.buckets[-1]  # round up to a multiple of the largest bucket
+        return ((q + big - 1) // big) * big
+
+    def _tensor(self, a) -> torch.Tensor:
+        return torch.as_tensor(np.asarray(a, np.float32), device=self.device)
+
+    def warmup(self, n_surface: int) -> None:
+        """Run every serving entry once at every bucket size -- ``deform``
+        with and without a ``point_mask`` and, for the 'arbitrary'
+        composition, an edit session and a drag: builds the kernels and
+        fills PyTorch's allocator cache before the first request."""
+        rng = np.random.RandomState(0)
+        inputs = rng.randn(n_surface, 7).astype(np.float32)
+        pmask = np.ones((n_surface,), np.float32)
+        for b in self.buckets:
+            pts = rng.randn(b, 3).astype(np.float32)
+            for pm in (None, pmask):
+                self.deform(pts, inputs, point_mask=pm)
+                if self.model_type == "arbitrary":
+                    self.edit_session(pts, inputs[:, 0:3], pm).drag(
+                        inputs[:, 3:6], inputs[:, 6:7]
+                    )
+
+    def deform(self, points: np.ndarray, surface_samples_inputs: np.ndarray,
+               point_mask: Optional[np.ndarray] = None) -> np.ndarray:
+        """Evaluate the deformation field.
+
+        Args:
+          points: (Q, 3) or (B, Q, 3) query positions.
+          surface_samples_inputs: (N, 7) or (B, N, 7) conditioning.
+          point_mask: optional (N,) or (B, N) validity mask of padded partial
+            conditioning clouds (padded rows zero, nonzero = real point).
+
+        Returns:
+          deformed positions, same leading shape as ``points``.
+        """
+        squeeze = points.ndim == 2
+        if squeeze:
+            points = points[None]
+            surface_samples_inputs = surface_samples_inputs[None]
+            if point_mask is not None:
+                point_mask = np.asarray(point_mask)[None]
+        q = points.shape[1]
+        padded, _ = pad_queries(np.asarray(points), self._bucket(q))
+        with torch.inference_mode():
+            out = self.model.predict(
+                self._tensor(padded), self._tensor(surface_samples_inputs),
+                None if point_mask is None else self._tensor(point_mask),
+            )
+            out = out[:, :q].cpu().numpy()
+        return out[0] if squeeze else out
+
+    def edit_session(self, points: np.ndarray, surface_samples_src: np.ndarray,
+                     point_mask: Optional[np.ndarray] = None) -> "EditSession":
+        """Open an interactive editing session over a fixed source shape.
+
+        The canonicalisation half (backward net: encode the source surface,
+        canonicalise the query points and the surface) depends only on the
+        source, so it runs once here; each drag re-runs only the forward
+        half (the reference re-runs all three passes,
+        ``model/flow_arbitrary.py:15-27``).
+
+        Args:
+          points: (Q, 3) query positions deformed at every drag.
+          surface_samples_src: (N, 3) source surface samples.
+          point_mask: optional (N,) validity mask for padded-partial
+            conditioning.
+        """
+        if self.model_type != "arbitrary":
+            raise ValueError(
+                f"edit sessions need the 'arbitrary' composition (got {self.model_type!r})"
+            )
+        q = points.shape[0]
+        padded, _ = pad_queries(np.asarray(points)[None], self._bucket(q))
+        pm = None if point_mask is None else self._tensor(point_mask).reshape(1, -1)
+        with torch.inference_mode():
+            space_cano, surf_cano = self.model.canonicalize(
+                self._tensor(padded), self._tensor(surface_samples_src)[None], pm
+            )
+        return EditSession(self, space_cano, surf_cano, q, pm)
+
+
+class EditSession:
+    """Precomputed canonicalisation + per-drag forward evaluation."""
+
+    def __init__(self, service: DeformationService, space_cano, surf_cano,
+                 q: int, point_mask=None):
+        self._service = service
+        self._space_cano = space_cano
+        self._surf_cano = surf_cano
+        self._q = q
+        self._point_mask = point_mask
+
+    def drag(self, surface_samples_tgt: np.ndarray, handle_mask: np.ndarray) -> np.ndarray:
+        """Deform the session's query points toward a (partial) target.
+
+        Args:
+          surface_samples_tgt: (N, 3) masked target positions (zeros outside
+            the handle, like ``surface_samples_inputs[:, 3:6]``).
+          handle_mask: (N, 1) or (N,) handle indicator.
+
+        Returns:
+          (Q, 3) deformed query positions.
+        """
+        svc = self._service
+        mask = np.asarray(handle_mask, np.float32).reshape(-1, 1)
+        with torch.inference_mode():
+            out = svc.model.deform(
+                self._space_cano, self._surf_cano,
+                svc._tensor(surface_samples_tgt)[None], svc._tensor(mask)[None],
+                self._point_mask,
+            )
+            return out[0, : self._q].cpu().numpy()
