@@ -1,10 +1,11 @@
 """PyTorch/CUDA port of NSDP for NVIDIA Hopper (H100).
 
 A second package beside the JAX/TPU one (``nsdp_tpu``), which stays the
-numerical reference.  Plain tensor code is PyTorch; the two TPU kernels on
-the inference path are hand-written CUDA kernels under ``csrc/``:
+numerical reference.  Plain tensor code is PyTorch; the TPU kernels on the
+inference and training paths are hand-written CUDA kernels under ``csrc/``:
 
-* fused kNN vector attention (``ops/attention.py`` + ``csrc/attention.cu``),
+* fused kNN vector attention, forward (``ops/attention.py`` +
+  ``csrc/attention.cu``) and backward (``csrc/attention_bwd.cu``),
 * furthest-point sampling (``ops/fps.py`` + ``csrc/fps.cu``).
 
 Entry points run on ``cuda`` unless the caller asks for the CPU

@@ -29,19 +29,13 @@
 //     merge with k rounds of warp arg-min.  Apart from the attention kernel,
 //     its candidate lists do not crowd the registers of the products.
 //   * attn_kernel (steps 3-4) is a small f32 GEMM engine on the CUDA cores
-//     that keeps the TPU kernel's defining property -- no per-neighbour
-//     per-channel (Nq, k, D) tensor ever reaches device memory.  A block of
-//     256 threads owns TQ = 32 / S queries, S = k (+1) slots, i.e. R <= 32
-//     rows (query, slot) that go through every MLP together (two blocks fit
-//     an SM at D <= 200, so one block's gathers and softmax overlap the
-//     other's products).  Activations live transposed in shared memory
-//     (D x 36 floats, 16-byte row reads broadcast to a warp); each weight
-//     streams through a double-buffered 16-row tile filled with cp.async
-//     (rows padded to an odd pitch, so filling a tile down its columns meets
-//     no shared-memory bank conflicts);
-//     each thread accumulates an 8 x CJ register tile (CJ = ceil(D / 64)
-//     columns, 64 threads across the channels).  The slot softmax is a last
-//     pass over the logits and values in shared memory.
+//     (rows_gemm.cuh) that keeps the TPU kernel's defining property -- no
+//     per-neighbour per-channel (Nq, k, D) tensor ever reaches device
+//     memory.  A block of 256 threads owns TQ = 32 / S queries, S = k (+1)
+//     slots, i.e. R <= 32 rows (query, slot) that go through every MLP
+//     together (two blocks fit an SM at D <= 200, so one block's gathers
+//     and softmax overlap the other's products).  The slot softmax is a
+//     last pass over the logits and values in shared memory.
 // Weights arrive in nn.Linear's (out, in) layout, contiguous: the modules'
 // weights are read in place, with no copy per call.
 
@@ -51,21 +45,17 @@
 #include <climits>
 #include <cstdint>
 
+#include "rows_gemm.cuh"
+
 namespace {
 
-constexpr int kNX = 64;               // threads across the channels
-constexpr int kNY = 4;                // thread groups across the rows
-constexpr int kThreads = kNX * kNY;   // 256
-constexpr int kRows = 32;             // (query, slot) rows per block
-constexpr int kRT = kRows / kNY;      // rows per thread: 8
-constexpr int kRP = kRows + 4;        // padded row of a transposed activation
-constexpr int kKC = 16;               // weight rows per staged tile
+using namespace rows;
+
 constexpr int kKMax = 32;             // largest k
 constexpr int kDMax = 256;            // largest channel width
 constexpr int kSelWarps = kThreads / 32;  // queries per selection block
 constexpr int kChunk = 2048;          // kv points per staged selection chunk
 constexpr unsigned kFull = 0xffffffffu;
-constexpr int kMaxDevices = 64;
 
 struct Params {
   const float* xyz_q;    // (B, Nq, 3)
@@ -187,98 +177,6 @@ __global__ void __launch_bounds__(kThreads) knn_kernel(
 
 // ---- attention over the selected slots --------------------------------------
 
-__device__ __forceinline__ void cp_async4(float* smem, const float* gmem) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s), "l"(gmem));
-}
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-template <int N>
-__device__ __forceinline__ void cp_async_wait() { asm volatile("cp.async.wait_group %0;\n" ::"n"(N)); }
-
-// Row pitch of a staged weight tile: odd, so the kKC rows of one column
-// fall in distinct shared-memory banks.
-__host__ __device__ __forceinline__ int tile_pitch(int D) { return D | 1; }
-
-// Stage input channels [c*kKC, c*kKC + kKC) of w ((out, in) = D x D) into
-// dst as kKC rows of pitch P: kKC threads down each output channel's
-// contiguous inputs.
-__device__ __forceinline__ void stage_tile(float* dst, const float* __restrict__ w, int D, int P,
-                                           int c) {
-  const int r0 = c * kKC, r = threadIdx.x % kKC;
-  if (r0 + r < D)
-    for (int d = threadIdx.x / kKC; d < D; d += kThreads / kKC)
-      cp_async4(dst + r * P + d, w + d * D + r0 + r);
-  cp_async_commit();
-}
-
-// One reduction step: acc[i][j] += xt[kk][ty*kRT + i] * tile[kk][tx + j*kNX].
-template <int CJ>
-__device__ __forceinline__ void fma_step(const float* xrow, const float* wrow, int D,
-                                         float (&acc)[kRT][CJ]) {
-  const int tx = threadIdx.x % kNX;
-  const float4* xr4 = reinterpret_cast<const float4*>(xrow);
-  float xr[kRT];
-#pragma unroll
-  for (int v = 0; v < kRT / 4; ++v) {
-    const float4 x = xr4[v];
-    xr[4 * v] = x.x;
-    xr[4 * v + 1] = x.y;
-    xr[4 * v + 2] = x.z;
-    xr[4 * v + 3] = x.w;
-  }
-  float wc[CJ];
-#pragma unroll
-  for (int j = 0; j < CJ; ++j) {
-    const int d = tx + j * kNX;
-    wc[j] = d < D ? wrow[d] : 0.0f;
-  }
-#pragma unroll
-  for (int i = 0; i < kRT; ++i)
-#pragma unroll
-    for (int j = 0; j < CJ; ++j) acc[i][j] = fmaf(xr[i], wc[j], acc[i][j]);
-}
-
-// acc[i][j] = sum_kk xt[kk][ty*kRT + i] * w[kk][tx + j*kNX]
-// xt: (D, kRP) transposed activations in shared memory; w: (D, D), (out, in),
-// in global memory; ws: two kKC x P tiles of shared memory.
-template <int CJ>
-__device__ void rows_gemm(const float* xt, const float* __restrict__ w, int D, float* ws,
-                          float (&acc)[kRT][CJ]) {
-  const int ty = threadIdx.x / kNX, P = tile_pitch(D);
-#pragma unroll
-  for (int i = 0; i < kRT; ++i)
-#pragma unroll
-    for (int j = 0; j < CJ; ++j) acc[i][j] = 0.0f;
-  const int n_tiles = (D + kKC - 1) / kKC;
-  stage_tile(ws, w, D, P, 0);
-  for (int c = 0; c < n_tiles; ++c) {
-    if (c + 1 < n_tiles) {
-      stage_tile(ws + ((c + 1) & 1) * kKC * P, w, D, P, c + 1);
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    const float* tile = ws + (c & 1) * kKC * P;
-    const float* xc = xt + c * kKC * kRP + ty * kRT;
-    const int kn = min(kKC, D - c * kKC);
-    if (kn == kKC) {  // full tile: unrolled, so the loads pipeline
-#pragma unroll
-      for (int kk = 0; kk < kKC; ++kk) fma_step<CJ>(xc + kk * kRP, tile + kk * P, D, acc);
-    } else {
-      for (int kk = 0; kk < kn; ++kk) fma_step<CJ>(xc + kk * kRP, tile + kk * P, D, acc);
-    }
-    __syncthreads();  // the tile is consumed before it is refilled
-  }
-}
-
-// Store a thread's kRT rows of column d into a transposed activation buffer.
-__device__ __forceinline__ void store_rows(float* xt, int d, const float (&v)[kRT]) {
-  float4* dst = reinterpret_cast<float4*>(xt + d * kRP + (threadIdx.x / kNX) * kRT);
-#pragma unroll
-  for (int u = 0; u < kRT / 4; ++u) dst[u] = make_float4(v[4 * u], v[4 * u + 1], v[4 * u + 2], v[4 * u + 3]);
-}
-
 template <int CJ>
 __global__ void __launch_bounds__(kThreads, 2) attn_kernel(const Params p) {
   extern __shared__ float4 smem4[];
@@ -327,7 +225,7 @@ __global__ void __launch_bounds__(kThreads, 2) attn_kernel(const Params p) {
 
   // ---- fc_delta layer 1 -> pos; fc_gamma input and values ------------------
   float acc[kRT][CJ];
-  rows_gemm<CJ>(ht, p.dw1, D, ws, acc);
+  rows_gemm<CJ, false>(ht, p.dw1, D, ws, acc);
   const bool pos_only = p.q == nullptr;
 #pragma unroll
   for (int j = 0; j < CJ; ++j) {
@@ -359,7 +257,7 @@ __global__ void __launch_bounds__(kThreads, 2) attn_kernel(const Params p) {
   }
 
   // ---- fc_gamma -------------------------------------------------------------
-  rows_gemm<CJ>(ut, p.gw0, D, ws, acc);
+  rows_gemm<CJ, false>(ut, p.gw0, D, ws, acc);
 #pragma unroll
   for (int j = 0; j < CJ; ++j) {
     const int d = tx + j * kNX;
@@ -370,7 +268,7 @@ __global__ void __launch_bounds__(kThreads, 2) attn_kernel(const Params p) {
     for (int i = 0; i < kRT; ++i) h[i] = fmaxf(acc[i][j] + b0, 0.0f);
     store_rows(ht, d, h);
   }
-  rows_gemm<CJ>(ht, p.gw1, D, ws, acc);
+  rows_gemm<CJ, false>(ht, p.gw1, D, ws, acc);
 #pragma unroll
   for (int j = 0; j < CJ; ++j) {
     const int d = tx + j * kNX;
@@ -399,13 +297,6 @@ __global__ void __launch_bounds__(kThreads, 2) attn_kernel(const Params p) {
     }
     p.out[((size_t)b * p.Nq + t0 + t) * D + d] = o / se;
   }
-}
-
-// A failed runtime call also sets the thread's last error; clear it, so the
-// next launch's cudaGetLastError() does not report this failure again.
-cudaError_t failed(cudaError_t err) {
-  cudaGetLastError();
-  return err;
 }
 
 size_t smem_bytes(int D) {

@@ -62,8 +62,10 @@ def build_deformation_network(config: Dict[str, Any], no_input_corr: bool = Fals
 
 
 def build_model(config: Dict[str, Any], device=None) -> nn.Module:
-    """The eval-mode model for ``config['model']['type']`` on ``device``
-    (``cuda`` unless told otherwise; raises with no card)."""
+    """The model for ``config['model']['type']`` on ``device`` (``cuda``
+    unless told otherwise; raises with no card), in eval mode;
+    ``model.train()`` selects train mode (batch statistics in every
+    BatchNorm), as the training steps do."""
     device = resolve_device(device)
     model_type = config["model"]["type"]
     if model_type == "forward":

@@ -1,4 +1,4 @@
-"""Point-transformer building blocks, eval mode, channels-last (B, N, C).
+"""Point-transformer building blocks, channels-last (B, N, C), train and eval mode.
 
 Counterparts of ``nsdp_tpu/nn/blocks.py`` (reference ``model/encoder/blocks.py``
 and ``model/decoder/blocks.py``).  There is one path: every kNN vector
@@ -40,17 +40,43 @@ class TwoLayerMLP(nn.Sequential):
 
 
 class BatchNorm(nn.BatchNorm1d):
-    """Eval-mode BatchNorm over the last axis:
-    ``(x - mean) * rsqrt(var + 1e-5) * scale + bias`` from the running
-    statistics (``nsdp_tpu/models/fast_encoder.py:28-31``).  Parameters and
-    buffers are those of ``torch.nn.BatchNorm1d``."""
+    """BatchNorm over the last axis,
+    ``(x - mean) * rsqrt(var + 1e-5) * scale + bias``; parameters and
+    buffers are those of ``torch.nn.BatchNorm1d``.
+
+    Eval mode uses the running statistics
+    (``nsdp_tpu/models/fast_encoder.py:28-31``).  Train mode is the JAX
+    package's ``_TorchExactBatchNorm`` (``nsdp_tpu/nn/blocks.py:114-199``):
+    the biased batch variance over every axis but the last normalises, the
+    Bessel-corrected one (``n / (n - 1)`` over the valid count) enters the
+    running variance, momentum 0.1.  ``mask`` (the leading axes of ``x``,
+    nonzero = valid row) weights the batch statistics; eval mode ignores it.
+    """
 
     def __init__(self, features: int, device=None):
-        super().__init__(features, eps=1e-5, device=device)
+        super().__init__(features, eps=1e-5, momentum=0.1, device=device)
 
-    def forward(self, x):
-        inv = torch.rsqrt(self.running_var + self.eps)
-        return (x - self.running_mean) * inv * self.weight + self.bias
+    def forward(self, x, mask=None):
+        if not self.training:
+            inv = torch.rsqrt(self.running_var + self.eps)
+            return (x - self.running_mean) * inv * self.weight + self.bias
+        flat = x.reshape(-1, x.shape[-1])
+        if mask is None:
+            n = flat.new_tensor(float(flat.shape[0]))
+            mean = flat.mean(dim=0)
+            var = torch.square(flat - mean).mean(dim=0)
+        else:
+            w = mask.reshape(-1, 1).to(x.dtype)
+            n = torch.clamp(w.sum(), min=1.0)
+            mean = (flat * w).sum(dim=0) / n
+            var = (torch.square(flat - mean) * w).sum(dim=0) / n
+        with torch.no_grad():
+            unbiased = var * (n / torch.clamp(n - 1.0, min=1.0))
+            m = 1.0 - self.momentum
+            self.running_mean.copy_(m * self.running_mean + self.momentum * mean)
+            self.running_var.copy_(m * self.running_var + self.momentum * unbiased)
+            self.num_batches_tracked.add_(1)
+        return (x - mean) * torch.rsqrt(var + self.eps) * self.weight + self.bias
 
 
 class TransformerBlock(nn.Module):
@@ -93,7 +119,7 @@ class TransformerBlock(nn.Module):
                 *self.fc_delta.kernels(), *self.fc_gamma.kernels(),
                 k=self.k, kv_mask=kv_mask,
             ) + feats
-        return self.bn(res)
+        return self.bn(res, kv_mask)
 
     def _full_attention(self, xyz, feats):
         pos = self.fc_delta(xyz[:, :, None, :] - xyz[:, None, :, :])
@@ -126,7 +152,12 @@ class TransformerSetAbstraction(nn.Module):
     FPS picks ``npoint`` centres; each runs two rounds of vector
     cross-attention over its ``nneigh`` nearest input points, sharing the
     position encoding, with a 1x1 residual between rounds and a residual to
-    the gathered input features at the end."""
+    the gathered input features at the end.
+
+    The centres are picked and placed on the detached coordinates, as the
+    reference does under ``torch.no_grad()`` (``nsdp_tpu/nn/blocks.py:404-423``):
+    no gradient reaches the input coordinates through them, only through
+    the kv set's position deltas."""
 
     def __init__(self, npoint: int, nneigh: int, dim: int, device=None):
         super().__init__()
@@ -145,9 +176,10 @@ class TransformerSetAbstraction(nn.Module):
 
     def forward(self, xyz, points, kv_mask=None):
         # masked points go to the origin, which FPS never selects
-        fps_xyz = xyz if kv_mask is None else xyz * kv_mask[..., None].to(xyz.dtype)
+        xyz_ng = xyz.detach()
+        fps_xyz = xyz_ng if kv_mask is None else xyz_ng * kv_mask[..., None].to(xyz.dtype)
         fps_idx = furthest_point_sample(fps_xyz, self.npoint)
-        new_xyz = index_points(xyz, fps_idx)
+        new_xyz = index_points(xyz_ng, fps_idx)
         centre_feats = index_points(points, fps_idx)
         # the TSA position encoding is (neighbour - centre), the opposite
         # sign of the other blocks (reference encoder/blocks.py:295 vs :114):
@@ -210,7 +242,8 @@ class CrossTransformerBlock(nn.Module):
 class ResnetBlockFC(nn.Module):
     """Fully-connected ResNet block (reference ``model/decoder/blocks.py:99-142``):
     ``out = shortcut(x) + fc_1(relu(fc_0(relu(x))))``; the bias-free
-    ``shortcut`` exists only when the widths differ."""
+    ``shortcut`` exists only when the widths differ.  ``fc_1``'s weight
+    starts at zero, so a new block is the identity."""
 
     def __init__(self, size_in: int, size_out: Optional[int] = None,
                  size_h: Optional[int] = None, device=None):
@@ -219,6 +252,7 @@ class ResnetBlockFC(nn.Module):
         size_h = size_h or min(size_in, size_out)
         self.fc_0 = nn.Linear(size_in, size_h, device=device)
         self.fc_1 = nn.Linear(size_h, size_out, device=device)
+        nn.init.zeros_(self.fc_1.weight)
         if size_in != size_out:
             self.shortcut = nn.Linear(size_in, size_out, bias=False, device=device)
 

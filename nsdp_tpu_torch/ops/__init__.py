@@ -1,6 +1,7 @@
 """Point-cloud ops: gathers, furthest-point sampling, fused kNN attention.
 
-``furthest_point_sample`` and ``fused_vector_attention`` are kernel
+``furthest_point_sample`` and ``fused_vector_attention`` (with its
+backward, ``attention.fused_vector_attention_backward``) are kernel
 wrappers: a CPU tensor runs the plain PyTorch version, a CUDA tensor
 launches the hand-written kernel (or raises).
 """

@@ -3,8 +3,8 @@
 Each ``csrc/<name>.cu`` exposes a plain C interface and is compiled on first
 use by ``nvcc`` for Hopper (``sm_90a``) into its own shared library under
 ``csrc/build/`` (listed in ``.gitignore``), named by a content hash of the
-source and the flags, so an edited source rebuilds and an unchanged one is
-reused.  No PyTorch header is involved, which keeps a build to seconds.
+source, the shared headers (``csrc/*.cuh``) and the flags, so an edited
+source or header rebuilds and an unchanged one is reused.  No PyTorch header is involved, which keeps a build to seconds.
 Sources are built in parallel: one ``nvcc`` process per source, all started
 together.
 """
@@ -19,7 +19,7 @@ from typing import Dict, Iterable, Optional, Sequence, Tuple
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = CSRC / "build"
-SOURCES = ("attention", "fps")
+SOURCES = ("attention", "attention_bwd", "fps")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -36,9 +36,9 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
+    parts = [CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))]
     digest = hashlib.sha256(
-        src.read_bytes() + " ".join(NVCC_FLAGS).encode()
+        b"".join(p.read_bytes() for p in parts) + " ".join(NVCC_FLAGS).encode()
     ).hexdigest()[:16]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 

@@ -23,15 +23,26 @@ penalty), ties to the lowest index; per neighbour slot
 then a per-channel softmax over the slots and ``sum softmax * value``,
 before the residual and the BatchNorm.
 
-The kernel (``csrc/attention.cu``) replaces the TPU kernel
+The kernel (``csrc/attention.cu``, K1) replaces the TPU kernel
 ``_attn_kernel``; see the note at the top of the source for what bounds it
 on the card and how its design answers that.
+
+Gradients (counterpart of the custom VJPs ``knn_vector_attention`` and
+``knn_vector_attention_proj``, ``attention_pallas.py:1086-1248``): when grad
+mode is on and an operand requires grad, :func:`fused_vector_attention`
+runs :class:`_FusedAttention`, whose forward keeps the (B, Nq, k) neighbour
+indices and whose backward is the kernel of ``csrc/attention_bwd.cu`` (K2,
+replacing ``_attn_bwd_kernel``) on the card, or
+:func:`fused_vector_attention_bwd_plain` on the CPU.  The selection is a
+constant of the backward: no gradient flows through the kNN, and
+``kv_mask`` receives none.
 """
 
 import ctypes
 from typing import Optional
 
 import torch
+from torch.autograd.function import once_differentiable
 
 from nsdp_tpu_torch.ops import _build
 from nsdp_tpu_torch.ops.gather import index_points
@@ -73,11 +84,14 @@ def fused_vector_attention_plain(
     xyz_q, kv_xyz, q_feats, K_a, V_a,
     delta_w0, delta_b0, delta_w1, delta_b1,
     gamma_w0, gamma_b0, gamma_w1, gamma_b1,
-    k: int, k_glob=None, v_glob=None, penalty=None,
+    k: int, k_glob=None, v_glob=None, penalty=None, idx=None,
 ):
     """The attention in plain tensor ops; the (B, Nq, k, D) neighbourhood
-    tensors are materialised.  ``k`` is already clamped to M."""
-    idx = select_neighbours(xyz_q, kv_xyz, k, penalty)
+    tensors are materialised.  ``k`` is already clamped to M.  A given
+    ``idx`` (B, Nq, k) replaces the selection (``k`` and ``penalty`` are
+    then unused)."""
+    if idx is None:
+        idx = select_neighbours(xyz_q, kv_xyz, k, penalty)
     dx = xyz_q[:, :, None, :] - index_points(kv_xyz, idx)
     pos = _mlp2(dx, delta_w0, delta_b0, delta_w1, delta_b1)
     if q_feats is None:
@@ -101,33 +115,34 @@ _SIGNATURES = {"nsdp_fused_attention": (ctypes.c_int, (
     [ctypes.c_void_p] * 4 + [ctypes.c_longlong] * 2 + [ctypes.c_void_p] * 14
     + [ctypes.c_int] * 6 + [ctypes.c_void_p]
 ))}
+_SIGNATURES_BWD = {"nsdp_fused_attention_bwd": (ctypes.c_int, (
+    [ctypes.c_void_p] * 4 + [ctypes.c_longlong] * 2 + [ctypes.c_void_p] * 22
+    + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+))}
+_BWD_BLOCKS = 4 * 132  # blocks a weight-gradient reduction aims for: 4 per SM
 
 
-def _launch(xyz_q, kv_xyz, q_feats, K_a, V_a, delta_w0, delta_b0, delta_w1,
-            delta_b1, gamma_w0, gamma_b0, gamma_w1, gamma_b1, k, k_glob,
-            v_glob, penalty):
-    tensors = [t for t in (xyz_q, kv_xyz, q_feats, K_a, V_a, delta_w0, delta_b0,
-                           delta_w1, delta_b1, gamma_w0, gamma_b0, gamma_w1,
-                           gamma_b1, k_glob, v_glob, penalty) if t is not None]
+def _check_operands(xyz_q, kv_xyz, q_feats, K_a, V_a, weights, k, k_glob, v_glob,
+                    penalty=None, g=None):
+    """Raise unless the operands are what the kernels take; -> (B, Nq, M, D)."""
+    tensors = [t for t in (xyz_q, kv_xyz, q_feats, K_a, V_a, *weights, k_glob, v_glob,
+                           penalty, g) if t is not None]
     for t in tensors:
         if t.device != xyz_q.device:
             raise ValueError(f"attention operands on {t.device} and {xyz_q.device}")
         if t.dtype != torch.float32:
             raise TypeError(f"attention kernel takes float32, got {t.dtype}")
-    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
-        raise RuntimeError(
-            "the fused attention kernel is forward-only; run it under "
-            "torch.no_grad() or torch.inference_mode()"
-        )
-    B, Nq, M, D = xyz_q.shape[0], xyz_q.shape[1], kv_xyz.shape[1], delta_w1.shape[-1]
+    B, Nq, M, D = xyz_q.shape[0], xyz_q.shape[1], kv_xyz.shape[1], weights[2].shape[-1]
+    dw0, db0, dw1, db1, gw0, gb0, gw1, gb1 = weights
     shapes = {
         "xyz_q": (xyz_q, (B, Nq, 3)), "kv_xyz": (kv_xyz, (B, M, 3)),
         "q_feats": (q_feats, (B, Nq, D)), "K_a": (K_a, (B, M, D)), "V_a": (V_a, (B, M, D)),
-        "delta_w0": (delta_w0, (3, D)), "delta_b0": (delta_b0, (D,)),
-        "delta_w1": (delta_w1, (D, D)), "delta_b1": (delta_b1, (D,)),
-        "gamma_w0": (gamma_w0, (D, D)), "gamma_b0": (gamma_b0, (D,)),
-        "gamma_w1": (gamma_w1, (D, D)), "gamma_b1": (gamma_b1, (D,)),
+        "delta_w0": (dw0, (3, D)), "delta_b0": (db0, (D,)),
+        "delta_w1": (dw1, (D, D)), "delta_b1": (db1, (D,)),
+        "gamma_w0": (gw0, (D, D)), "gamma_b0": (gb0, (D,)),
+        "gamma_w1": (gw1, (D, D)), "gamma_b1": (gb1, (D,)),
         "k_glob": (k_glob, (B, D)), "v_glob": (v_glob, (B, D)), "kv_mask": (penalty, (B, M)),
+        "g": (g, (B, Nq, D)),
     }
     for name, (t, want) in shapes.items():
         if t is not None and tuple(t.shape) != want:
@@ -137,42 +152,209 @@ def _launch(xyz_q, kv_xyz, q_feats, K_a, V_a, delta_w0, delta_b0, delta_w1,
         raise ValueError(
             f"attention kernel takes D <= {DMAX} and at most {KMAX} slots, got D={D}, {slots} slots"
         )
-    out = torch.empty((B, Nq, D), dtype=torch.float32, device=xyz_q.device)
-    if Nq == 0:
-        return out
-    idx = torch.empty((B, Nq, k), dtype=torch.int32, device=xyz_q.device)
-    keep = []  # operands that must live until the C call returns
+    return B, Nq, M, D
 
-    def ptr(t):
+
+class _Pointers:
+    """Raw device pointers for one C call; the tensors they point into live
+    as long as this object."""
+
+    def __init__(self):
+        self.keep = []
+
+    def __call__(self, t):
         if t is None:
             return None
         t = t.contiguous()
-        keep.append(t)
+        self.keep.append(t)
         return t.data_ptr()
 
-    def linear(w):  # (in, out) -> nn.Linear's (out, in), contiguous
-        return ptr(w.t())
+    def linear(self, w):
+        """An (in, out) weight as nn.Linear's (out, in), contiguous: the
+        modules' transposed views are read in place."""
+        return self(w.t())
 
-    q_sb = q_sn = 0
-    q_ptr = None
-    if q_feats is not None:
-        if q_feats.stride(-1) != 1:
-            q_feats = q_feats.contiguous()
-        keep.append(q_feats)  # strided: the decoder's broadcast query has q_sn == 0
-        q_ptr, q_sb, q_sn = q_feats.data_ptr(), q_feats.stride(0), q_feats.stride(1)
+    def query(self, q):
+        """(pointer, batch stride, row stride) of the query features: the
+        decoder's broadcast query is read through its zero row stride."""
+        if q is None:
+            return None, 0, 0
+        if q.stride(-1) != 1:
+            q = q.contiguous()
+        self.keep.append(q)
+        return q.data_ptr(), q.stride(0), q.stride(1)
 
+
+def _launch(xyz_q, kv_xyz, q_feats, K_a, V_a, delta_w0, delta_b0, delta_w1,
+            delta_b1, gamma_w0, gamma_b0, gamma_w1, gamma_b1, k, k_glob,
+            v_glob, penalty):
+    """K1 on the card -> (out (B, Nq, D), idx (B, Nq, k) int32)."""
+    weights = (delta_w0, delta_b0, delta_w1, delta_b1, gamma_w0, gamma_b0, gamma_w1, gamma_b1)
+    B, Nq, M, D = _check_operands(xyz_q, kv_xyz, q_feats, K_a, V_a, weights, k,
+                                  k_glob, v_glob, penalty)
+    out = torch.empty((B, Nq, D), dtype=torch.float32, device=xyz_q.device)
+    idx = torch.empty((B, Nq, k), dtype=torch.int32, device=xyz_q.device)
+    if Nq == 0:
+        return out, idx
+    ptr = _Pointers()
+    q_ptr, q_sb, q_sn = ptr.query(q_feats)
     lib = _build.load("attention", _SIGNATURES)
     err = lib.nsdp_fused_attention(
         ptr(xyz_q), ptr(kv_xyz), ptr(penalty), q_ptr, q_sb, q_sn,
         ptr(K_a), ptr(V_a), ptr(k_glob), ptr(v_glob),
-        linear(delta_w0), ptr(delta_b0), linear(delta_w1), ptr(delta_b1),
-        linear(gamma_w0), ptr(gamma_b0), linear(gamma_w1), ptr(gamma_b1),
+        ptr.linear(delta_w0), ptr(delta_b0), ptr.linear(delta_w1), ptr(delta_b1),
+        ptr.linear(gamma_w0), ptr(gamma_b0), ptr.linear(gamma_w1), ptr(gamma_b1),
         idx.data_ptr(), out.data_ptr(), B, Nq, M, D, k, xyz_q.device.index or 0,
         _build.stream_of(xyz_q),
     )
     _build.check(lib, err, f"attention kernel (B={B}, Nq={Nq}, M={M}, D={D}, k={k})")
     fused_vector_attention.launches += 1
-    return out
+    return out, idx
+
+
+def _backward_splits(rows: int, D: int) -> int:
+    """Row chunks of K2's weight-gradient reductions: enough blocks to fill
+    the card, each chunk at least 256 rows."""
+    tiles = -(-(D + 1) // 64) * -(-D // 64)
+    return max(1, min(-(-rows // 256), -(-_BWD_BLOCKS // tiles)))
+
+
+def backward_workspace_floats(B: int, Nq: int, k: int, D: int, has_global: bool) -> int:
+    """Floats of K2's workspace: per (query, slot) row the seven D-wide
+    operand rows of the weight gradients and the 3-wide position delta."""
+    rows = B * Nq * (k + has_global)
+    return rows * (7 * D + 3)
+
+
+def _launch_bwd(xyz_q, kv_xyz, q_feats, K_a, V_a, delta_w0, delta_b0, delta_w1,
+                delta_b1, gamma_w0, gamma_b0, gamma_w1, gamma_b1, k_glob, v_glob,
+                idx, g):
+    """K2 on the card: every operand's gradient, in the operands' order."""
+    weights = (delta_w0, delta_b0, delta_w1, delta_b1, gamma_w0, gamma_b0, gamma_w1, gamma_b1)
+    k = idx.shape[-1]
+    B, Nq, M, D = _check_operands(xyz_q, kv_xyz, q_feats, K_a, V_a, weights, k,
+                                  k_glob, v_glob, g=g)
+    if idx.dtype != torch.int32 or tuple(idx.shape) != (B, Nq, k) or idx.device != xyz_q.device:
+        raise ValueError(f"attention backward: idx must be ({B}, {Nq}, {k}) int32 on {xyz_q.device}")
+    f32 = dict(dtype=torch.float32, device=xyz_q.device)
+    f64 = dict(dtype=torch.float64, device=xyz_q.device)
+    featured, has_global = q_feats is not None, k_glob is not None
+    dxyz_q = torch.zeros((B, Nq, 3), **f32)
+    dq = torch.zeros((B, Nq, D), **f32) if featured else None
+    # sums over many (query, slot) rows -- the kv scatters, the global
+    # slot's sums over every query -- accumulate in float64
+    dkv_xyz = torch.zeros((B, M, 3), **f64)
+    dK = torch.zeros((B, M, D), **f64) if featured else None
+    dV = torch.zeros((B, M, D), **f64) if featured else None
+    dglob = torch.zeros((B, 2, D), **f64) if has_global else None
+    # [ddw0 (3 rows) | ddb0 | ddw1 (D) | ddb1 | dgw0 (D) | dgb0 | dgw1 (D) | dgb1]
+    wgrads = torch.zeros((3 * D + 7, D), **f32)
+    rows = B * Nq * (k + has_global)
+    if rows:
+        splits = _backward_splits(rows, D)
+        ws = torch.empty(backward_workspace_floats(B, Nq, k, D, has_global), **f32)
+        partial = torch.empty(splits * (D + 1) * D, **f32)
+        ptr = _Pointers()
+        q_ptr, q_sb, q_sn = ptr.query(q_feats)
+        lib = _build.load("attention_bwd", _SIGNATURES_BWD)
+        err = lib.nsdp_fused_attention_bwd(
+            ptr(xyz_q), ptr(kv_xyz), ptr(idx), q_ptr, q_sb, q_sn,
+            ptr(K_a), ptr(V_a), ptr(k_glob), ptr(v_glob),
+            ptr.linear(delta_w0), ptr(delta_b0), ptr.linear(delta_w1), ptr(delta_b1),
+            ptr.linear(gamma_w0), ptr(gamma_b0), ptr.linear(gamma_w1), ptr(gamma_b1),
+            ptr(g), dxyz_q.data_ptr(), dkv_xyz.data_ptr(), ptr(dq), ptr(dK), ptr(dV),
+            ptr(dglob), ws.data_ptr(), partial.data_ptr(), wgrads.data_ptr(),
+            B, Nq, M, D, k, splits, xyz_q.device.index or 0, _build.stream_of(xyz_q),
+        )
+        _build.check(lib, err, f"attention backward kernel (B={B}, Nq={Nq}, M={M}, D={D}, k={k})")
+        fused_vector_attention_backward.launches += 1
+    e = 3 * D + 4
+    single = lambda t: None if t is None else t.float()
+    glob = (dglob[:, 0].float(), dglob[:, 1].float()) if has_global else (None, None)
+    return (
+        dxyz_q, single(dkv_xyz), dq, single(dK), single(dV),
+        wgrads[0:3], wgrads[3], wgrads[4:D + 4], wgrads[D + 4],
+        wgrads[D + 5:2 * D + 5], wgrads[2 * D + 5], wgrads[2 * D + 6:e + 2], wgrads[e + 2],
+        *glob,
+    )
+
+
+def fused_vector_attention_bwd_plain(
+    xyz_q, kv_xyz, q_feats, K_a, V_a,
+    delta_w0, delta_b0, delta_w1, delta_b1,
+    gamma_w0, gamma_b0, gamma_w1, gamma_b1,
+    k_glob, v_glob, idx, g,
+):
+    """K2's plain version: autograd over :func:`fused_vector_attention_plain`
+    with the selection fixed to ``idx``.  Returns the gradient of
+    ``sum(out * g)`` with respect to each operand, in the operands' order
+    (None for an operand that is None)."""
+    operands = (xyz_q, kv_xyz, q_feats, K_a, V_a, delta_w0, delta_b0, delta_w1,
+                delta_b1, gamma_w0, gamma_b0, gamma_w1, gamma_b1, k_glob, v_glob)
+    with torch.enable_grad():
+        leaves = [None if t is None else t.detach().requires_grad_() for t in operands]
+        out = fused_vector_attention_plain(*leaves[:13], idx.shape[-1], leaves[13],
+                                           leaves[14], idx=idx)
+        live = [t for t in leaves if t is not None]
+        grads = iter(torch.autograd.grad(out, live, g, allow_unused=True))
+    result = []
+    for t in leaves:
+        grad = None if t is None else next(grads)
+        if t is not None and grad is None:
+            grad = torch.zeros_like(t)
+        result.append(grad)
+    return tuple(result)
+
+
+def fused_vector_attention_backward(
+    xyz_q, kv_xyz, q_feats, K_a, V_a,
+    delta_w0, delta_b0, delta_w1, delta_b1,
+    gamma_w0, gamma_b0, gamma_w1, gamma_b1,
+    k_glob, v_glob, idx, g,
+):
+    """Gradients of the fused attention from its saved (B, Nq, k) ``idx``
+    and the output gradient ``g`` (B, Nq, D), in the operands' order:
+    ``(d xyz_q, d kv_xyz, d q_feats, d K_a, d V_a, 8 fc_delta/fc_gamma
+    gradients in the (in, out) layout, d k_glob, d v_glob)``; None for an
+    operand that is None.  A CPU input runs
+    :func:`fused_vector_attention_bwd_plain`; a CUDA input launches the
+    kernel of ``csrc/attention_bwd.cu`` (counted in
+    ``fused_vector_attention_backward.launches``) or raises."""
+    args = (xyz_q, kv_xyz, q_feats, K_a, V_a, delta_w0, delta_b0, delta_w1,
+            delta_b1, gamma_w0, gamma_b0, gamma_w1, gamma_b1, k_glob, v_glob, idx, g)
+    if xyz_q.device.type == "cpu":
+        return fused_vector_attention_bwd_plain(*args)
+    if xyz_q.device.type != "cuda":
+        raise RuntimeError(f"no attention backward kernel for device {xyz_q.device}")
+    return _launch_bwd(*args[:-1], g.contiguous())
+
+
+fused_vector_attention_backward.launches = 0
+
+
+class _FusedAttention(torch.autograd.Function):
+    """The differentiable attention: K1 (or the plain version) forward,
+    keeping the neighbour indices; K2 (or its plain version) backward."""
+
+    @staticmethod
+    def forward(ctx, xyz_q, kv_xyz, q_feats, K_a, V_a, delta_w0, delta_b0, delta_w1,
+                delta_b1, gamma_w0, gamma_b0, gamma_w1, gamma_b1, k_glob, v_glob,
+                penalty, k):
+        args = (xyz_q, kv_xyz, q_feats, K_a, V_a, delta_w0, delta_b0, delta_w1,
+                delta_b1, gamma_w0, gamma_b0, gamma_w1, gamma_b1)
+        if xyz_q.device.type == "cuda":
+            out, idx = _launch(*args, k, k_glob, v_glob, penalty)
+        else:
+            idx = select_neighbours(xyz_q, kv_xyz, k, penalty)
+            out = fused_vector_attention_plain(*args, k, k_glob, v_glob, idx=idx)
+        ctx.save_for_backward(*args, k_glob, v_glob, idx)
+        return out
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g):
+        grads = fused_vector_attention_backward(*ctx.saved_tensors, g)
+        return (*grads, None, None)  # kv_mask's penalty and k take none
 
 
 def fused_vector_attention(
@@ -213,7 +395,9 @@ def fused_vector_attention(
     Returns:
       (B, Nq, D) float32.  A CPU input runs the plain version; a CUDA input
       launches the kernel of ``csrc/attention.cu`` (counted in
-      ``fused_vector_attention.launches``) or raises.
+      ``fused_vector_attention.launches``) or raises.  With grad mode on and
+      an operand that requires grad, the result is differentiable (module
+      docstring); otherwise nothing is saved.
     """
     pos_only = q_feats is None
     if k_glob is not None and pos_only:
@@ -235,11 +419,14 @@ def fused_vector_attention(
     args = (xyz_q, kv_xyz, q_feats, K_a, V_a, delta_w0, delta_b0, delta_w1,
             delta_b1, gamma_w0, gamma_b0, gamma_w1, gamma_b1, k, k_glob,
             v_glob, penalty)
+    if xyz_q.device.type not in ("cpu", "cuda"):
+        raise RuntimeError(f"no attention kernel for device {xyz_q.device}")
+    operands = [t for t in args if isinstance(t, torch.Tensor)]
+    if torch.is_grad_enabled() and any(t.requires_grad for t in operands):
+        return _FusedAttention.apply(*args[:13], k_glob, v_glob, penalty, k)
     if xyz_q.device.type == "cpu":
         return fused_vector_attention_plain(*args)
-    if xyz_q.device.type != "cuda":
-        raise RuntimeError(f"no attention kernel for device {xyz_q.device}")
-    return _launch(*args)
+    return _launch(*args)[0]
 
 
 fused_vector_attention.launches = 0

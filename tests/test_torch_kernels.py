@@ -78,6 +78,39 @@ def _attention_case(rng, mode, masked, B=2, M=60, D=12, k=6, F=10, nq=25):
     return a, _weights(rng, D)
 
 
+FEATURES = ("xyz_q", "kv_xyz", "q_feats", "K_a", "V_a", "k_glob", "v_glob", "kv_feats", "wk", "wv")
+WEIGHTS = ("delta_w0", "delta_b0", "delta_w1", "delta_b1",
+           "gamma_w0", "gamma_b0", "gamma_w1", "gamma_b1")
+GRAD_TOL = dict(rtol=1e-3, atol=1e-4)  # the JAX package's own (test_attention_pallas.py:244-246)
+
+
+def _port_grads(a, w, G, device="cpu", dtype=torch.float32):
+    """Gradients of sum(out * G) through the port's autograd function, by
+    operand name, as numpy; and the kv_mask tensor (which must get none)."""
+    leaf = lambda x: torch.tensor(np.asarray(x), dtype=dtype, device=device, requires_grad=True)
+    feats = {n: leaf(a[n]) for n in FEATURES if a.get(n) is not None}
+    weights = [leaf(x) for x in w]
+    mask = None if a.get("kv_mask") is None else leaf(a["kv_mask"])
+    extra = {n: feats[n] for n in ("k_glob", "v_glob", "kv_feats", "wk", "wv") if n in feats}
+    out = port_attention.fused_vector_attention(
+        feats["xyz_q"], feats["kv_xyz"], feats.get("q_feats"), feats.get("K_a"),
+        feats.get("V_a"), *weights, k=a["k"], kv_mask=mask, **extra)
+    out.backward(torch.as_tensor(G, dtype=dtype, device=device))
+    grads = {n: t.grad.cpu().numpy() for n, t in feats.items()}
+    grads.update({n: t.grad.cpu().numpy() for n, t in zip(WEIGHTS, weights)})
+    return grads, mask
+
+
+def _assert_grads_close(got, ref):
+    assert sorted(got) == sorted(ref)
+    for name in ref:
+        if name == "gamma_b1":  # analytically zero: a bias shared by all slots
+            np.testing.assert_allclose(got[name], 0.0, atol=GRAD_TOL["atol"], err_msg=name)
+            np.testing.assert_allclose(ref[name], 0.0, atol=GRAD_TOL["atol"], err_msg=name)
+        else:
+            np.testing.assert_allclose(got[name], ref[name], **GRAD_TOL, err_msg=name)
+
+
 def _port_attention(a, w, device="cpu"):
     t = lambda x: None if x is None else torch.as_tensor(x, device=device)
     positional = ("xyz_q", "kv_xyz", "q_feats", "K_a", "V_a")
@@ -139,13 +172,48 @@ def test_attention_kernel_ties_go_to_the_lowest_index(k, cuda, rng):
     np.testing.assert_allclose(got.cpu().numpy(), ref.numpy(), rtol=1e-4, atol=1e-5)
 
 
+def _k2_against_plain(a, w, rng, cuda):
+    G = rng.randn(a["xyz_q"].shape[0], a["xyz_q"].shape[1], w[2].shape[0]).astype(np.float32)
+    before = (port_attention.fused_vector_attention.launches,
+              port_attention.fused_vector_attention_backward.launches)
+    got, mask = _port_grads(a, w, G, cuda)
+    torch.cuda.synchronize()
+    assert (port_attention.fused_vector_attention.launches,
+            port_attention.fused_vector_attention_backward.launches) == (before[0] + 1, before[1] + 1)
+    ref, _ = _port_grads(a, w, G, "cpu")
+    _assert_grads_close(got, ref)
+    assert mask is None or mask.grad is None
+
+
 @pytest.mark.gpu
-def test_attention_kernel_refuses_gradients(cuda, rng):
-    a, w = _attention_case(rng, "pos_only", False)
-    tw = [torch.as_tensor(x, device=cuda).requires_grad_() for x in w]
-    xyz = torch.as_tensor(a["xyz_q"], device=cuda)
-    with pytest.raises(RuntimeError, match="forward-only"):
-        port_attention.fused_vector_attention(xyz, xyz, None, None, None, *tw, k=4)
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("mode", ["pos_only", "table", "proj", "global"])
+def test_attention_backward_kernel_matches_plain(mode, masked, cuda, rng):
+    """K2 (one launch per backward) against its plain version on the CPU."""
+    _k2_against_plain(*_attention_case(rng, mode, masked), rng, cuda)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode,D,k", [("pos_only", 120, 10), ("table", 120, 16),
+                                      ("global", 200, 7), ("table", 256, 16)])
+def test_attention_backward_kernel_widths(mode, D, k, cuda, rng):
+    """The training sites' widths (D = 120, 200, 256), masked."""
+    a, w = _attention_case(rng, mode, True, B=2, M=300, D=D, k=k, nq=77)
+    _k2_against_plain(a, w, rng, cuda)
+
+
+@pytest.mark.gpu
+def test_attention_backward_never_runs_plain_on_the_card(cuda, rng, monkeypatch):
+    def refuse(*args):
+        raise AssertionError("the plain backward ran on CUDA tensors")
+
+    monkeypatch.setattr(port_attention, "fused_vector_attention_bwd_plain", refuse)
+    a, w = _attention_case(rng, "global", False)
+    G = rng.randn(*a["xyz_q"].shape[:2], w[2].shape[0]).astype(np.float32)
+    before = port_attention.fused_vector_attention_backward.launches
+    grads, _ = _port_grads(a, w, G, cuda)
+    assert port_attention.fused_vector_attention_backward.launches == before + 1
+    assert all(np.isfinite(g).all() for g in grads.values())
 
 
 @pytest.mark.gpu

@@ -94,6 +94,8 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
     banned = ("jax", "jaxlib", "flax", "optax", "nsdp_tpu")
     sources = _port_sources()
     assert len(sources) > 10 and all(p.exists() for p in sources)
+    assert {REPO / "nsdp_tpu_torch" / "training" / f"{m}.py"
+            for m in ("optim", "steps", "checkpoints", "partial_load")} <= set(sources)
     offenders = [
         f"{p.relative_to(REPO)}: {mod}"
         for p in sources
