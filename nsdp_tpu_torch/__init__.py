@@ -1,12 +1,15 @@
 """PyTorch/CUDA port of NSDP for NVIDIA Hopper (H100).
 
 A second package beside the JAX/TPU one (``nsdp_tpu``), which stays the
-numerical reference.  Plain tensor code is PyTorch; the TPU kernels on the
-inference and training paths are hand-written CUDA kernels under ``csrc/``:
+numerical reference.  Plain tensor code is PyTorch; every TPU kernel of the
+JAX package is a hand-written CUDA kernel under ``csrc/``:
 
 * fused kNN vector attention, forward (``ops/attention.py`` +
   ``csrc/attention.cu``) and backward (``csrc/attention_bwd.cu``),
-* furthest-point sampling (``ops/fps.py`` + ``csrc/fps.cu``).
+* furthest-point sampling (``ops/fps.py`` + ``csrc/fps.cu``),
+* k nearest points (``ops/knn.py`` + ``csrc/knn.cu``),
+* the row gather of the PointNet++ grouping (``ops/gather.py`` +
+  ``csrc/gather.cu``).
 
 Entry points run on ``cuda`` unless the caller asks for the CPU
 (``device="cpu"``), where every kernel wrapper takes its plain PyTorch

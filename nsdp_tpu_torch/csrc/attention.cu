@@ -26,8 +26,9 @@
 //     eight queries per block sharing each chunk of kv points staged in
 //     shared memory; each lane keeps a sorted list of its best candidates in
 //     registers (branch-free insertion) over a strided scan, and the lists
-//     merge with k rounds of warp arg-min.  Apart from the attention kernel,
-//     its candidate lists do not crowd the registers of the products.
+//     merge with k rounds of warp arg-min (knn_select.cuh, shared with the
+//     standalone kNN of knn.cu).  Apart from the attention kernel, its
+//     candidate lists do not crowd the registers of the products.
 //   * attn_kernel (steps 3-4) is a small f32 GEMM engine on the CUDA cores
 //     (rows_gemm.cuh) that keeps the TPU kernel's defining property -- no
 //     per-neighbour per-channel (Nq, k, D) tensor ever reaches device
@@ -40,22 +41,18 @@
 // weights are read in place, with no copy per call.
 
 #include <cuda_runtime.h>
-#include <math_constants.h>
 
-#include <climits>
 #include <cstdint>
 
+#include "knn_select.cuh"
 #include "rows_gemm.cuh"
 
 namespace {
 
 using namespace rows;
 
-constexpr int kKMax = 32;             // largest k
+constexpr int kKMax = knnsel::kKMax;  // largest k
 constexpr int kDMax = 256;            // largest channel width
-constexpr int kSelWarps = kThreads / 32;  // queries per selection block
-constexpr int kChunk = 2048;          // kv points per staged selection chunk
-constexpr unsigned kFull = 0xffffffffu;
 
 struct Params {
   const float* xyz_q;    // (B, Nq, 3)
@@ -75,104 +72,13 @@ struct Params {
   int B, Nq, M, D, k;
 };
 
-__device__ __forceinline__ bool knn_less(float da, int ia, float db, int ib) {
-  return da < db || (da == db && ia < ib);
-}
+// ---- kNN selection (knn_select.cuh, shared with K4) -------------------------
 
-// ---- kNN selection ----------------------------------------------------------
-
-// Per-lane candidate lists live in registers: KL (8, 16 or 32 >= k) entries
-// sorted ascending by (distance, index), padded with (+inf, INT_MAX); every
-// index into them is a compile-time constant after unrolling.
-
-// Insert (d, n) into the list, keeping its KL smallest entries (branch-free:
-// the displaced entry bubbles down to the end).
 template <int KL>
-__device__ __forceinline__ void list_insert(float (&ld)[KL], int (&li)[KL], float d, int n) {
-#pragma unroll
-  for (int i = 0; i < KL; ++i) {
-    const bool lt = knn_less(d, n, ld[i], li[i]);
-    const float od = ld[i];
-    const int oi = li[i];
-    ld[i] = lt ? d : od;
-    li[i] = lt ? n : oi;
-    d = lt ? od : d;
-    n = lt ? oi : n;
-  }
-}
-
-// Merge the lanes' lists by k rounds of warp arg-min, ties to the lower
-// index; the winning lane pops its head.  Lane 0 writes the merged
-// ascending indices (padding, never reached as k <= M, would become 0).
-template <int KL>
-__device__ void warp_merge(float (&ld)[KL], int (&li)[KL], int k, int lane, int* out) {
-  for (int r = 0; r < k; ++r) {
-    float bd = ld[0];
-    int bi = li[0];
-    for (int off = 16; off > 0; off >>= 1) {
-      const float od = __shfl_xor_sync(kFull, bd, off);
-      const int oi = __shfl_xor_sync(kFull, bi, off);
-      if (knn_less(od, oi, bd, bi)) {
-        bd = od;
-        bi = oi;
-      }
-    }
-    if (bi == li[0] && bi != INT_MAX) {  // a kv index lives in one lane only
-#pragma unroll
-      for (int i = 0; i + 1 < KL; ++i) {
-        ld[i] = ld[i + 1];
-        li[i] = li[i + 1];
-      }
-      ld[KL - 1] = CUDART_INF_F;
-      li[KL - 1] = INT_MAX;
-    }
-    if (lane == 0) out[r] = bi == INT_MAX ? 0 : bi;
-  }
-}
-
-// idx[b, n, :] = the k nearest kv points of query n, ascending, ties to the
-// lowest index.  Warp w of block x handles query x * 8 + w; its lanes scan
-// the kv points in increasing order, lane l taking every 32nd from l.
-template <int KL>
-__global__ void __launch_bounds__(kThreads) knn_kernel(
+__global__ void __launch_bounds__(knnsel::kThreads) knn_kernel(
     const float* __restrict__ xyz_q, const float* __restrict__ kv_xyz,
     const float* __restrict__ penalty, int Nq, int M, int k, int* __restrict__ idx) {
-  __shared__ float4 pts[kChunk];  // x, y, z, penalty
-  const int b = blockIdx.y, tid = threadIdx.x, lane = tid & 31;
-  const int n = blockIdx.x * kSelWarps + (tid >> 5);
-  const bool live = n < Nq;
-  const float* kv = kv_xyz + (size_t)b * M * 3;
-  const float* pen = penalty ? penalty + (size_t)b * M : nullptr;
-  const float* xq = xyz_q + ((size_t)b * Nq + (live ? n : 0)) * 3;
-  const float qx = xq[0], qy = xq[1], qz = xq[2];
-  float ld[KL];
-  int li[KL];
-#pragma unroll
-  for (int i = 0; i < KL; ++i) {
-    ld[i] = CUDART_INF_F;
-    li[i] = INT_MAX;
-  }
-  for (int base = 0; base < M; base += kChunk) {
-    const int cn = min(kChunk, M - base);
-    __syncthreads();  // the previous chunk is consumed
-    for (int e = tid; e < cn; e += kThreads) {
-      const float* src = kv + (size_t)(base + e) * 3;
-      pts[e] = make_float4(src[0], src[1], src[2], pen ? pen[base + e] : 0.0f);
-    }
-    __syncthreads();
-    if (!live) continue;
-    for (int e = lane; e < cn; e += 32) {
-      const float4 c = pts[e];
-      const float ex = __fsub_rn(qx, c.x);
-      const float ey = __fsub_rn(qy, c.y);
-      const float ez = __fsub_rn(qz, c.z);
-      float d = __fadd_rn(c.w, __fmul_rn(ex, ex));
-      d = __fadd_rn(d, __fmul_rn(ey, ey));
-      d = __fadd_rn(d, __fmul_rn(ez, ez));
-      if (knn_less(d, base + e, ld[KL - 1], li[KL - 1])) list_insert(ld, li, d, base + e);
-    }
-  }
-  if (live) warp_merge(ld, li, k, lane, idx + ((size_t)b * Nq + n) * k);
+  knnsel::select_body<KL, false>(xyz_q, kv_xyz, penalty, Nq, M, k, idx, nullptr);
 }
 
 // ---- attention over the selected slots --------------------------------------
@@ -324,13 +230,14 @@ cudaError_t launch_attention(const Params& p, int device, cudaStream_t stream) {
 
 cudaError_t launch_knn(const float* xyz_q, const float* kv_xyz, const float* penalty, int B,
                        int Nq, int M, int k, int* idx, cudaStream_t stream) {
-  const dim3 grid((Nq + kSelWarps - 1) / kSelWarps, B);
+  const dim3 grid((Nq + knnsel::kWarps - 1) / knnsel::kWarps, B);
+  const int t = knnsel::kThreads;
   if (k <= 8)
-    knn_kernel<8><<<grid, kThreads, 0, stream>>>(xyz_q, kv_xyz, penalty, Nq, M, k, idx);
+    knn_kernel<8><<<grid, t, 0, stream>>>(xyz_q, kv_xyz, penalty, Nq, M, k, idx);
   else if (k <= 16)
-    knn_kernel<16><<<grid, kThreads, 0, stream>>>(xyz_q, kv_xyz, penalty, Nq, M, k, idx);
+    knn_kernel<16><<<grid, t, 0, stream>>>(xyz_q, kv_xyz, penalty, Nq, M, k, idx);
   else
-    knn_kernel<32><<<grid, kThreads, 0, stream>>>(xyz_q, kv_xyz, penalty, Nq, M, k, idx);
+    knn_kernel<32><<<grid, t, 0, stream>>>(xyz_q, kv_xyz, penalty, Nq, M, k, idx);
   return cudaGetLastError();
 }
 

@@ -7,8 +7,11 @@ reference (``model/__init__.py:43-118``):
 * ``backward``  -> DeformationNetwork(no_input_corr=True)
 * ``arbitrary`` -> FlowArbitrary(backward net, forward net)
 
-Only the shipped architecture (``pointransformer`` encoder,
-``crossatten`` decoder) is ported so far.
+The encoder is ``pointransformer`` (shipped) or ``pointnet++`` (ablation),
+the decoder ``crossatten`` (shipped) or ``interp`` (ablation), by
+``encoder_dict`` / ``decoder_dict`` as in ``nsdp_tpu/models/__init__.py:79-100``.
+The port has one path (every kNN attention through the fused kernel), so
+``fused_attention`` is not read.
 """
 
 from typing import Any, Dict
@@ -17,9 +20,17 @@ import torch
 from torch import nn
 
 from nsdp_tpu_torch import resolve_device
-from nsdp_tpu_torch.models.decoders import CrossTransformerDecoder
+from nsdp_tpu_torch.models.decoders import (
+    CrossTransformerDecoder,
+    PointInterpDecoder,
+    decoder_dict,
+)
 from nsdp_tpu_torch.models.deformation import DeformationNetwork, FlowArbitrary
-from nsdp_tpu_torch.models.encoders import PointTransformerEncoder
+from nsdp_tpu_torch.models.encoders import (
+    PointNetPlusPlusEncoder,
+    PointTransformerEncoder,
+    encoder_dict,
+)
 from nsdp_tpu_torch.nn.blocks import BatchNorm
 
 __all__ = [
@@ -29,7 +40,11 @@ __all__ = [
     "CrossTransformerDecoder",
     "DeformationNetwork",
     "FlowArbitrary",
+    "PointInterpDecoder",
+    "PointNetPlusPlusEncoder",
     "PointTransformerEncoder",
+    "decoder_dict",
+    "encoder_dict",
 ]
 
 
@@ -46,17 +61,12 @@ def build_deformation_network(config: Dict[str, Any], no_input_corr: bool = Fals
     """One encoder + decoder on ``device`` (``cuda`` unless told otherwise)."""
     device = resolve_device(device)
     model_cfg = config["model"]
-    if model_cfg["encoder"] != "pointransformer" or model_cfg["decoder"] != "crossatten":
-        raise NotImplementedError(
-            "only the pointransformer encoder and crossatten decoder are "
-            f"ported, got {model_cfg['encoder']!r} / {model_cfg['decoder']!r}"
-        )
     has_features, inp_feat_dim = _feature_dims(model_cfg, no_input_corr)
-    encoder = PointTransformerEncoder(
+    encoder = encoder_dict[model_cfg["encoder"]](
         **model_cfg["encoder_kwargs"], has_features=has_features,
         inp_feat_dim=inp_feat_dim, device=device,
     )
-    decoder = CrossTransformerDecoder(**model_cfg["decoder_kwargs"], device=device)
+    decoder = decoder_dict[model_cfg["decoder"]](**model_cfg["decoder_kwargs"], device=device)
     return DeformationNetwork(encoder, decoder, no_input_corr=no_input_corr,
                               use_normals=model_cfg.get("use_normals", False))
 

@@ -1,9 +1,10 @@
-"""Eval-mode point-transformer building blocks."""
+"""Point-transformer and PointNet++ building blocks, train and eval mode."""
 
 from nsdp_tpu_torch.nn.blocks import (
     BatchNorm,
     CrossTransformerBlock,
     ElementwiseMLP,
+    PointNetSetAbstraction,
     ResnetBlockFC,
     TransformerBlock,
     TransformerSetAbstraction,
@@ -15,6 +16,7 @@ __all__ = [
     "BatchNorm",
     "CrossTransformerBlock",
     "ElementwiseMLP",
+    "PointNetSetAbstraction",
     "ResnetBlockFC",
     "TransformerBlock",
     "TransformerSetAbstraction",

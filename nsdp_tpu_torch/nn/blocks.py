@@ -2,9 +2,11 @@
 
 Counterparts of ``nsdp_tpu/nn/blocks.py`` (reference ``model/encoder/blocks.py``
 and ``model/decoder/blocks.py``).  There is one path: every kNN vector
-attention goes through :func:`nsdp_tpu_torch.ops.fused_vector_attention` and
+attention goes through :func:`nsdp_tpu_torch.ops.fused_vector_attention`,
 every furthest-point sampling through
-:func:`nsdp_tpu_torch.ops.furthest_point_sample`; only the full
+:func:`nsdp_tpu_torch.ops.furthest_point_sample`, and the max-pool set
+abstraction's grouping through :func:`nsdp_tpu_torch.ops.knn.knn` and
+:func:`nsdp_tpu_torch.ops.gather_rows`; only the full
 self-attention over the final anchors (group-all, ~100 points) stays plain
 tensor code, as in ``nsdp_tpu/models/fast_encoder.py:82-91``.
 
@@ -20,7 +22,13 @@ from typing import Optional
 import torch
 from torch import nn
 
-from nsdp_tpu_torch.ops import fused_vector_attention, furthest_point_sample, index_points
+from nsdp_tpu_torch.ops import (
+    fused_vector_attention,
+    furthest_point_sample,
+    gather_rows,
+    index_points,
+)
+from nsdp_tpu_torch.ops.knn import knn
 
 
 class TwoLayerMLP(nn.Sequential):
@@ -200,13 +208,63 @@ class TransformerSetAbstraction(nn.Module):
         return new_xyz, self.bnorm2(out)
 
 
-class TransitionDown(nn.Module):
-    """Downsampling wrapper (reference ``model/encoder/blocks.py:18-49``);
-    the attentive set abstraction is the only kind in this port so far."""
+class PointNetSetAbstraction(nn.Module):
+    """PointNet++-style downsampling: FPS + kNN grouping + max-pool
+    (``nsdp_tpu/nn/blocks.py:535-573``; reference
+    ``model/encoder/blocks.py:162-217``), the ablation ``pointnet++``
+    encoder's set abstraction.
+
+    The FPS centres are picked on the detached coordinates (masked points
+    moved to the origin, which FPS never selects) and grouped by
+    :func:`nsdp_tpu_torch.ops.knn.knn` (K4) on detached coordinates, but the
+    returned centres ``new_xyz`` are gathered from ``xyz`` itself: unlike
+    the attentive set abstraction, gradient flows through them into the
+    input coordinates (in stage 2, into the canonicalised points).  The
+    grouping gather is :func:`nsdp_tpu_torch.ops.gather_rows`; the max over
+    the neighbours is ``torch.amax``, whose gradient is split evenly among
+    tied maxima, as ``jnp.max``'s is.  ``kv_mask`` (B, N) also weights the
+    statistics of ``bn1`` and ``bn2``."""
 
     def __init__(self, npoint: int, nneigh: int, dim: int, device=None):
         super().__init__()
-        self.sa = TransformerSetAbstraction(npoint, nneigh, dim, device)
+        self.npoint, self.nneigh = npoint, nneigh
+        self.fc1 = nn.Linear(dim, dim, device=device)
+        self.conv1 = nn.Linear(dim, dim, device=device)
+        self.bn1 = BatchNorm(dim, device)
+        self.conv2 = nn.Linear(dim, dim, device=device)
+        self.bn2 = BatchNorm(dim, device)
+        self.bn = BatchNorm(dim, device)
+
+    def forward(self, xyz, points, kv_mask=None):
+        xyz_ng = xyz.detach()
+        fps_xyz = xyz_ng if kv_mask is None else xyz_ng * kv_mask[..., None].to(xyz.dtype)
+        fps_idx = furthest_point_sample(fps_xyz, self.npoint)
+        new_xyz = index_points(xyz, fps_idx)
+        points = self.fc1(points)
+        points_ori = index_points(points, fps_idx)
+        h = torch.relu(self.bn1(self.conv1(points), kv_mask))
+        h = torch.relu(self.bn2(self.conv2(h), kv_mask))
+        points = points + h
+        idx = knn(new_xyz.detach(), xyz_ng, self.nneigh, kv_mask=kv_mask)
+        grouped = gather_rows(points, idx)
+        new_points = self.bn(points_ori + torch.amax(grouped, dim=2))
+        return new_xyz, new_points
+
+
+class TransitionDown(nn.Module):
+    """Downsampling wrapper (reference ``model/encoder/blocks.py:18-49``):
+    ``sa_type`` 'attentive' (:class:`TransformerSetAbstraction`) or
+    'maxpool' (:class:`PointNetSetAbstraction`)."""
+
+    def __init__(self, npoint: int, nneigh: int, dim: int, sa_type: str = "attentive",
+                 device=None):
+        super().__init__()
+        if sa_type == "attentive":
+            self.sa = TransformerSetAbstraction(npoint, nneigh, dim, device)
+        elif sa_type == "maxpool":
+            self.sa = PointNetSetAbstraction(npoint, nneigh, dim, device)
+        else:
+            raise ValueError(f"unknown set abstraction type {sa_type!r}")
 
     def forward(self, xyz, points, kv_mask=None):
         return self.sa(xyz, points, kv_mask)

@@ -19,7 +19,7 @@ from typing import Dict, Iterable, Optional, Sequence, Tuple
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = CSRC / "build"
-SOURCES = ("attention", "attention_bwd", "fps")
+SOURCES = ("attention", "attention_bwd", "fps", "knn", "gather")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",

@@ -46,38 +46,14 @@ from torch.autograd.function import once_differentiable
 
 from nsdp_tpu_torch.ops import _build
 from nsdp_tpu_torch.ops.gather import index_points
+from nsdp_tpu_torch.ops.knn import mask_penalty, select
 
 KMAX = 32  # most softmax slots (neighbours + global token) the kernel takes
 DMAX = 256  # widest channel count the kernel takes
 
 
-def mask_penalty(kv_mask: torch.Tensor) -> torch.Tensor:
-    """Additive squared-distance penalty for masked kv points
-    (``nsdp_tpu/ops/knn.py:21-30``).
-
-    Finite 1e30 rather than inf: it keeps the selection's comparisons exact
-    while dwarfing any real squared distance, so masked points sort after
-    every selectable one.  ``(B, M)`` mask, nonzero = selectable.
-    """
-    return (kv_mask == 0).to(torch.float32) * 1e30
-
-
 def _mlp2(x, w0, b0, w1, b1):
     return torch.relu(x @ w0 + b0) @ w1 + b1
-
-
-def select_neighbours(xyz_q, kv_xyz, k: int, penalty=None) -> torch.Tensor:
-    """(B, Nq, k) indices of the k nearest kv points, ascending, ties to the
-    lowest index.  ``d2 = penalty + sum_c (x_q,c - x_kv,c)^2`` summed in
-    that order, as the kernel does."""
-    B, M = kv_xyz.shape[0], kv_xyz.shape[1]
-    if penalty is None:
-        penalty = torch.zeros((B, M), dtype=torch.float32, device=kv_xyz.device)
-    d2 = penalty[:, None, :]
-    for c in range(3):
-        diff = xyz_q[:, :, None, c] - kv_xyz[:, None, :, c]
-        d2 = d2 + diff * diff
-    return torch.sort(d2, dim=-1, stable=True).indices[..., :k]
 
 
 def fused_vector_attention_plain(
@@ -87,11 +63,12 @@ def fused_vector_attention_plain(
     k: int, k_glob=None, v_glob=None, penalty=None, idx=None,
 ):
     """The attention in plain tensor ops; the (B, Nq, k, D) neighbourhood
-    tensors are materialised.  ``k`` is already clamped to M.  A given
-    ``idx`` (B, Nq, k) replaces the selection (``k`` and ``penalty`` are
-    then unused)."""
+    tensors are materialised.  ``k`` is already clamped to M.  The
+    neighbours are K4's plain selection (``ops/knn.py::select``), which the
+    kernel's ``knn_kernel`` computes too; a given ``idx`` (B, Nq, k)
+    replaces it (``k`` and ``penalty`` are then unused)."""
     if idx is None:
-        idx = select_neighbours(xyz_q, kv_xyz, k, penalty)
+        idx = select(xyz_q, kv_xyz, k, penalty)[0]
     dx = xyz_q[:, :, None, :] - index_points(kv_xyz, idx)
     pos = _mlp2(dx, delta_w0, delta_b0, delta_w1, delta_b1)
     if q_feats is None:
@@ -345,7 +322,7 @@ class _FusedAttention(torch.autograd.Function):
         if xyz_q.device.type == "cuda":
             out, idx = _launch(*args, k, k_glob, v_glob, penalty)
         else:
-            idx = select_neighbours(xyz_q, kv_xyz, k, penalty)
+            idx = select(xyz_q, kv_xyz, k, penalty)[0]
             out = fused_vector_attention_plain(*args, k, k_glob, v_glob, idx=idx)
         ctx.save_for_backward(*args, k_glob, v_glob, idx)
         return out

@@ -93,7 +93,8 @@ def make_steps(model: nn.Module, model_type: str, optimizer: torch.optim.Optimiz
     arbitrary = model_type == "arbitrary"
     all_bns = _batch_norms(model)
     cano_bns = _batch_norms(model.model_canonicalize.encoder) if arbitrary else []
-    dtype = next(model.parameters()).dtype
+    params = list(model.parameters())
+    dtype = params[0].dtype
 
     def tensor(x):
         return None if x is None else torch.as_tensor(x, dtype=dtype, device=device)
@@ -120,6 +121,13 @@ def make_steps(model: nn.Module, model_type: str, optimizer: torch.optim.Optimiz
             optimizer.zero_grad(set_to_none=True)
             return value
         _double_bn_update(cano_bns, saved_cano)
+        for p in params:
+            # a parameter the loss does not reach (the interp decoder leaves
+            # the encoder's ``fc_middle`` unused) takes a zero gradient, as
+            # in the JAX package: torch's optimizers would skip it, its
+            # weight decay and its Adam step count included
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
         set_learning_rate(optimizer, lr)
         optimizer.step()
         return value

@@ -11,7 +11,14 @@ port's own copy:
 * BatchNorms lose the wrapper level ``bn`` (``bn1/bn`` <- ``bn1``);
   ``scale``/``bias`` <- ``weight``/``bias``, ``mean``/``var`` <-
   ``running_mean``/``running_var``, plus ``num_batches_tracked`` = 0;
+  flax's own BatchNorm (no wrapper level: the shared MLPs of
+  ``ops/pointnet2_compat.py``, ``mlp0/bn0``) maps the same leaves;
 * Dense ``kernel`` (in, out) <- Linear ``weight`` (out, in), transposed.
+
+The PointNet++ encoder and the interpolation decoder need no rule of their
+own: ``fc_begin`` is a two-layer MLP, ``transition_downs_0/sa/{fc1, conv1,
+conv2}`` and the decoder's ``fc0``/``fc1`` are Dense layers outside a
+Sequential, ``sa/{bn1, bn2, bn}`` wrapped BatchNorms.
 """
 
 import re
@@ -73,8 +80,9 @@ def from_jax_variables(params, batch_stats) -> Dict[str, torch.Tensor]:
     state: Dict[str, torch.Tensor] = {}
     for path, value in list(_leaves(params)) + list(_leaves(batch_stats)):
         *mods, leaf = path
-        if len(mods) >= 2 and mods[-1] == "bn" and mods[-2] in _BN_NAMES:
-            name = _module_name(mods[:-1])
+        wrapped = len(mods) >= 2 and mods[-1] == "bn" and mods[-2] in _BN_NAMES
+        if wrapped or leaf in ("scale", "mean", "var"):
+            name = _module_name(mods[:-1] if wrapped else mods)
             state[f"{name}.{_BN_LEAVES[leaf]}"] = torch.tensor(value, dtype=torch.float32)
             state[f"{name}.num_batches_tracked"] = torch.tensor(0, dtype=torch.long)
         elif leaf == "kernel":

@@ -15,6 +15,8 @@ import torch
 
 from nsdp_tpu_torch.ops import attention as port_attention
 from nsdp_tpu_torch.ops import fps as port_fps
+from nsdp_tpu_torch.ops import gather as port_gather
+from nsdp_tpu_torch.ops import knn as port_knn
 
 
 @pytest.fixture
@@ -229,3 +231,88 @@ def test_attention_kernel_reads_transposed_weights(mode, D, cuda, rng):
         assert all(v.stride(0) == 1 for v in views if isinstance(v, torch.Tensor))
         got = _port_attention(a, views, cuda)
     np.testing.assert_allclose(got.cpu().numpy(), ref.cpu().numpy(), rtol=1e-6, atol=1e-6)
+
+
+# ---------------------------------------------------------------- K4 and the row gather
+
+
+def _knn_case(rng, B, Nq, M, masked):
+    kv = rng.randn(B, M, 3).astype(np.float32)
+    q = rng.randn(B, Nq, 3).astype(np.float32)
+    mask = None
+    if masked:
+        mask = (rng.rand(B, M) > 0.3).astype(np.float32)
+        mask[:, :32] = 1.0
+    return q, kv, mask
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,Nq,M,k,masked", [
+    (1, 500, 5000, 16, False), (8, 100, 500, 16, False), (2, 300, 3000, 10, True),
+    (1, 77, 64, 7, False), (2, 40, 300, 32, True), (1, 200, 20000, 16, False),
+])
+def test_knn_kernel_matches_plain(B, Nq, M, k, masked, cuda, rng):
+    """Indices and distances bit for bit, one launch per call; the last
+    case streams a cloud larger than shared memory holds."""
+    q, kv, mask = _knn_case(rng, B, Nq, M, masked)
+    t = lambda a: None if a is None else torch.from_numpy(a).to(cuda)
+    before = port_knn.knn.launches
+    idx, d2 = port_knn.knn(t(q), t(kv), k, return_dist=True, kv_mask=t(mask))
+    only_idx = port_knn.knn(t(q), t(kv), k, kv_mask=t(mask))
+    torch.cuda.synchronize()
+    assert port_knn.knn.launches == before + 2
+    ref_idx, ref_d2 = port_knn.knn_plain(t(q), t(kv), k, return_dist=True, kv_mask=t(mask))
+    assert idx.dtype == torch.int32 and torch.equal(idx, ref_idx) and torch.equal(only_idx, ref_idx)
+    assert torch.equal(d2, ref_d2)
+
+
+@pytest.mark.gpu
+def test_knn_kernel_ties_go_to_the_lowest_index(cuda, rng):
+    kv = np.tile(rng.randn(1, 50, 3).astype(np.float32), (1, 3, 1))
+    x = torch.from_numpy(kv).to(cuda)
+    got = port_knn.knn(x, x, 16)
+    assert torch.equal(got, port_knn.knn_plain(x, x, 16))
+    assert torch.equal(got[0, :50, :3], torch.arange(50, device=cuda)[:, None] + torch.tensor(
+        [0, 50, 100], device=cuda, dtype=torch.int32))
+
+
+@pytest.mark.gpu
+def test_knn_kernel_refuses_what_it_does_not_take(cuda):
+    x = torch.zeros(1, 8, 3, device=cuda)
+    with pytest.raises(ValueError, match="k=9 > number of points 8"):
+        port_knn.knn(x, x, 9)
+    with pytest.raises(TypeError, match="float32"):
+        port_knn.knn(x.double(), x.double(), 4)
+    with pytest.raises(ValueError, match="k <= 32"):
+        port_knn.knn(torch.zeros(1, 8, 3, device=cuda), torch.zeros(1, 40, 3, device=cuda), 33)
+    with pytest.raises(ValueError, match="expected"):
+        port_knn.knn(x, torch.zeros(2, 8, 3, device=cuda), 4)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,M,W,S,k", [(1, 5000, 256, 500, 16), (2, 500, 256, 100, 16),
+                                       (1, 5120, 256, 5120, 16), (2, 30, 6, 7, 5)])
+def test_gather_kernel_matches_plain(B, M, W, S, k, cuda, rng):
+    """Bit for bit, one launch; W = 6 takes the 4-byte copies."""
+    table = torch.from_numpy(rng.randn(B, M, W).astype(np.float32)).to(cuda)
+    idx = torch.from_numpy(rng.randint(0, M, size=(B, S, k)).astype(np.int32)).to(cuda)
+    before = port_gather.gather_rows.launches
+    got = port_gather.gather_rows(table, idx)
+    torch.cuda.synchronize()
+    assert port_gather.gather_rows.launches == before + 1
+    assert got.shape == (B, S, k, W) and torch.equal(got, port_gather.gather_rows_plain(table, idx))
+
+
+@pytest.mark.gpu
+def test_gather_kernel_gradient_and_refusals(cuda, rng):
+    table = torch.from_numpy(rng.randn(2, 40, 8).astype(np.float32)).to(cuda).requires_grad_()
+    idx = torch.from_numpy(rng.randint(0, 40, size=(2, 6, 4)).astype(np.int32)).to(cuda)
+    g = torch.from_numpy(rng.randn(2, 6, 4, 8).astype(np.float32)).to(cuda)
+    port_gather.gather_rows(table, idx).backward(g)
+    ref = table.detach().cpu().requires_grad_()
+    port_gather.gather_rows(ref, idx.cpu()).backward(g.cpu())
+    torch.testing.assert_close(table.grad.cpu(), ref.grad, rtol=1e-6, atol=1e-6)
+    with pytest.raises(TypeError, match="float32"):
+        port_gather.gather_rows(table.detach().double(), idx)
+    with pytest.raises(TypeError, match="int32"):
+        port_gather.gather_rows(table.detach(), idx.long())

@@ -19,6 +19,8 @@ from nsdp_tpu.ops.fps import furthest_point_sample_xla
 from nsdp_tpu.ops.fps_pallas import furthest_point_sample_pallas
 from nsdp_tpu_torch.ops import attention as port_attention
 from nsdp_tpu_torch.ops import fps as port_fps
+from nsdp_tpu_torch.ops import gather as port_gather
+from nsdp_tpu_torch.ops import knn as port_knn
 from tests.test_torch_kernels import _attention_case, _clouds, _port_attention
 
 REPO = Path(__file__).resolve().parent.parent
@@ -96,6 +98,8 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
     assert len(sources) > 10 and all(p.exists() for p in sources)
     assert {REPO / "nsdp_tpu_torch" / "training" / f"{m}.py"
             for m in ("optim", "steps", "checkpoints", "partial_load")} <= set(sources)
+    assert {REPO / "nsdp_tpu_torch" / "ops" / f"{m}.py"
+            for m in ("knn", "gather", "geometry", "pointnet2_compat")} <= set(sources)
     offenders = [
         f"{p.relative_to(REPO)}: {mod}"
         for p in sources
@@ -108,12 +112,15 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
 def test_wrappers_dispatch_on_device(rng):
     """CPU tensors take the plain versions and never count a launch."""
     a, w = _attention_case(rng, "pos_only", False)
-    before = (port_attention.fused_vector_attention.launches,
-              port_fps.furthest_point_sample.launches)
+    counters = (port_attention.fused_vector_attention, port_fps.furthest_point_sample,
+                port_knn.knn, port_gather.gather_rows)
+    before = [f.launches for f in counters]
     _port_attention(a, w)
-    port_fps.furthest_point_sample(torch.from_numpy(a["kv_xyz"]), 4)
-    assert (port_attention.fused_vector_attention.launches,
-            port_fps.furthest_point_sample.launches) == before
+    kv = torch.from_numpy(a["kv_xyz"])
+    port_fps.furthest_point_sample(kv, 4)
+    idx = port_knn.knn(kv[:, :5], kv, 3)
+    port_gather.gather_rows(kv, idx)
+    assert [f.launches for f in counters] == before
     with pytest.raises(RuntimeError, match="no FPS kernel"):
         port_fps.furthest_point_sample(torch.zeros(1, 4, 3, device="meta"), 2)
 

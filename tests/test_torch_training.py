@@ -70,8 +70,8 @@ def batches(seed, n_steps, B=2, N=24, Q=10, masked=False):
     return out
 
 
-def port_model(model_type, seed=0):
-    return init_random(build_model(config(model_type), device="cpu"), seed)
+def port_model(model_type, seed=0, cfg=None):
+    return init_random(build_model(cfg or config(model_type), device="cpu"), seed)
 
 
 def jax_variables(model):
@@ -112,15 +112,18 @@ def assert_first_moments_close(model, opt, state):
                                    err_msg="/".join(path))
 
 
-def train_both(model_type, stream, train_cfg):
+def train_both(model_type, stream, train_cfg, cfg=None):
     """The same steps on both sides -> (port losses, JAX losses, port model,
-    JAX state).  The learning rate steps per epoch with step == epoch."""
-    model = port_model(model_type)
+    JAX state).  The learning rate steps per epoch with step == epoch.
+    ``cfg``: the model config (default: the shipped architecture at small
+    widths, ``config(model_type)``)."""
+    cfg = cfg or config(model_type)
+    model = port_model(model_type, cfg=cfg)
     params, stats = jax_variables(model)
     schedule, opt = optimizer_factory(train_cfg, model.parameters())
     steps = make_steps(model, model_type, opt, device="cpu")
     jschedule, tx = jax_optimizer_factory(train_cfg)
-    jsteps = jax_make_steps(jax_build_model(config(model_type)), model_type, tx)
+    jsteps = jax_make_steps(jax_build_model(cfg), model_type, tx)
     state = TrainState(params=params, batch_stats=stats, opt_state=tx.init(params),
                        step=jnp.zeros((), jnp.int32))
     losses, jlosses = [], []
