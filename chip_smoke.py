@@ -6,7 +6,10 @@
 Phases (any failure exits non-zero and prints no result line):
 
 1. setup: TF32 off, the card's name and power limit, the CUDA kernels built
-   from ``nsdp_tpu_torch/csrc`` (one ``nvcc`` per source, in parallel);
+   from ``nsdp_tpu_torch/csrc`` (one ``nvcc`` per source, in parallel); per
+   kernel ptxas's registers, shared memory and spills, and the count of
+   tensor-core (``HMMA``) instructions in its SASS -- none in K2's
+   ``bwd_rows_kernel`` or ``wgrad_kernel`` fails;
 2. kernels: each hand-written forward kernel held against its plain PyTorch
    version at every shape the main path gives it -- fused kNN attention
    (K1) within rtol 1e-4 / atol 1e-5, furthest-point sampling (K3) index
@@ -15,13 +18,15 @@ Phases (any failure exits non-zero and prints no result line):
    K4 and the gather, whose calls are shorter than their host dispatch, by
    the device time ``torch.profiler`` records); the gather also beside
    ``torch.gather``, one PyTorch call that computes it (the port never
-   calls it);
+   calls it); K1's device time split by CUDA kernel (``torch.profiler``);
 2b. K2, the attention's backward, at every training site (batch 2): each
    gradient's relative L2 error against the plain version run in float64
    on the card at most twice the float32 plain version's (floor 1e-6);
    ``gamma_b1``'s gradient, analytically zero, absolutely (at most 1e-4 of
    the largest ``gamma_w1`` gradient); then K2 and the plain backward timed
-   at the training batch;
+   at the training batch, K2's device time split by CUDA kernel, and
+   ``wgrad_cublas_ms``: cuBLAS's time for the four weight-gradient products
+   at the same shapes, a yardstick the port never calls;
 3. serving: the shipped full-width ``configs/deform4d/arbitrary.yaml``
    model with seeded random weights warms up (``warmup``), then serves
    three ``deform`` requests (Q = 3000, 20000 masked, 65536) and an edit
@@ -73,11 +78,15 @@ Phases (any failure exits non-zero and prints no result line):
    step by halves (on a batch seed without near-ties, as phase 4b's).
 
 The second-to-last lines are the card (``nvidia-smi``) and a ``kernels``
-JSON object; the last line is ``{"ok": true, "device": {...}}``.
+JSON object (K1's and K2's entries also carry ``bound_tc_ms``, their bound
+were their D x D products all on the tensor cores in 3xTF32); the last line is
+``{"ok": true, "device": {...}}``.
 """
 
 import json
 import os
+import re
+import shutil
 import subprocess
 import sys
 import time
@@ -86,9 +95,11 @@ import numpy as np
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 CONFIG = os.path.join(REPO, "configs", "deform4d", "arbitrary.yaml")
-# H100 SXM data sheet: f32 outside the tensor cores, HBM3 rate (700 W part)
+# H100 SXM data sheet: f32 outside the tensor cores, HBM3 rate (700 W part);
+# 3xTF32 on the tensor cores: three TF32 products (495 TFLOP/s dense) per one
 PEAK_F32_FLOPS = 67e12
 PEAK_BYTES = 3.35e12
+PEAK_3XTF32_FLOPS = 495e12 / 3
 K1_TOL = dict(rtol=1e-4, atol=1e-5)
 E2E_TOL = dict(rtol=1e-3, atol=2e-4)
 
@@ -117,30 +128,69 @@ def time_ms(torch, fn, reps: int) -> float:
     return float(np.median(times))
 
 
-def device_ms(torch, fn, reps: int) -> float:
-    """Device time of one call of ``fn``: the summed durations of the
-    device activities ``torch.profiler`` records over ``reps`` calls, over
-    ``reps``, after one warm call.  For calls shorter than their host
-    dispatch, where CUDA events (:func:`time_ms`) time the host."""
+def device_events(torch, fn, reps: int):
+    """The device activities ``torch.profiler`` records over ``reps`` calls
+    of ``fn``, after one warm call.  A profiling session now and then
+    delivers no device activity at all; the measurement is then taken
+    again, three times at most."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-    if not events:
-        fail("the profiler recorded no device activity")
-    return sum(e.time_range.elapsed_us() for e in events) / 1e3 / reps
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+        if events:
+            return events
+    fail("the profiler recorded no device activity")
+
+
+def device_ms(torch, fn, reps: int) -> float:
+    """Device time of one call of ``fn``: the summed durations of the
+    device activities over ``reps`` calls, over ``reps``.  For calls
+    shorter than their host dispatch, where CUDA events (:func:`time_ms`)
+    time the host."""
+    return sum(e.time_range.elapsed_us() for e in device_events(torch, fn, reps)) / 1e3 / reps
+
+
+def kernel_name(name: str) -> str:
+    """A device activity's kernel name without its return type, namespaces
+    and template arguments (``void (anonymous namespace)::attn_kernel<4>(...)``
+    -> ``attn_kernel``)."""
+    name = name.replace("(anonymous namespace)::", "").split("(")[0].split("<")[0]
+    return name.split("::")[-1].replace("void ", "").strip() or "?"
+
+
+def kernel_split(torch, fn, reps: int) -> dict:
+    """Device time of one call of ``fn``, by CUDA kernel name (ms)."""
+    split = {}
+    for e in device_events(torch, fn, reps):
+        key = kernel_name(e.name)
+        split[key] = split.get(key, 0.0) + e.time_range.elapsed_us() / 1e3 / reps
+    return split
+
+
+def format_split(split: dict) -> str:
+    return ", ".join(f"{k} {v:.4f}" for k, v in sorted(split.items(), key=lambda kv: -kv[1]))
 
 
 def bound(flops: float, nbytes: float):
     """(least time in ms, what bounds it) on the card's published peaks."""
     t_ops, t_bytes = flops / PEAK_F32_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def bound_tc(row) -> float:
+    """Least time in ms of a K1 or K2 site with its D x D products on the
+    tensor cores in 3xTF32 (165 TFLOP/s) and the rest of its operations in
+    f32 (67 TFLOP/s), or its bytes, whichever is longer."""
+    mm = row["mm_flops"]
+    t_ops = (mm / PEAK_3XTF32_FLOPS + (row["flops"] - mm) / PEAK_F32_FLOPS) * 1e3
+    return max(t_ops, row["bytes"] / PEAK_BYTES * 1e3)
 
 
 def surface(rng, n: int) -> np.ndarray:
@@ -237,6 +287,13 @@ def k1_inputs(torch, rng, surf, fps_500, fps_100, site, B=1):
     return args
 
 
+def k1_mm_flops(site):
+    """Flops of the attention's D x D products at ``site``: three per
+    neighbour slot, two for the global slot."""
+    _, _, nq, m, k, d, mode, masked = site
+    return float(nq * (k * 6 * d * d + (4 * d * d if mode == "global" else 0)))
+
+
 def k1_work(site):
     """(flops, bytes) the attention at ``site`` must do and move."""
     _, _, nq, m, k, d, mode, masked = site
@@ -277,13 +334,17 @@ def check_kernels(torch, rng, surf):
                 fail(f"K1 at {site[0]}: max abs err {err} beyond {K1_TOL}")
             ms = time_ms(torch, run, 5)
             plain_ms = time_ms(torch, run_plain, 3)
+            split = kernel_split(torch, run, 5)
         flops, nbytes = k1_work(site)
         rows["k1"].append(dict(site=site[0], per_eval=site[1], Nq=site[2], M=site[3],
                                k=site[4], D=site[5], ms=ms, plain_ms=plain_ms,
-                               max_abs_err=err, flops=flops, bytes=nbytes))
+                               max_abs_err=err, flops=flops, bytes=nbytes, split=split,
+                               mm_flops=k1_mm_flops(site)))
         log(f"K1 {site[0]:<26} Nq={site[2]:<6} M={site[3]:<5} k={site[4]:<3} D={site[5]:<4}"
             f" kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  bound {bound(flops, nbytes)[0]:.4f} ms"
-            f" ({bound(flops, nbytes)[1]})  max_abs_err {err:.3g}")
+            f" ({bound(flops, nbytes)[1]}), on the tensor cores {bound_tc(rows['k1'][-1]):.4f} ms"
+            f"  max_abs_err {err:.3g}")
+        log(f"   device by kernel (ms): {format_split(split)}")
 
     for n, npoint, cloud in ((5000, 500, surf), (500, 100, surf[fps_500])):
         xyz = torch.as_tensor(cloud[None], device="cuda")
@@ -440,13 +501,16 @@ def kernel_entry(name, source, replaces, rows, launches):
     t_ops = per_pass("flops") / PEAK_F32_FLOPS * 1e3
     t_bytes = per_pass("bytes") / PEAK_BYTES * 1e3
     bound_ms = sum(bound(r["flops"], r["bytes"])[0] * r["per_eval"] for r in rows)
-    return {
+    entry = {
         "name": name, "route": "cuda", "source": source, "replaces": replaces,
         "launches": launches, "max_abs_err": max(r["max_abs_err"] for r in rows),
         "ms": per_pass("ms"), "plain_ms": per_pass("plain_ms"), "bound_ms": bound_ms,
         "bound_by": "operations" if t_ops >= t_bytes else "bytes",
         "library_ms": per_pass("library_ms") if "library_ms" in rows[0] else None,
     }
+    if "mm_flops" in rows[0]:  # K1, K2: the bound with the products on the tensor cores
+        entry["bound_tc_ms"] = sum(bound_tc(r) * r["per_eval"] for r in rows)
+    return entry
 
 
 def check_gradient(what, card, f32, f64, partner_f64=None, factor=2.0, floor=1e-6):
@@ -519,6 +583,14 @@ def k2_work(site, B):
     return float(flops), float(4 * floats)
 
 
+def k2_mm_flops(site, B):
+    """Flops of the backward's D x D products at ``site``: per neighbour
+    row three recomputed, three input-gradient and three weight-gradient
+    products (18 D^2), per global-slot row 12 D^2."""
+    _, _, _, nq, m, k, d, mode, masked = site
+    return float(B * nq * (k * 18 * d * d + (12 * d * d if mode == "global" else 0)))
+
+
 def k2_operands(torch, a):
     from nsdp_tpu_torch.ops import attention
 
@@ -557,22 +629,42 @@ def check_backward(torch, rng, surf, fps_500, fps_100):
         a = k1_inputs(torch, rng, surf, fps_500, fps_100, k1_site, B=B)
         ops, idx = k2_operands(torch, a)
         g = torch.as_tensor(rng.randn(B, site[3], site[6]).astype(np.float32), device="cuda")
-        ms = time_ms(torch, lambda: attention.fused_vector_attention_backward(*ops, idx, g), 3)
+        run = lambda: attention.fused_vector_attention_backward(*ops, idx, g)
+        ms = time_ms(torch, run, 3)
         plain_ms = time_ms(torch, lambda: attention.fused_vector_attention_bwd_plain(*ops, idx, g), 2)
+        split = kernel_split(torch, run, 3)
+        n_rows = B * site[3] * (site[5] + (site[7] == "global"))
+        cublas_ms = wgrad_cublas_ms(torch, n_rows, site[6])
         flops, nbytes = k2_work(site, B)
         ws_gb = 4 * attention.backward_workspace_floats(
             B, site[3], site[5], site[6], site[7] == "global") / 1e9
         rows.append(dict(site=site[0], per_eval=site[1], B=B, Nq=site[3], M=site[4], k=site[5],
                          D=site[6], ms=ms, plain_ms=plain_ms, max_abs_err=worst_abs,
-                         flops=flops, bytes=nbytes, workspace_gb=ws_gb))
+                         flops=flops, bytes=nbytes, workspace_gb=ws_gb, split=split,
+                         wgrad_cublas_ms=cublas_ms, mm_flops=k2_mm_flops(site, B)))
         t_b, by = bound(flops, nbytes)
         log(f"K2 {site[0]:<26} B={B:<3} Nq={site[3]:<5} M={site[4]:<5} k={site[5]:<3} D={site[6]:<4}"
-            f" kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  bound {t_b:.4f} ms ({by})"
-            f"  workspace {ws_gb:.3f} GB  largest error ratio to float32 plain {worst[0]:.3g}"
+            f" kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  bound {t_b:.4f} ms ({by}), on the"
+            f" tensor cores {bound_tc(rows[-1]):.4f} ms  workspace {ws_gb:.3f} GB  largest error ratio to float32 plain {worst[0]:.3g}"
             f" (d {worst[1]})"
             f"  max_abs_err vs float32 plain {worst_abs:.3g}")
+        log(f"   device by kernel (ms): {format_split(split)}; wgrad_cublas_ms {cublas_ms:.4f}")
         del ops, idx, g, a
     return rows
+
+
+def wgrad_cublas_ms(torch, n_rows: int, D: int) -> float:
+    """A yardstick for K2's weight-gradient reduction: ``torch.matmul(X.T,
+    Y)`` over the four ``[X | 1]^T Y`` products at the workspace's shapes
+    (X of 3 + 1 and D + 1 columns, Y of D, ``n_rows`` rows each).  It is not
+    K2's ``library_ms`` (it computes only this part of K2), and the port
+    never calls it."""
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    Y = torch.randn(n_rows, D, device="cuda", generator=gen)
+    X = [torch.randn(n_rows, dx + 1, device="cuda", generator=gen) for dx in (3, D, D, D)]
+    ms = time_ms(torch, lambda: [torch.matmul(x.T, Y) for x in X], 3)
+    del X, Y
+    return ms
 
 
 # ---------------------------------------------------------------- phase 3
@@ -694,8 +786,9 @@ def serve(torch, rng, surf, config, label):
 def trace(torch, run, wall_ms, what):
     """Device time of one call of ``run`` by kind, from ``torch.profiler``'s
     CUDA activity: the port's kernels (K1 = selection + attention, K2 = the
-    attention's backward with its weight-gradient reductions, K3, K4, the
-    row gather), cuBLAS products, copies, other PyTorch kernels.  The union of the intervals is
+    attention's backward with its weight-gradient reductions, "frags" = K2's
+    weights laid out in fragment order, K3, K4, the row gather), cuBLAS products,
+    copies, other PyTorch kernels.  The union of the intervals is
     the device's busy time; against the untraced time ``wall_ms`` it gives
     the device's idle share."""
     from torch.autograd import DeviceType
@@ -707,11 +800,12 @@ def trace(torch, run, wall_ms, what):
     events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
     if not events:
         fail("the profiler recorded no device activity")
-    kinds = {"K1": 0.0, "K2": 0.0, "K3": 0.0, "K4": 0.0, "gather": 0.0, "cuBLAS": 0.0,
-             "copies": 0.0, "other": 0.0}
+    kinds = {"K1": 0.0, "K2": 0.0, "frags": 0.0, "K3": 0.0, "K4": 0.0, "gather": 0.0,
+             "cuBLAS": 0.0, "copies": 0.0, "other": 0.0}
     for e in events:
         kind = ("K4" if "knn_points_kernel" in e.name
                 else "gather" if "gather_rows_kernel" in e.name
+                else "frags" if "weight_frags_kernel" in e.name
                 else "K1" if "attn_kernel" in e.name or "knn_kernel" in e.name
                 else "K2" if "bwd_rows_kernel" in e.name or "wgrad" in e.name
                 else "K3" if "fps_kernel" in e.name
@@ -1042,6 +1136,45 @@ def check_training_reference(torch, label, cfg=None, batch_seed=7):
         f" held absolutely) and {n_stats} running statistics within the rule; largest ratio of"
         f" the card's error to the CPU float32 path's {worst[0]:.3g} ({worst[1]})")
 
+def short_name(mangled: str) -> str:
+    """``attn_kernel<4>`` from a mangled kernel name."""
+    m = re.search(r"\d+([A-Za-z_]+?_kernel)(ILi(\d+)E)?", mangled)
+    return mangled if m is None else m.group(1) + (f"<{m.group(3)}>" if m.group(3) else "")
+
+
+# kernels whose products run on the tensor cores (K2)
+TENSOR_CORE_KERNELS = ("bwd_rows_kernel", "wgrad_kernel")
+
+
+def report_build(build) -> None:
+    """Phase 1's build lines: per kernel, ptxas's registers, shared memory
+    and spills, and the count of tensor-core (HMMA) instructions in the
+    library's SASS (``cuobjdump --dump-sass``); fails if a kernel of
+    ``TENSOR_CORE_KERNELS`` has none."""
+    cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    for name in build.SOURCES:
+        fn = "?"
+        for line in build.build_log(name).splitlines():
+            if "Compiling entry function" in line:
+                fn = short_name(line.split("'")[1])
+            elif "Used" in line or "spill" in line:
+                log(f"  {name}: {fn}: {line.strip()}")
+        sass = subprocess.run([cuobjdump, "--dump-sass", str(build.library_path(name))],
+                              capture_output=True, text=True, timeout=300, check=True).stdout
+        hmma, fn = {}, None
+        for line in sass.splitlines():
+            if "Function : " in line:
+                fn = short_name(line.split("Function : ")[1].strip())
+                hmma[fn] = 0
+            elif fn is not None and "HMMA" in line:
+                hmma[fn] += 1
+        log(f"  {name}: HMMA instructions by kernel: "
+            + ", ".join(f"{k} {v}" for k, v in sorted(hmma.items())))
+        for fn, n in hmma.items():
+            if fn.split("<")[0] in TENSOR_CORE_KERNELS and n == 0:
+                fail(f"{fn} has no tensor-core instruction")
+
+
 def main() -> None:
     import torch
 
@@ -1063,10 +1196,7 @@ def main() -> None:
     t0 = time.perf_counter()
     _build.build()
     log(f"kernels built in {time.perf_counter() - t0:.1f} s (nvcc, sm_90a)")
-    for name in _build.SOURCES:
-        for line in _build.build_log(name).splitlines():
-            if "Used" in line or "spill" in line:
-                log(f"  {name}: {line.strip()}")
+    report_build(_build)
 
     rng = np.random.RandomState(0)
     surf = surface(rng, 5000)

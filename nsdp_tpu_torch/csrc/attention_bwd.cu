@@ -28,31 +28,42 @@
 // D x D weight-gradient products added: ~18 D^2 flops against a few D-wide
 // rows of compulsory traffic.  The TPU kernel's devices (saved residuals,
 // one-hot scatter matmuls, VMEM-resident weight-gradient accumulators) do
-// not carry over; on the card:
+// not carry over; on the card, the products run on the tensor cores in
+// 3xTF32 (rows_mma.cuh), but for the two that decide the fc_gamma ReLU
+// mask (rows_ffma, below):
+//   * weight_frags_kernel lays the weights of the four tensor-core products
+//     out in the engine's fragment order, once per call;
 //   * bwd_rows_kernel does everything per row.  A block owns 32 rows (all
 //     slots of 32 / S queries, so the slot softmax and the per-query sums
-//     stay in the block) and runs the six products on the CUDA cores with
-//     rows_gemm.cuh, keeping four transposed D x 36 activation buffers in
-//     shared memory, each reused as the pass goes (hidden -> its masked
-//     gradient, logits -> dlogits -> du, values -> dvalue -> dpos).  The kv
-//     gradients are scatter-added with f64 atomics into f64 buffers: their
-//     order varies from run to run, but their rounding stays far below the
-//     f32 products' (the decoder's 100 anchors each take thousands of
-//     adds); the global slot's sums over all queries take one f64 atomic
+//     stay in the block) and runs the six products, four on the shared
+//     row-block engine, with two row-major activation buffers in shared memory reused
+//     as the pass goes (hidden -> u -> fc_gamma hidden -> logits -> dlogits
+//     -> dz_gamma -> du; values -> dvalue -> dpos -> dz_delta) and the two
+//     ReLU masks as bits in a register of each thread (the engine gives a
+//     thread the same elements in every product), beside the engine's lo
+//     buffer.  Two blocks fit an SM up to D = 224 (111.9 KB each at D = 200),
+//     one at D = 256.  The kv gradients are scatter-added with f64 atomics into
+//     f64 buffers: their order varies from run to run, but their rounding
+//     stays far below the f32 products' (the decoder's 100 anchors each take
+//     thousands of adds; compiled out, they saved ~0.2 ms of 24 at the
+//     decoder); the global slot's sums over all queries take one f64 atomic
 //     per channel and block.
 //   * The D x D weight gradients do not fit a block (four of them are 1 MB
 //     at D = 256, against 227 KB of shared memory), so bwd_rows_kernel
-//     writes the operand rows X and Y of each to a workspace
-//     (7 D + 3 floats per row), and wgrad_kernel reduces X^T Y over the
-//     rows: 64 x 64 output tiles, split over row chunks into partials that
-//     wgrad_sum_kernel adds in a fixed order (deterministic).  A column of
-//     ones beside X makes the bias gradient the tile's last row.
+//     writes the operand rows X and Y of each to a workspace (rows of
+//     pad8(D) floats, and 4 for the position delta), and one wgrad_kernel
+//     launch reduces all four [X | 1]^T Y on the tensor cores in 3xTF32:
+//     64 x 64 output tiles, split over row chunks into partials that
+//     wgrad_sum_kernel adds in a fixed order, compensated (deterministic),
+//     the rows streaming through a 4-deep cp.async ring, so that several
+//     chunks' loads are in flight.  The column of ones beside X makes the
+//     bias gradient the tile's last row.
 
 #include <cuda_runtime.h>
 
 #include <cstdint>
 
-#include "rows_gemm.cuh"
+#include "rows_mma.cuh"
 
 namespace {
 
@@ -61,10 +72,13 @@ using namespace rows;
 constexpr int kKMax = 32;  // largest k
 constexpr int kDMax = 256; // largest channel width
 constexpr int kWT = 64;    // output tile edge of the weight-gradient reduction
-constexpr int kWK = 16;    // rows per staged step of the reduction
+constexpr int kWR = 32;    // rows per staged chunk of the reduction
+constexpr int kWP = kWT + 8;  // staged row pitch, 8 mod 32: fragment loads meet no conflicts
+constexpr int kWStages = 4;   // staged chunks in flight
+constexpr size_t kWSmemBytes = (size_t)kWStages * 2 * kWR * kWP * sizeof(float);
 
-// Workspace arrays, each (R, D) with R = B * Nq * S rows in (b, query, slot)
-// order, followed by the (R, 3) position deltas.
+// Workspace arrays, each (R, pad8(D)) with R = B * Nq * S rows in (b, query,
+// slot) order, followed by the (R, 4) position deltas.
 enum { kWsHd, kWsDpos, kWsU, kWsDzg, kWsHg, kWsDl, kWsDzd, kWsArrays };
 
 struct Params {
@@ -78,9 +92,10 @@ struct Params {
   const float* k_glob;   // (B, D) or null
   const float* v_glob;   // (B, D) or null
   const float* dw0; const float* db0;  // (D, 3), (D)   (out, in) layout
-  const float* dw1; const float* db1;  // (D, D), (D)
-  const float* gw0; const float* gb0;  // (D, D), (D)
-  const float* gw1; const float* gb1;  // (D, D), (D)
+  const float* dw1; const float* gw0;  // (D, D) (out, in), for the FFMA products
+  const float* db1; const float* gb0; const float* gb1;  // (D)
+  const float* gw1f;                   // fragments for x w^T
+  const float* gw1t; const float* gw0t; const float* dw1t;  // fragments for dy w
   const float* g;        // (B, Nq, D) output gradient
   float* dxyz_q;         // (B, Nq, 3) written
   double* dkv_xyz;       // (B, M, 3) zeroed, scatter-added
@@ -100,41 +115,133 @@ __device__ __forceinline__ void kahan_add(float& sum, float& c, float x) {
   sum = t;
 }
 
-// Write a thread's kRT rows of column d to workspace array a (rows past the
-// end, wrow < 0, are skipped).
-__device__ __forceinline__ void put_rows(float* ws, size_t RD, int a, const int* wrow, int d,
-                                         int D, const float (&v)[kRT]) {
-  const int r0 = (threadIdx.x / kNX) * kRT;
+// ---- float32 FFMA products: the two that decide the fc_gamma ReLU mask ----
+//
+// hd w1d^T and u w0g^T are summed on the CUDA cores, each element one fmaf
+// chain over k in order from zero, as the f32 engine did: the ReLU decision
+// hg > 0 then falls as that engine's did.  Under 3xTF32 these products met
+// near-ties that the float32 plain version did not, and a flipped decision
+// moves a gradient far beyond rounding (PERF.md).  A thread owns kFR
+// rows and NT columns 64 apart; the weight streams through two kFK-row
+// tiles, and the rows are read from a transposed copy (two 16-byte loads
+// for a thread's kFR rows of one k, the same for the whole warp).
+constexpr int kFX = 64;                       // threads across the channels
+constexpr int kFR = kRows / (kThreads / kFX);  // rows per thread: 8
+constexpr int kFK = 16;                       // weight rows per staged tile
+// Row pitch of a staged tile: odd, so the kFK rows of one column fall in
+// distinct banks.
+__host__ __device__ __forceinline__ int ffma_pitch(int D) { return D | 1; }
+// Floats of shared memory the products' weights stream through: the
+// engine's ring or the two FFMA tiles, whichever is larger.
+__host__ __device__ __forceinline__ int bwd_ring_floats(int D) {
+  const int tiles = 2 * kFK * ffma_pitch(D);
+  return ring_floats(D) > tiles ? ring_floats(D) : tiles;
+}
+
+// acc[i][j] = sum_k x[(ty kFR + i) P + k] w[(tx + 64 j) D + k], k ascending;
+// x row-major in shared memory (pitch act_pitch(D)), w (out, in) in global
+// memory, xt D x kRows floats of scratch.  Starts and ends with a barrier.
+template <int NT>
+__device__ __forceinline__ void rows_ffma(const float* x, float* xt, const float* __restrict__ w,
+                                          int D, float* tile, float (&acc)[kFR][NT]) {
+  const int tx = threadIdx.x % kFX, ty = threadIdx.x / kFX;
+  const int P = act_pitch(D), TP = ffma_pitch(D), n_tiles = (D + kFK - 1) / kFK;
 #pragma unroll
-  for (int i = 0; i < kRT; ++i) {
-    const int w = wrow[r0 + i];
-    if (w >= 0) ws[a * RD + (size_t)w * D + d] = v[i];
+  for (int i = 0; i < kFR; ++i)
+#pragma unroll
+    for (int j = 0; j < NT; ++j) acc[i][j] = 0.0f;
+  // tile[kk][d] = w[d][c kFK + kk]: kFK threads down each channel's inputs
+  auto stage = [&](int c) {
+    float* dst = tile + (c & 1) * kFK * TP;
+    const int kk = threadIdx.x % kFK;
+    if (c * kFK + kk < D)
+      for (int d = threadIdx.x / kFK; d < D; d += kThreads / kFK)
+        cp_async4(dst + kk * TP + d, w + (size_t)d * D + c * kFK + kk);
+    cp_async_commit();
+  };
+  __syncthreads();  // the caller's rows are written; tile and xt are free
+  stage(0);
+  for (int e = threadIdx.x; e < D * kRows; e += kThreads) {  // xt[k][r] = x[r][k]
+    const int k = e / kRows, r = e % kRows;
+    xt[k * kRows + r] = x[r * P + k];
+  }
+  for (int c = 0; c < n_tiles; ++c) {
+    if (c + 1 < n_tiles) {
+      stage(c + 1);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const float* t = tile + (c & 1) * kFK * TP;
+    const int kn = min(kFK, D - c * kFK);
+    for (int kk = 0; kk < kn; ++kk) {
+      const float4* x4 = reinterpret_cast<const float4*>(xt + (c * kFK + kk) * kRows + ty * kFR);
+      const float4 x_lo = x4[0], x_hi = x4[1];
+      const float xr[kFR] = {x_lo.x, x_lo.y, x_lo.z, x_lo.w, x_hi.x, x_hi.y, x_hi.z, x_hi.w};
+      float wc[NT];
+#pragma unroll
+      for (int j = 0; j < NT; ++j) {
+        const int d = tx + kFX * j;
+        wc[j] = d < D ? t[kk * TP + d] : 0.0f;
+      }
+#pragma unroll
+      for (int i = 0; i < kFR; ++i)
+#pragma unroll
+        for (int j = 0; j < NT; ++j) acc[i][j] = fmaf(xr[i], wc[j], acc[i][j]);
+    }
+    __syncthreads();  // the tile is consumed before it is refilled
   }
 }
 
-template <int CJ>
-__global__ void __launch_bounds__(kThreads, CJ <= 2 ? 2 : 1) bwd_rows_kernel(const Params p) {
+// f(i, j, row, column) for each element of rows_ffma's acc (columns below pad8(D)).
+template <int NT, class F>
+__device__ __forceinline__ void for_each_ffma(int D, F&& f) {
+  const int tx = threadIdx.x % kFX, ty = threadIdx.x / kFX;
+#pragma unroll
+  for (int j = 0; j < NT; ++j) {
+    const int d = tx + kFX * j;
+    if (d >= pad8(D)) continue;
+#pragma unroll
+    for (int i = 0; i < kFR; ++i) f(i, j, ty * kFR + i, d);
+  }
+}
+
+template <int NT>
+__global__ void __launch_bounds__(kThreads, 2) bwd_rows_kernel(const Params p) {
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
-  const int D = p.D, M = p.M, k = p.k;
+  const int D = p.D, M = p.M, k = p.k, Dp = pad8(D), P = act_pitch(D);
   const bool has_glob = p.k_glob != nullptr, pos_only = p.q == nullptr;
   const int S = k + (has_glob ? 1 : 0);      // slots per query
   const int TQ = kRows / S;                  // queries per block
   const int R = TQ * S;                      // rows in use
-  float* hd = smem;                          // fc_delta hidden -> dz_delta
-  float* ub = hd + D * kRP;                  // u -> logits -> a, dlogits -> du
-  float* vb = ub + D * kRP;                  // values -> dvalue -> dpos
-  float* hg = vb + D * kRP;                  // fc_gamma hidden -> dz_gamma
-  float* ws = hg + D * kRP;                  // (2, kKC, P) weight tiles
-  float* dxs = ws + 2 * kKC * tile_pitch(D); // (kRows, 4) position delta, then ddx
+  float* x0 = smem;                          // (kRows, P) hd, u, hg, logits, dlogits, dzg, du
+  float* x1 = x0 + kRows * P;                // (kRows, P) values, dvalue, dpos, dz_delta
+  float* xl = x1 + kRows * P;                // (kRows, P) lo parts of a product's rows
+  float* ring = xl + kRows * P;              // weight fragments or FFMA tiles
+  float* dxs = ring + bwd_ring_floats(D);    // (kRows, 4) position delta, then ddx
   int* nbr = reinterpret_cast<int*>(dxs + kRows * 4);  // (kRows) kv index per row
   int* wrow = nbr + kRows;                   // (kRows) workspace row, -1 past the end
 
   const int b = blockIdx.y, t0 = blockIdx.x * TQ;
-  const int tid = threadIdx.x, tx = tid % kNX;
+  const int tid = threadIdx.x;
   const float* kv = p.kv_xyz + (size_t)b * M * 3;
-  const size_t RD = (size_t)p.B * p.Nq * S * D;  // floats of one workspace array
+  const size_t RD = (size_t)p.B * p.Nq * S * Dp;  // floats of one workspace array
   float* const wsd = p.ws;
+  // Workspace array a gets src's rows (pitch P, written before the last
+  // barrier).  The block's valid rows are one contiguous run of the array,
+  // so the copy is 16-byte stores in order, where stores from the products'
+  // fragment layout were scattered 4-byte writes.
+  auto to_ws = [&](const float* src, int a) {
+    const int q4 = Dp / 4;
+    for (int e = tid; e < kRows * q4; e += kThreads) {
+      const int r = e / q4, c = (e - r * q4) * 4;
+      if (wrow[r] < 0) continue;
+      *reinterpret_cast<float4*>(wsd + a * RD + (size_t)wrow[r] * Dp + c) =
+          *reinterpret_cast<const float4*>(src + r * P + c);
+    }
+  };
 
   // ---- neighbours and position deltas --------------------------------------
   for (int r = tid; r < kRows; r += kThreads) {
@@ -147,208 +254,197 @@ __global__ void __launch_bounds__(kThreads, CJ <= 2 ? 2 : 1) bwd_rows_kernel(con
     wrow[r] = w;
     const float* xq = p.xyz_q + ((size_t)b * p.Nq + (nb ? n : 0)) * 3;
 #pragma unroll
-    for (int c = 0; c < 3; ++c) {
-      const float dx = nb ? __fsub_rn(xq[c], kv[3 * j + c]) : 0.0f;
+    for (int c = 0; c < 4; ++c) {
+      const float dx = nb && c < 3 ? __fsub_rn(xq[c], kv[3 * j + c]) : 0.0f;
       dxs[r * 4 + c] = dx;
-      if (valid) wsd[kWsArrays * RD + (size_t)w * 3 + c] = dx;
+      if (valid) wsd[kWsArrays * RD + (size_t)w * 4 + c] = dx;
     }
   }
   __syncthreads();
 
   // ---- forward recomputation: fc_delta ----------------------------------------
-#pragma unroll
-  for (int j = 0; j < CJ; ++j) {
-    const int d = tx + j * kNX;
-    if (d >= D) continue;
-    const float w0 = p.dw0[3 * d], w1 = p.dw0[3 * d + 1], w2 = p.dw0[3 * d + 2], b0 = p.db0[d];
-    float h[kRT];
-#pragma unroll
-    for (int i = 0; i < kRT; ++i) {
-      const float* dx = dxs + ((tid / kNX) * kRT + i) * 4;
-      h[i] = fmaxf(fmaf(dx[0], w0, fmaf(dx[1], w1, fmaf(dx[2], w2, b0))), 0.0f);
+  uint32_t hd_mask = 0, hg_mask = 0;  // ReLU masks, bit elem_bit(mt, j, c)
+  for_each_elem<NT>(D, [&](int mt, int j, int c, int r, int d) {
+    float h = 0.0f;
+    if (d < D) {
+      const float* dx = dxs + r * 4;
+      h = fmaxf(fmaf(dx[0], p.dw0[3 * d], fmaf(dx[1], p.dw0[3 * d + 1],
+                fmaf(dx[2], p.dw0[3 * d + 2], p.db0[d]))), 0.0f);
     }
-    store_rows(hd, d, h);
-    put_rows(wsd, RD, kWsHd, wrow, d, D, h);
-  }
-  float acc[kRT][CJ];
-  rows_gemm<CJ, false>(hd, p.dw1, D, ws, acc);
-#pragma unroll
-  for (int j = 0; j < CJ; ++j) {
-    const int d = tx + j * kNX;
-    if (d >= D) continue;
-    const float b1 = p.db1[d];
-    float u[kRT], v[kRT];
-#pragma unroll
-    for (int i = 0; i < kRT; ++i) {
-      const int r = (tid / kNX) * kRT + i, t = r / S, s = r - t * S;
-      const float pos = acc[i][j] + b1;
-      u[i] = pos;
-      v[i] = pos;
-      if (r >= R || pos_only) continue;
-      const float qv = t0 + t < p.Nq ? p.q[b * p.q_sb + (long long)(t0 + t) * p.q_sn + d] : 0.0f;
-      if (s < k) {
-        const size_t row = ((size_t)b * M + nbr[r]) * D + d;
-        u[i] = (qv - p.K[row]) + pos;
-        v[i] = p.V[row] + pos;
-      } else {  // global slot: zero position encoding
-        u[i] = qv - p.k_glob[(size_t)b * D + d];
-        v[i] = p.v_glob[(size_t)b * D + d];
+    if (h > 0.0f) hd_mask |= elem_bit(mt, j, c);
+    x0[r * P + d] = h;
+  });
+  __syncthreads();
+  to_ws(x0, kWsHd);
+  {
+    float facc[kFR][NT];
+    rows_ffma<NT>(x0, xl, p.dw1, D, ring, facc);
+    for_each_ffma<NT>(D, [&](int i, int j, int r, int d) {
+      const float pos = facc[i][j] + (d < D ? p.db1[d] : 0.0f);
+      float u = pos, v = pos;
+      if (!pos_only && r < R && d < D) {
+        const int t = r / S, s = r - t * S;
+        const float qv =
+            t0 + t < p.Nq ? p.q[b * p.q_sb + (long long)(t0 + t) * p.q_sn + d] : 0.0f;
+        if (s < k) {
+          const size_t row = ((size_t)b * M + nbr[r]) * D + d;
+          u = (qv - p.K[row]) + pos;
+          v = p.V[row] + pos;
+        } else {  // global slot: zero position encoding
+          u = qv - p.k_glob[(size_t)b * D + d];
+          v = p.v_glob[(size_t)b * D + d];
+        }
       }
-    }
-    store_rows(ub, d, u);
-    store_rows(vb, d, v);
-    put_rows(wsd, RD, kWsU, wrow, d, D, u);
+      x0[r * P + d] = u;
+      x1[r * P + d] = v;
+    });
   }
+  __syncthreads();
+  to_ws(x0, kWsU);
 
   // ---- forward recomputation: fc_gamma ----------------------------------------
-  rows_gemm<CJ, false>(ub, p.gw0, D, ws, acc);
-#pragma unroll
-  for (int j = 0; j < CJ; ++j) {
-    const int d = tx + j * kNX;
-    if (d >= D) continue;
-    const float b0 = p.gb0[d];
-    float h[kRT];
-#pragma unroll
-    for (int i = 0; i < kRT; ++i) h[i] = fmaxf(acc[i][j] + b0, 0.0f);
-    store_rows(hg, d, h);
-    put_rows(wsd, RD, kWsHg, wrow, d, D, h);
+  {
+    float facc[kFR][NT];
+    rows_ffma<NT>(x0, xl, p.gw0, D, ring, facc);
+    for_each_ffma<NT>(D, [&](int i, int j, int r, int d) {
+      const float h = fmaxf(facc[i][j] + (d < D ? p.gb0[d] : 0.0f), 0.0f);
+      x0[r * P + d] = h;
+    });
   }
-  rows_gemm<CJ, false>(hg, p.gw1, D, ws, acc);
-#pragma unroll
-  for (int j = 0; j < CJ; ++j) {
-    const int d = tx + j * kNX;
-    if (d >= D) continue;
-    const float b1 = p.gb1[d];
-    float l[kRT];
-#pragma unroll
-    for (int i = 0; i < kRT; ++i) l[i] = acc[i][j] + b1;
-    store_rows(ub, d, l);
-  }
+  __syncthreads();
+  to_ws(x0, kWsHg);
+  for_each_elem<NT>(D, [&](int mt, int j, int c, int r, int d) {  // the mask in engine order
+    if (x0[r * P + d] > 0.0f) hg_mask |= elem_bit(mt, j, c);
+  });
+  float acc[kMT][NT][4];
+  rows_mma<NT>(x0, xl, p.gw1f, D, ring, acc);
+  for_each_elem<NT>(D, [&](int mt, int j, int c, int r, int d) {
+    x0[r * P + d] = acc[mt][j][c] + (d < D ? p.gb1[d] : 0.0f);
+  });
   __syncthreads();
 
   // ---- slot softmax and its backward: dlogits, dvalue -------------------------
-  for (int e = tid; e < TQ * D; e += kThreads) {
-    const int t = e / D, d = e - t * D, n = t0 + t;
+  for (int e = tid; e < TQ * Dp; e += kThreads) {
+    const int t = e / Dp, d = e - t * Dp, n = t0 + t;
     if (n >= p.Nq) continue;
-    float* l = ub + d * kRP + t * S;
-    float* v = vb + d * kRP + t * S;
+    float* l = x0 + t * S * P + d;
+    float* v = x1 + t * S * P + d;
+    if (d >= D) {  // padding columns: no gradient
+      for (int s = 0; s < S; ++s) l[s * P] = v[s * P] = 0.0f;
+      continue;
+    }
     const float gv = p.g[((size_t)b * p.Nq + n) * D + d];
     float m = l[0];
     int s_max = 0;
     for (int s = 1; s < S; ++s)
-      if (l[s] > m) {
-        m = l[s];
+      if (l[s * P] > m) {
+        m = l[s * P];
         s_max = s;
       }
     float se = 0.0f;
     for (int s = 0; s < S; ++s) {
-      l[s] = expf(l[s] - m);
-      se += l[s];
+      l[s * P] = expf(l[s * P] - m);
+      se += l[s * P];
     }
     float inner = 0.0f;
     for (int s = 0; s < S; ++s) {
-      l[s] = l[s] / se;
-      inner += l[s] * (gv * v[s]);
+      l[s * P] = l[s * P] / se;
+      inner += l[s * P] * (gv * v[s * P]);
     }
     float residual = 0.0f;
     for (int s = 0; s < S; ++s) {
-      const float a = l[s];
-      l[s] = a * (gv * v[s] - inner);
-      residual += l[s];
-      v[s] = gv * a;
+      const float a = l[s * P];
+      l[s * P] = a * (gv * v[s * P] - inner);
+      residual += l[s * P];
+      v[s * P] = gv * a;
     }
     // The slot sum of dlogits is zero; its rounding residual, shared by the
     // slots, would bias every weight gradient.  Take it off the largest
     // logit's slot, as autograd through the softmax's max shift does.
-    l[s_max] -= residual;
-    for (int s = 0; s < S; ++s) wsd[kWsDl * RD + (size_t)wrow[t * S + s] * D + d] = l[s];
+    l[s_max * P] -= residual;
   }
   __syncthreads();
+  to_ws(x0, kWsDl);
   if (has_glob) {  // dv_glob: one atomic per channel and block
     for (int d = tid; d < D; d += kThreads) {
       double sum = 0.0;
-      for (int t = 0; t < TQ && t0 + t < p.Nq; ++t) sum += vb[d * kRP + t * S + k];
+      for (int t = 0; t < TQ && t0 + t < p.Nq; ++t) sum += x1[(t * S + k) * P + d];
       atomicAdd(p.dglob + ((size_t)b * 2 + 1) * D + d, sum);
     }
   }
 
   // ---- fc_gamma backward: dz_gamma, du ----------------------------------------
-  rows_gemm<CJ, true>(ub, p.gw1, D, ws, acc);
-#pragma unroll
-  for (int j = 0; j < CJ; ++j) {
-    const int d = tx + j * kNX;
-    if (d >= D) continue;
-    float h[kRT];
-    load_rows(hg, d, h);
-#pragma unroll
-    for (int i = 0; i < kRT; ++i) h[i] = h[i] > 0.0f ? acc[i][j] : 0.0f;
-    store_rows(hg, d, h);
-    put_rows(wsd, RD, kWsDzg, wrow, d, D, h);
-  }
-  rows_gemm<CJ, true>(hg, p.gw0, D, ws, acc);
-#pragma unroll
-  for (int j = 0; j < CJ; ++j) {
-    const int d = tx + j * kNX;
-    if (d >= D) continue;
-    float dv[kRT], du[kRT], dp[kRT];
-    load_rows(vb, d, dv);
-#pragma unroll
-    for (int i = 0; i < kRT; ++i) {
-      const int r = (tid / kNX) * kRT + i, s = r % S;
-      const bool nb = wrow[r] >= 0 && s < k;
-      du[i] = acc[i][j];
-      dp[i] = nb ? du[i] + dv[i] : 0.0f;
-      if (nb && !pos_only) {
-        const size_t row = ((size_t)b * M + nbr[r]) * D + d;
-        atomicAdd(p.dK + row, (double)-du[i]);
-        atomicAdd(p.dV + row, (double)dv[i]);
-      }
-    }
-    store_rows(ub, d, du);
-    store_rows(vb, d, dp);
-    put_rows(wsd, RD, kWsDpos, wrow, d, D, dp);
-  }
+  rows_mma<NT>(x0, xl, p.gw1t, D, ring, acc);
+  for_each_elem<NT>(D, [&](int mt, int j, int c, int r, int d) {
+    const float h = hg_mask & elem_bit(mt, j, c) ? acc[mt][j][c] : 0.0f;
+    x0[r * P + d] = h;
+  });
   __syncthreads();
+  to_ws(x0, kWsDzg);
+  rows_mma<NT>(x0, xl, p.gw0t, D, ring, acc);
+  for_each_elem<NT>(D, [&](int mt, int j, int c, int r, int d) {
+    const int s = r % S;
+    const bool nb = wrow[r] >= 0 && s < k;
+    const float du = acc[mt][j][c], dv = x1[r * P + d];
+    const float dp = nb ? du + dv : 0.0f;
+    if (nb && !pos_only && d < D) {
+      const size_t row = ((size_t)b * M + nbr[r]) * D + d;
+      atomicAdd(p.dK + row, (double)-du);
+      atomicAdd(p.dV + row, (double)dv);
+    }
+    x0[r * P + d] = du;
+    x1[r * P + d] = dp;
+  });
+  __syncthreads();
+  to_ws(x1, kWsDpos);
   if (!pos_only) {  // dq = sum over the query's slots of du
     for (int e = tid; e < TQ * D; e += kThreads) {
       const int t = e / D, d = e - t * D, n = t0 + t;
       if (n >= p.Nq) continue;
-      const float* du = ub + d * kRP + t * S;
+      const float* du = x0 + t * S * P + d;
       float sum = 0.0f;
-      for (int s = 0; s < S; ++s) sum += du[s];
+      for (int s = 0; s < S; ++s) sum += du[s * P];
       p.dq[((size_t)b * p.Nq + n) * D + d] = sum;
     }
   }
   if (has_glob) {  // dk_glob = -sum du over the global slots
     for (int d = tid; d < D; d += kThreads) {
       double sum = 0.0;
-      for (int t = 0; t < TQ && t0 + t < p.Nq; ++t) sum += ub[d * kRP + t * S + k];
+      for (int t = 0; t < TQ && t0 + t < p.Nq; ++t) sum += x0[(t * S + k) * P + d];
       atomicAdd(p.dglob + (size_t)b * 2 * D + d, -sum);
     }
   }
 
   // ---- fc_delta backward: dz_delta, ddx ---------------------------------------
-  rows_gemm<CJ, true>(vb, p.dw1, D, ws, acc);
-#pragma unroll
-  for (int j = 0; j < CJ; ++j) {
-    const int d = tx + j * kNX;
-    if (d >= D) continue;
-    float h[kRT];
-    load_rows(hd, d, h);
-#pragma unroll
-    for (int i = 0; i < kRT; ++i) h[i] = h[i] > 0.0f ? acc[i][j] : 0.0f;
-    store_rows(hd, d, h);
-    put_rows(wsd, RD, kWsDzd, wrow, d, D, h);
-  }
+  rows_mma<NT>(x1, xl, p.dw1t, D, ring, acc);
+  for_each_elem<NT>(D, [&](int mt, int j, int c, int r, int d) {
+    const float h = hd_mask & elem_bit(mt, j, c) ? acc[mt][j][c] : 0.0f;
+    x1[r * P + d] = h;
+  });
   __syncthreads();
-  for (int e = tid; e < kRows * 3; e += kThreads) {
-    const int r = e / 3, c = e - r * 3, s = r % S;
-    const bool nb = wrow[r] >= 0 && s < k;
-    float sum = 0.0f;
-    if (nb)
-      for (int d = 0; d < D; ++d) sum = fmaf(hd[d * kRP + r], p.dw0[3 * d + c], sum);
-    dxs[r * 4 + c] = sum;
-    if (nb) atomicAdd(p.dkv_xyz + ((size_t)b * M + nbr[r]) * 3 + c, (double)-sum);
+  to_ws(x1, kWsDzd);
+  {  // ddx = dz_delta w0d^T: a warp per kRows / kWarps rows, lanes across the channels
+    const int warp = tid / 32, lane = tid % 32;
+    for (int i = 0; i < kRows / kWarps; ++i) {
+      const int r = warp * (kRows / kWarps) + i;
+      float sum[3] = {0.0f, 0.0f, 0.0f};
+      for (int d = lane; d < D; d += 32) {
+        const float z = x1[r * P + d];
+#pragma unroll
+        for (int c = 0; c < 3; ++c) sum[c] = fmaf(z, p.dw0[3 * d + c], sum[c]);
+      }
+#pragma unroll
+      for (int c = 0; c < 3; ++c) {
+#pragma unroll
+        for (int o = 16; o > 0; o >>= 1) sum[c] += __shfl_xor_sync(0xffffffffu, sum[c], o);
+      }
+      const bool nb = wrow[r] >= 0 && r % S < k;
+      if (lane < 3) {
+        const float v = lane == 0 ? sum[0] : (lane == 1 ? sum[1] : sum[2]);
+        dxs[r * 4 + lane] = nb ? v : 0.0f;
+        if (nb) atomicAdd(p.dkv_xyz + ((size_t)b * M + nbr[r]) * 3 + lane, (double)-v);
+      }
+    }
   }
   __syncthreads();
   for (int e = tid; e < TQ * 3; e += kThreads) {
@@ -360,60 +456,145 @@ __global__ void __launch_bounds__(kThreads, CJ <= 2 ? 2 : 1) bwd_rows_kernel(con
   }
 }
 
-// partial[z] = [X | 1]^T Y over rows [z * chunk, (z + 1) * chunk): the
-// (Dx + 1, Dy) tile (blockIdx.x, blockIdx.y) of 64 x 64.  Each thread owns a
-// 4 x 4 block of the output.  A sum runs over up to ~10^6 rows, so each
-// 16-row step's products are summed apart and added to the running sum with
-// Kahan's compensation: the result keeps the accuracy of a blocked product.
-__global__ void __launch_bounds__(kThreads) wgrad_kernel(
-    const float* __restrict__ X, int Dx, const float* __restrict__ Y, int Dy, int R, int chunk,
-    float* __restrict__ partial) {
-  __shared__ __align__(16) float xs[kWK][kWT];
-  __shared__ __align__(16) float ys[kWK][kWT];
-  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
-  const int i0 = blockIdx.x * kWT, j0 = blockIdx.y * kWT;
-  const int r_begin = blockIdx.z * chunk, r_end = min(R, r_begin + chunk);
-  float acc[4][4], comp[4][4];
+// ---- weight gradients: [X | 1]^T Y on the tensor cores ------------------------
+
+// One of the four reductions: X (R, xp) with Dx live columns, Y (R, yp),
+// into rows [out_row, out_row + Dx + 1) of the (3 D + 7, D) output.
+struct WgradJob {
+  const float* X;
+  const float* Y;
+  int xp, Dx, out_row, tiles_m;
+};
+struct WgradParams {
+  WgradJob job[4];
+  int yp, Dy, tiles_n, R, chunk, out_rows;
+  float* partial;  // (splits, out_rows, Dy)
+};
+
+// partial[z] = [X | 1]^T Y over rows [z * chunk, (z + 1) * chunk) for one
+// 64 x 64 output tile (blockIdx.x counts the tiles of the four jobs).  The
+// rows arrive kWR at a time through a kWStages-deep cp.async ring (rows past
+// the end and columns past the array zero-filled), so several chunks' loads
+// are in flight while one is reduced.  Warp (wm, wn) owns 32 x 16 of the
+// tile: 2 x 2 mma tiles, 3xTF32 with both operands split as they are
+// loaded.  A sum runs over up to ~10^5 rows per chunk, so each 8-row k-step
+// is summed apart into its kWR-row chunk's sum, and each chunk's into the
+// running sum with Kahan's compensation.
+__global__ void __launch_bounds__(kThreads, 2) wgrad_kernel(const WgradParams p) {
+  extern __shared__ float4 wsmem4[];
+  float* wsmem = reinterpret_cast<float*>(wsmem4);  // kWStages x (xs, ys), each kWR x kWP
+  int tile = blockIdx.x;
+  WgradJob job = p.job[3];
 #pragma unroll
-  for (int u = 0; u < 4; ++u)
-#pragma unroll
-    for (int v = 0; v < 4; ++v) acc[u][v] = comp[u][v] = 0.0f;
-  for (int r0 = r_begin; r0 < r_end; r0 += kWK) {
-    for (int e = tid; e < kWK * kWT; e += kThreads) {
-      const int rr = e / kWT, c = e - rr * kWT, r = r0 + rr, i = i0 + c, j = j0 + c;
-      const bool live = r < r_end;
-      xs[rr][c] = live && i < Dx ? X[(size_t)r * Dx + i] : (live && i == Dx ? 1.0f : 0.0f);
-      ys[rr][c] = live && j < Dy ? Y[(size_t)r * Dy + j] : 0.0f;
+  for (int q = 0; q < 3; ++q) {
+    const int n = p.job[q].tiles_m * p.tiles_n;
+    if (tile < n) {
+      job = p.job[q];
+      break;
     }
-    __syncthreads();
-    float step[4][4];
-#pragma unroll
-    for (int u = 0; u < 4; ++u)
-#pragma unroll
-      for (int v = 0; v < 4; ++v) step[u][v] = 0.0f;
-#pragma unroll
-    for (int kk = 0; kk < kWK; ++kk) {
-      const float4 a = *reinterpret_cast<const float4*>(&xs[kk][ty * 4]);
-      const float4 bv = *reinterpret_cast<const float4*>(&ys[kk][tx * 4]);
-      const float av[4] = {a.x, a.y, a.z, a.w}, bw[4] = {bv.x, bv.y, bv.z, bv.w};
-#pragma unroll
-      for (int u = 0; u < 4; ++u)
-#pragma unroll
-        for (int v = 0; v < 4; ++v) step[u][v] = fmaf(av[u], bw[v], step[u][v]);
-    }
-#pragma unroll
-    for (int u = 0; u < 4; ++u)
-#pragma unroll
-      for (int v = 0; v < 4; ++v) kahan_add(acc[u][v], comp[u][v], step[u][v]);
-    __syncthreads();
+    tile -= n;
   }
+  const float* X = job.X;
+  const float* Y = job.Y;
+  const int xp = job.xp;
+  const int m0 = (tile / p.tiles_n) * kWT, n0 = (tile % p.tiles_n) * kWT;
+  const int r_begin = blockIdx.y * p.chunk, r_end = min(p.R, r_begin + p.chunk);
+  const int n_chunks = r_end > r_begin ? (r_end - r_begin + kWR - 1) / kWR : 0;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32, g = lane / 4, t = lane % 4;
+  const int wm = warp / 4, wn = warp % 4;
+
+  // a thread's two 16-byte pieces of each operand in a chunk: row e / 16,
+  // columns 4 (e % 16) ...
+  auto stage = [&](int i) {
+    if (i < n_chunks) {
+      float* xs = wsmem + (i % kWStages) * 2 * kWR * kWP;
+      float* ys = xs + kWR * kWP;
 #pragma unroll
-  for (int u = 0; u < 4; ++u)
-#pragma unroll
-    for (int v = 0; v < 4; ++v) {
-      const int i = i0 + ty * 4 + u, j = j0 + tx * 4 + v;
-      if (i <= Dx && j < Dy) partial[((size_t)blockIdx.z * (Dx + 1) + i) * Dy + j] = acc[u][v];
+      for (int u = 0; u < 2; ++u) {
+        const int e = tid + u * kThreads, rr = e / 16, c = (e % 16) * 4, r = r_begin + i * kWR + rr;
+        const bool xv = r < r_end && m0 + c < xp, yv = r < r_end && n0 + c < p.yp;
+        cp_async16_zfill(xs + rr * kWP + c, xv ? X + (size_t)r * xp + m0 + c : X, xv);
+        cp_async16_zfill(ys + rr * kWP + c, yv ? Y + (size_t)r * p.yp + n0 + c : Y, yv);
+      }
     }
+    cp_async_commit();
+  };
+
+  float acc[2][2][4], comp[2][2][4];
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) acc[i][j][c] = comp[i][j][c] = 0.0f;
+  // [X | 1]: this thread's A columns m and m + 8 of each m-tile that are the ones column
+  bool ones[2][2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) ones[i][h] = m0 + wm * 32 + i * 16 + g + 8 * h == job.Dx;
+
+#pragma unroll
+  for (int i = 0; i < kWStages - 1; ++i) stage(i);
+  for (int it = 0; it < n_chunks; ++it) {
+    cp_async_wait<kWStages - 2>();
+    __syncthreads();  // chunk it has landed; every warp is done with chunk it - 1
+    stage(it + kWStages - 1);
+    const float* xs = wsmem + (it % kWStages) * 2 * kWR * kWP;
+    const float* ys = xs + kWR * kWP;
+    float step[2][2][4];
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) step[i][j][c] = 0.0f;
+#pragma unroll 1
+    for (int k0 = 0; k0 < kWR; k0 += 8) {
+      uint32_t a_hi[2][4], a_lo[2][4], b_hi[2][2], b_lo[2][2];
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {  // A[m][kk] = [X | 1][kk][m]
+        const int m = wm * 32 + i * 16 + g;
+        split_tf32(ones[i][0] ? 1.0f : xs[(k0 + t) * kWP + m], a_hi[i][0], a_lo[i][0]);
+        split_tf32(ones[i][1] ? 1.0f : xs[(k0 + t) * kWP + m + 8], a_hi[i][1], a_lo[i][1]);
+        split_tf32(ones[i][0] ? 1.0f : xs[(k0 + t + 4) * kWP + m], a_hi[i][2], a_lo[i][2]);
+        split_tf32(ones[i][1] ? 1.0f : xs[(k0 + t + 4) * kWP + m + 8], a_hi[i][3], a_lo[i][3]);
+      }
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {  // B[kk][n] = Y[kk][n]
+        const int n = wn * 16 + j * 8 + g;
+        split_tf32(ys[(k0 + t) * kWP + n], b_hi[j][0], b_lo[j][0]);
+        split_tf32(ys[(k0 + t + 4) * kWP + n], b_hi[j][1], b_lo[j][1]);
+      }
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {  // each k-step summed apart (rows_mma.cuh)
+          float t8[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+          mma_3xtf32(t8, a_hi[i], a_lo[i], b_hi[j][0], b_hi[j][1], b_lo[j][0], b_lo[j][1]);
+#pragma unroll
+          for (int c = 0; c < 4; ++c) step[i][j][c] += t8[c];
+        }
+    }
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) kahan_add(acc[i][j][c], comp[i][j][c], step[i][j][c]);
+  }
+  cp_async_wait<0>();
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const int m = m0 + wm * 32 + i * 16 + g + 8 * (c >> 1);
+        const int n = n0 + wn * 16 + j * 8 + 2 * t + (c & 1);
+        if (m <= job.Dx && n < p.Dy)
+          p.partial[((size_t)blockIdx.y * p.out_rows + job.out_row + m) * p.Dy + n] = acc[i][j][c];
+      }
 }
 
 // out[e] = sum_z partial[z][e], in a fixed order, compensated.
@@ -427,37 +608,62 @@ __global__ void wgrad_sum_kernel(const float* __restrict__ partial, int splits, 
 }
 
 size_t rows_smem_bytes(int D) {
-  return (size_t)(4 * D * kRP + 2 * kKC * tile_pitch(D) + 4 * kRows) * sizeof(float) +
+  return (size_t)(3 * kRows * act_pitch(D) + bwd_ring_floats(D) + 4 * kRows) * sizeof(float) +
          2 * kRows * sizeof(int);
 }
 
-template <int CJ>
+template <int NT>
 cudaError_t launch_rows(const Params& p, int device, cudaStream_t stream) {
   static bool opted_in[kMaxDevices];
   if (!opted_in[device]) {
     const cudaError_t err = cudaFuncSetAttribute(
-        bwd_rows_kernel<CJ>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)rows_smem_bytes(CJ * kNX));
+        bwd_rows_kernel<NT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)rows_smem_bytes(64 * NT));
     if (err != cudaSuccess) return failed(err);
     opted_in[device] = true;
   }
   const int tq = kRows / (p.k + (p.k_glob ? 1 : 0));
   const dim3 grid((p.Nq + tq - 1) / tq, p.B);
-  bwd_rows_kernel<CJ><<<grid, kThreads, rows_smem_bytes(p.D), stream>>>(p);
+  bwd_rows_kernel<NT><<<grid, kThreads, rows_smem_bytes(p.D), stream>>>(p);
   return cudaGetLastError();
 }
 
-// out (Dx + 1, Dy) = [X | 1]^T Y over R rows: the weight gradient and, in its
-// last row, the bias gradient.
-cudaError_t weight_gradient(const float* X, int Dx, const float* Y, int Dy, int R, int splits,
-                            float* partial, float* out, cudaStream_t stream) {
-  const int chunk = ((R + splits - 1) / splits + kWK - 1) / kWK * kWK;
-  const dim3 grid((Dx + 1 + kWT - 1) / kWT, (Dy + kWT - 1) / kWT, splits);
-  wgrad_kernel<<<grid, kThreads, 0, stream>>>(X, Dx, Y, Dy, R, chunk, partial);
+// wgrads (3 D + 7, D) = the four [X | 1]^T Y, each X's rows followed by
+// its bias row, over R workspace rows, in `splits` row chunks.
+cudaError_t weight_gradients(const float* ws, int R, int D, int splits, float* partial,
+                             float* wgrads, int device, cudaStream_t stream) {
+  const int Dp = pad8(D);
+  const size_t RD = (size_t)R * Dp;
+  WgradParams w{};
+  const float* X[4] = {ws + kWsArrays * RD, ws + kWsHd * RD, ws + kWsU * RD, ws + kWsHg * RD};
+  const float* Y[4] = {ws + kWsDzd * RD, ws + kWsDpos * RD, ws + kWsDzg * RD, ws + kWsDl * RD};
+  const int Dx[4] = {3, D, D, D};
+  int out_row = 0, tiles = 0;
+  w.tiles_n = (D + kWT - 1) / kWT;
+  for (int q = 0; q < 4; ++q) {
+    w.job[q] = {X[q], Y[q], q == 0 ? 4 : Dp, Dx[q], out_row, (Dx[q] + 1 + kWT - 1) / kWT};
+    out_row += Dx[q] + 1;
+    tiles += w.job[q].tiles_m * w.tiles_n;
+  }
+  w.yp = Dp;
+  w.Dy = D;
+  w.R = R;
+  w.chunk = ((R + splits - 1) / splits + kWR - 1) / kWR * kWR;
+  w.out_rows = out_row;
+  w.partial = partial;
+  static bool opted_in[kMaxDevices];
+  if (!opted_in[device]) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        wgrad_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kWSmemBytes);
+    if (err != cudaSuccess) return failed(err);
+    opted_in[device] = true;
+  }
+  wgrad_kernel<<<dim3(tiles, splits), kThreads, kWSmemBytes, stream>>>(w);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  const int n = (Dx + 1) * Dy;
-  wgrad_sum_kernel<<<(n + kThreads - 1) / kThreads, kThreads, 0, stream>>>(partial, splits, n, out);
+  const int n = out_row * D;
+  wgrad_sum_kernel<<<(n + kThreads - 1) / kThreads, kThreads, 0, stream>>>(partial, splits, n,
+                                                                            wgrads);
   return cudaGetLastError();
 }
 
@@ -468,10 +674,10 @@ extern "C" {
 const char* nsdp_error_string(int err) { return cudaGetErrorString((cudaError_t)err); }
 
 // dw0, dw1, gw0, gw1: (out, in) weights, contiguous.  dkv_xyz, dK, dV and
-// dglob are float64 and must be zeroed; ws holds B * Nq * S * (7 D + 3) floats and partial
-// splits * (D + 1) * D.  wgrads (3 D + 7, D) receives, in the (in, out)
-// layout, [ddw0 (3 rows) | ddb0 | ddw1 (D) | ddb1 | dgw0 (D) | dgb0 |
-// dgw1 (D) | dgb1].
+// dglob are float64 and must be zeroed; wfrag holds 4 frag_floats(D)
+// floats, ws B * Nq * S * (7 pad8(D) + 4) and partial splits * (3 D + 7) * D.
+// wgrads (3 D + 7, D) receives, in the (in, out) layout, [ddw0 (3 rows) |
+// ddb0 | ddw1 (D) | ddb1 | dgw0 (D) | dgb0 | dgw1 (D) | dgb1].
 int nsdp_fused_attention_bwd(
     const float* xyz_q, const float* kv_xyz, const int* idx,
     const float* q, long long q_sb, long long q_sn,
@@ -479,7 +685,7 @@ int nsdp_fused_attention_bwd(
     const float* dw0, const float* db0, const float* dw1, const float* db1,
     const float* gw0, const float* gb0, const float* gw1, const float* gb1,
     const float* g, float* dxyz_q, double* dkv_xyz, float* dq, double* dK, double* dV,
-    double* dglob, float* ws, float* partial, float* wgrads,
+    double* dglob, float* wfrag, float* ws, float* partial, float* wgrads,
     int B, int Nq, int M, int D, int k, int splits, int device, void* stream) {
   if (B < 1 || Nq < 1 || M < 1 || D < 1 || D > kDMax || k < 1 || k > kKMax || k > M ||
       k + (k_glob ? 1 : 0) > kRows || splits < 1 || device < 0 || device >= kMaxDevices)
@@ -493,10 +699,19 @@ int nsdp_fused_attention_bwd(
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)failed(err);
   const cudaStream_t s = (cudaStream_t)stream;
-  const Params p{xyz_q, kv_xyz, idx, q, q_sb, q_sn, K, V, k_glob, v_glob,
-                 dw0, db0, dw1, db1, gw0, gb0, gw1, gb1, g,
+  const size_t w = frag_floats(D);
+  FragParams fp{};
+  const float* src[4] = {gw1, gw1, gw0, dw1};
+  for (int j = 0; j < 4; ++j) fp.job[j] = {src[j], wfrag + j * w, j >= 1};
+  fp.n_jobs = 4;
+  fp.D = D;
+  err = weight_frags(fp, s);
+  if (err != cudaSuccess) return (int)err;
+  const Params p{xyz_q, kv_xyz, idx, q, q_sb, q_sn, K, V, k_glob, v_glob, dw0, db0,
+                 dw1, gw0, db1, gb0, gb1, wfrag,
+                 wfrag + w, wfrag + 2 * w, wfrag + 3 * w, g,
                  dxyz_q, dkv_xyz, dq, dK, dV, dglob, ws, B, Nq, M, D, k};
-  switch ((D + kNX - 1) / kNX) {
+  switch (n_tiles_per_warp(D)) {
     case 1: err = launch_rows<1>(p, device, s); break;
     case 2: err = launch_rows<2>(p, device, s); break;
     case 3: err = launch_rows<3>(p, device, s); break;
@@ -504,17 +719,7 @@ int nsdp_fused_attention_bwd(
   }
   if (err != cudaSuccess) return (int)err;
   const int R = B * Nq * (k + (k_glob ? 1 : 0));
-  const size_t RD = (size_t)R * D;
-  const float* X[4] = {ws + kWsArrays * RD, ws + kWsHd * RD, ws + kWsU * RD, ws + kWsHg * RD};
-  const float* Y[4] = {ws + kWsDzd * RD, ws + kWsDpos * RD, ws + kWsDzg * RD, ws + kWsDl * RD};
-  const int Dx[4] = {3, D, D, D};
-  float* out = wgrads;
-  for (int w = 0; w < 4; ++w) {  // ddw0, ddw1, dgw0, dgw1 with their biases
-    err = weight_gradient(X[w], Dx[w], Y[w], D, R, splits, partial, out, s);
-    if (err != cudaSuccess) return (int)err;
-    out += (size_t)(Dx[w] + 1) * D;
-  }
-  return 0;
+  return (int)weight_gradients(ws, R, D, splits, partial, wgrads, device, s);
 }
 
 }  // extern "C"

@@ -1,5 +1,6 @@
-// Row-block products on f32 CUDA cores, shared by the fused attention's
-// forward (attention.cu, K1) and backward (attention_bwd.cu, K2).
+// Row-block products on f32 CUDA cores, for the fused attention's forward
+// (attention.cu, K1); the backward's (K2) run on the tensor cores
+// (rows_mma.cuh).
 //
 // A block of 256 threads owns kRows = 32 (query, slot) rows whose
 // activations live transposed in shared memory (D x kRP floats, 16-byte row

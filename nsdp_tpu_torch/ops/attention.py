@@ -93,10 +93,73 @@ _SIGNATURES = {"nsdp_fused_attention": (ctypes.c_int, (
     + [ctypes.c_int] * 6 + [ctypes.c_void_p]
 ))}
 _SIGNATURES_BWD = {"nsdp_fused_attention_bwd": (ctypes.c_int, (
-    [ctypes.c_void_p] * 4 + [ctypes.c_longlong] * 2 + [ctypes.c_void_p] * 22
+    [ctypes.c_void_p] * 4 + [ctypes.c_longlong] * 2 + [ctypes.c_void_p] * 23
     + [ctypes.c_int] * 7 + [ctypes.c_void_p]
 ))}
-_BWD_BLOCKS = 4 * 132  # blocks a weight-gradient reduction aims for: 4 per SM
+
+
+# ---- the tensor-core row-block engine of K2 (csrc/rows_mma.cuh), host side
+
+
+def pad8(D: int) -> int:
+    """D rounded up to the engine's 8-wide tiles."""
+    return -(-D // 8) * 8
+
+
+def tf32_round(x: torch.Tensor) -> torch.Tensor:
+    """float32 ``x`` rounded to TF32 as the kernels' ``cvt.rna.tf32.f32``
+    does: to nearest on the 13 low mantissa bits, ties away from zero."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def split_tf32(x: torch.Tensor):
+    """(hi, lo) TF32 parts of float32 ``x``: ``hi = tf32(x)``,
+    ``lo = tf32(x - hi)``, as the engine splits every operand."""
+    hi = tf32_round(x)
+    return hi, tf32_round(x - hi)
+
+
+def weight_frags_plain(w: torch.Tensor, trans: bool) -> torch.Tensor:
+    """A D x D (out, in) weight laid out as ``weight_frags_kernel`` writes
+    it for the engine: the product's B operand (``B = w^T`` for ``x w^T``,
+    ``B = w`` for ``dy w`` when ``trans``), zero-padded to pad8(D), as
+    (k-step, n-tile, lane, 2) float32 ``[b0, b1]`` with
+    ``b0 = B[8 kc + l % 4][8 nt + l // 4]`` and ``b1`` four rows below."""
+    D = w.shape[0]
+    Dp = pad8(D)
+    B = torch.zeros((Dp, Dp), dtype=torch.float32, device=w.device)
+    B[:D, :D] = w if trans else w.t()
+    lane = torch.arange(32, device=w.device)
+    k = 8 * torch.arange(Dp // 8, device=w.device)[:, None, None] + lane % 4
+    n = 8 * torch.arange(Dp // 8, device=w.device)[None, :, None] + lane // 4
+    return torch.stack([B[k, n], B[k + 4, n]], dim=-1)
+
+
+def weight_frag_floats(D: int) -> int:
+    """Floats of one weight in fragment order (``rows_mma.cuh::frag_floats``)."""
+    return pad8(D) ** 2
+
+
+def _backward_tiles(D: int) -> int:
+    """64 x 64 output tiles of K2's one weight-gradient launch: [dx | 1]^T
+    (4 rows) and three [X | 1]^T (D + 1 rows), each D wide."""
+    n = -(-D // 64)
+    return n + 3 * -(-(D + 1) // 64) * n
+
+
+def _backward_splits(rows: int, D: int, sms: int) -> int:
+    """Row chunks of K2's weight-gradient reduction on a card of ``sms``
+    SMs: at most two whole waves of its blocks (two resident an SM; a
+    partial last wave cost ~10% at the decoder), each chunk at least 256
+    rows."""
+    return max(1, min(-(-rows // 256), 4 * sms // _backward_tiles(D)))
+
+
+def backward_partial_floats(splits: int, D: int) -> int:
+    """Floats of K2's weight-gradient partials: a (3 D + 7, D) sum per
+    row chunk."""
+    return splits * (3 * D + 7) * D
 
 
 def _check_operands(xyz_q, kv_xyz, q_feats, K_a, V_a, weights, k, k_glob, v_glob,
@@ -189,18 +252,12 @@ def _launch(xyz_q, kv_xyz, q_feats, K_a, V_a, delta_w0, delta_b0, delta_w1,
     return out, idx
 
 
-def _backward_splits(rows: int, D: int) -> int:
-    """Row chunks of K2's weight-gradient reductions: enough blocks to fill
-    the card, each chunk at least 256 rows."""
-    tiles = -(-(D + 1) // 64) * -(-D // 64)
-    return max(1, min(-(-rows // 256), -(-_BWD_BLOCKS // tiles)))
-
-
 def backward_workspace_floats(B: int, Nq: int, k: int, D: int, has_global: bool) -> int:
-    """Floats of K2's workspace: per (query, slot) row the seven D-wide
-    operand rows of the weight gradients and the 3-wide position delta."""
+    """Floats of K2's workspace: per (query, slot) row the seven operand
+    rows of the weight gradients, pad8(D) wide, and the position delta,
+    4 wide."""
     rows = B * Nq * (k + has_global)
-    return rows * (7 * D + 3)
+    return rows * (7 * pad8(D) + 4)
 
 
 def _launch_bwd(xyz_q, kv_xyz, q_feats, K_a, V_a, delta_w0, delta_b0, delta_w1,
@@ -228,9 +285,11 @@ def _launch_bwd(xyz_q, kv_xyz, q_feats, K_a, V_a, delta_w0, delta_b0, delta_w1,
     wgrads = torch.zeros((3 * D + 7, D), **f32)
     rows = B * Nq * (k + has_global)
     if rows:
-        splits = _backward_splits(rows, D)
+        sms = torch.cuda.get_device_properties(xyz_q.device).multi_processor_count
+        splits = _backward_splits(rows, D, sms)
+        wfrag = torch.empty(4 * weight_frag_floats(D), **f32)
         ws = torch.empty(backward_workspace_floats(B, Nq, k, D, has_global), **f32)
-        partial = torch.empty(splits * (D + 1) * D, **f32)
+        partial = torch.empty(backward_partial_floats(splits, D), **f32)
         ptr = _Pointers()
         q_ptr, q_sb, q_sn = ptr.query(q_feats)
         lib = _build.load("attention_bwd", _SIGNATURES_BWD)
@@ -240,7 +299,7 @@ def _launch_bwd(xyz_q, kv_xyz, q_feats, K_a, V_a, delta_w0, delta_b0, delta_w1,
             ptr.linear(delta_w0), ptr(delta_b0), ptr.linear(delta_w1), ptr(delta_b1),
             ptr.linear(gamma_w0), ptr(gamma_b0), ptr.linear(gamma_w1), ptr(gamma_b1),
             ptr(g), dxyz_q.data_ptr(), dkv_xyz.data_ptr(), ptr(dq), ptr(dK), ptr(dV),
-            ptr(dglob), ws.data_ptr(), partial.data_ptr(), wgrads.data_ptr(),
+            ptr(dglob), wfrag.data_ptr(), ws.data_ptr(), partial.data_ptr(), wgrads.data_ptr(),
             B, Nq, M, D, k, splits, xyz_q.device.index or 0, _build.stream_of(xyz_q),
         )
         _build.check(lib, err, f"attention backward kernel (B={B}, Nq={Nq}, M={M}, D={D}, k={k})")

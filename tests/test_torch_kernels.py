@@ -205,6 +205,25 @@ def test_attention_backward_kernel_widths(mode, D, k, cuda, rng):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("mode,D,k,M,nq", [
+    ("global", 36, 7, 300, 77), ("proj", 100, 16, 300, 51), ("pos_only", 130, 10, 301, 0),
+    ("global", 130, 31, 300, 9), ("table", 64, 31, 300, 0), ("global", 200, 7, 300, 1),
+    ("proj", 120, 16, 300, 1),
+])
+def test_attention_kernels_at_the_engines_edges(mode, D, k, M, nq, cuda, rng):
+    """K1 and K2 where K2's tensor-core engine pads or runs short: D not a
+    multiple of 8 (36, 100, 130), 32 slots (k = 31 and the global slot) or
+    31, Nq = 1, and Nq not a multiple of the queries per block (77 of 4,
+    51 of 2, 301 of 3)."""
+    a, w = _attention_case(rng, mode, False, B=2, M=M, D=D, k=k, nq=nq)
+    with torch.inference_mode():
+        got = _port_attention(a, w, cuda)
+        ref = _port_attention(a, w, "cpu")
+    np.testing.assert_allclose(got.cpu().numpy(), ref.numpy(), rtol=1e-4, atol=1e-5)
+    _k2_against_plain(a, w, rng, cuda)
+
+
+@pytest.mark.gpu
 def test_attention_backward_never_runs_plain_on_the_card(cuda, rng, monkeypatch):
     def refuse(*args):
         raise AssertionError("the plain backward ran on CUDA tensors")
