@@ -26,6 +26,7 @@ from torch.autograd import DeviceType  # noqa: E402
 from torch.profiler import ProfilerActivity, profile  # noqa: E402
 
 from nsdp_tpu_torch.serving import DeformationService  # noqa: E402
+from nsdp_tpu_torch.utils.config import load_config  # noqa: E402
 
 torch.backends.cuda.matmul.allow_tf32 = False
 rng = np.random.RandomState(0)
@@ -35,8 +36,8 @@ surf = v.astype(np.float32)
 handle = (surf[:, 2] > 0.8).astype(np.float32)[:, None]
 tgt = (surf + 0.2) * handle
 inputs = np.concatenate([surf, tgt, handle], -1)
-svc = DeformationService.from_config(
-    os.path.join(root, "configs/deform4d/arbitrary.yaml"), device="cuda", seed=0)
+svc = DeformationService(
+    load_config(os.path.join(root, "configs/deform4d/arbitrary.yaml")), device="cuda", seed=0)
 svc.warmup(5000)
 pts = rng.uniform(-1.3, 1.3, (65536, 3)).astype(np.float32)
 ev = []

@@ -12,13 +12,17 @@ Phases (any failure exits non-zero and prints no result line):
    ``bwd_rows_kernel`` or ``wgrad_kernel`` fails;
 2. kernels: each hand-written forward kernel held against its plain PyTorch
    version at every shape the main path gives it -- fused kNN attention
-   (K1) within rtol 1e-4 / atol 1e-5, furthest-point sampling (K3) index
-   for index, K4 (kNN) index for index and distance for distance, the row
-   gather (P1/P2) bit for bit -- and timed beside it (CUDA events, median;
-   K4 and the gather, whose calls are shorter than their host dispatch, by
-   the device time ``torch.profiler`` records); the gather also beside
-   ``torch.gather``, one PyTorch call that computes it (the port never
-   calls it); K1's device time split by CUDA kernel (``torch.profiler``);
+   (K1) within rtol 1e-4 / atol 1e-5 and bit for bit against the output
+   digests of ``K1_DIGESTS`` (below), furthest-point sampling (K3) index
+   for index (also on a 14,497- and a 50,000-point cloud, above the
+   shared-memory variant's size), K4 (kNN) index for index and distance
+   for distance, the row gather (P1/P2) bit for bit -- and timed beside it
+   (CUDA events, median; K4 and the gather, whose calls are shorter than
+   their host dispatch, by the device time ``torch.profiler`` records);
+   the gather also beside ``torch.gather``, one PyTorch call that computes
+   it (the port never calls it); K1's device time split by CUDA kernel
+   (``torch.profiler``); K3's latency bound, its dependent steps at the
+   measured cost of one step of a 1024-point cloud;
 2b. K2, the attention's backward, at every training site (batch 2): each
    gradient's relative L2 error against the plain version run in float64
    on the card at most twice the float32 plain version's (floor 1e-6);
@@ -79,10 +83,20 @@ Phases (any failure exits non-zero and prints no result line):
 
 The second-to-last lines are the card (``nvidia-smi``) and a ``kernels``
 JSON object (K1's and K2's entries also carry ``bound_tc_ms``, their bound
-were their D x D products all on the tensor cores in 3xTF32); the last line is
-``{"ok": true, "device": {...}}``.
+were their D x D products all on the tensor cores in 3xTF32; K3's
+``bound_latency_ms``); the last line is ``{"ok": true, "device": {...}}``.
+
+K1's digests: ``K1_DIGESTS`` holds the SHA-256 of K1's output bytes at each
+phase-2 site, recorded from the kernel as it was before the decoder's
+broadcast path (``attn_kernel`` at every site) on the phase's own inputs,
+so any change to K1 must keep every output bit.  Record them again
+(``python3 ab_k1.py .`` on the card prints the table) only after a
+deliberate change to K1's arithmetic, or when the card's machine gets a
+new CUDA toolkit (``expf`` and the compiler's code may round
+differently); the table's comment names the toolkit.
 """
 
+import hashlib
 import json
 import os
 import re
@@ -287,25 +301,74 @@ def k1_inputs(torch, rng, surf, fps_500, fps_100, site, B=1):
     return args
 
 
+# SHA-256 of K1's output bytes at each phase-2 site (``k1_digest``), recorded
+# from ``attn_kernel`` at every site on an NVIDIA H100 80GB HBM3 (700 W),
+# nvcc 12.9, PyTorch 2.11.0+cu128 (module docstring, "K1's digests").
+K1_DIGESTS = {
+    "bwd_encoder_begin":
+        "0f813f2e526850b2645e4a4f8b64f53827365780cd70f2a6b678761a47d0906a",
+    "fwd_encoder_begin":
+        "89c11eeb11c5efaaaa45b84192774019dc24aafac5a60a537ed269111c5c9fb9",
+    "set_abstraction_0":
+        "429d10a264b95cb5f52a149222302bee4a7e998f3727849d2bd02a27b9ea3422",
+    "transformer_downs_0":
+        "03f31e72842aeb64e1fae8187710970d622afa2bca4942db9ab4c36d00317ea8",
+    "set_abstraction_1":
+        "a6c69f49a02b6f4f8f2913235850ee41ff97afc0433c6091733d492762b73aa6",
+    "transformer_downs_1":
+        "4f09aba4f2c94fea3778bc8e47db535c5348afd84d5787b75e143ea5cca4b65a",
+    "decoder_queries":
+        "bcc1377df9fa961a90c5ce5a8fc37373de7c117ee3f58f033af6c336da4b047d",
+    "decoder_surface":
+        "5c9459c58cf0258d554c5f5ee6c0c3505e0bd9111e19cdd18a5bc83a8f0cf399",
+    "bwd_encoder_begin_masked":
+        "a9a9f25aa2e26c03526915c457edfebb2367e0ba07d36994341b649496e3a6d9",
+    "fwd_encoder_begin_masked":
+        "19e1a33006b07a85318415d51bfa0f2c04dbbf2368c0704b076849dac1cb6cd7",
+    "set_abstraction_0_masked":
+        "14f6bd24d40db98eae96a69fa85132afadd66dff2f2dd4603535153f1840fbb5",
+    "decoder_queries_4096":
+        "c1d591916798fdd2a6db3d87daa3be9a96c28bbeaae8b9ce25f85e9cd23fe26a",
+}
+
+
+def k1_digest(out) -> str:
+    """SHA-256 of a K1 output's bytes (float32, C order, on the host)."""
+    return hashlib.sha256(out.detach().contiguous().cpu().numpy().tobytes()).hexdigest()
+
+
+def fps_step_ms(torch, fps) -> float:
+    """K3's fixed cost of one dependent step: the time of a 1024-point cloud
+    (one point a thread of the block) sampled to 1024 points, over its 1023
+    steps.  (npoint - 1) times it is K3's latency bound at a site."""
+    cloud = torch.as_tensor(surface(np.random.RandomState(2), 1024)[None], device="cuda")
+    step_ms = time_ms(torch, lambda: fps.furthest_point_sample(cloud, 1024), 5) / 1023
+    log(f"K3 one step of a 1024-point cloud: {step_ms * 1e3:.3f} us")
+    return step_ms
+
+
 def k1_mm_flops(site):
     """Flops of the attention's D x D products at ``site``: three per
-    neighbour slot, two for the global slot."""
+    neighbour slot, and two for the global slot once per batch item (the
+    decoder's query is one broadcast row, so its global logits are the same
+    for every query)."""
     _, _, nq, m, k, d, mode, masked = site
-    return float(nq * (k * 6 * d * d + (4 * d * d if mode == "global" else 0)))
+    return float(nq * k * 6 * d * d + (4 * d * d if mode == "global" else 0))
 
 
 def k1_work(site):
-    """(flops, bytes) the attention at ``site`` must do and move."""
+    """(flops, bytes) the attention at ``site`` must do and move (the
+    global slot's logits once per batch item, as in ``k1_mm_flops``)."""
     _, _, nq, m, k, d, mode, masked = site
     glob = mode == "global"
-    per_query = 9 * m + k * (6 * d * d + 20 * d) + (4 * d * d + 12 * d if glob else 0)
+    per_query = 9 * m + k * (6 * d * d + 20 * d) + (8 * d if glob else 0)
     floats = nq * 3 + m * 3 + nq * d  # queries, kv points, output
     floats += 3 * d + 4 * d + 3 * d * d  # fc_delta, fc_gamma
     if mode != "pos_only":
         floats += 2 * m * d + (d if glob else nq * d)  # K, V, q (one row if broadcast)
     floats += 2 * d if glob else 0
     floats += m if masked else 0
-    return float(nq * per_query), float(4 * floats)
+    return float(nq * per_query + (4 * d * d + 4 * d if glob else 0)), float(4 * floats)
 
 
 def check_kernels(torch, rng, surf):
@@ -316,7 +379,7 @@ def check_kernels(torch, rng, surf):
     fps_100 = fps.furthest_point_sample(
         torch.as_tensor(surf[fps_500][None], device="cuda"), 100)[0].cpu().numpy()
 
-    rows = {"k1": [], "k3": [], "fps": (fps_500, fps_100)}
+    rows = {"k1": [], "fps": (fps_500, fps_100)}
     for site in k1_sites():
         a = k1_inputs(torch, rng, surf, fps_500, fps_100, site)
         kw = {key: a[key] for key in ("k_glob", "v_glob", "kv_mask") if key in a}
@@ -328,6 +391,10 @@ def check_kernels(torch, rng, surf):
         with torch.inference_mode():
             got = run()
             torch.cuda.synchronize()
+            digest = k1_digest(got)
+            if digest != K1_DIGESTS.get(site[0]):
+                fail(f"K1 at {site[0]}: output digest {digest} differs from the recorded"
+                     f" {K1_DIGESTS.get(site[0])} (K1_DIGESTS): a bit of the output moved")
             ref = run_plain()
             err = float((got - ref).abs().max())
             if not torch.allclose(got, ref, **K1_TOL):
@@ -344,9 +411,29 @@ def check_kernels(torch, rng, surf):
             f" kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  bound {bound(flops, nbytes)[0]:.4f} ms"
             f" ({bound(flops, nbytes)[1]}), on the tensor cores {bound_tc(rows['k1'][-1]):.4f} ms"
             f"  max_abs_err {err:.3g}")
-        log(f"   device by kernel (ms): {format_split(split)}")
+        log(f"   device by kernel (ms): {format_split(split)}; output sha256 {digest} (recorded)")
 
-    for n, npoint, cloud in ((5000, 500, surf), (500, 100, surf[fps_500])):
+    rows["k3"] = check_fps(torch, surf, fps_500)
+    return rows
+
+
+def check_fps(torch, surf, fps_500):
+    """K3 against its plain version on the card, index for index, timed
+    beside it and its latency bound (phase 2) -> rows."""
+    from nsdp_tpu_torch.ops import fps
+
+    # the path's clouds, then clouds above the shared-memory variant's size
+    # (a mesh's vertices: a surface with 1% of its points at the origin),
+    # from their own RandomState so K1's and later phases' inputs stay put
+    rows = []
+    big = np.random.RandomState(1)
+    large = [surface(big, n) for n in (14497, 50000)]
+    for cloud in large:
+        cloud[big.choice(len(cloud), len(cloud) // 100, replace=False)] = 0.0
+    step_ms = fps_step_ms(torch, fps)
+    for per_eval, npoint, cloud in ((2, 500, surf), (2, 100, surf[fps_500]),
+                                    (0, 500, large[0]), (0, 500, large[1])):
+        n = len(cloud)
         xyz = torch.as_tensor(cloud[None], device="cuda")
         got = fps.furthest_point_sample(xyz, npoint)
         torch.cuda.synchronize()
@@ -357,10 +444,12 @@ def check_kernels(torch, rng, surf):
         plain_ms = time_ms(torch, lambda: fps.furthest_point_sample_plain(xyz, npoint), 3)
         flops = float((npoint - 1) * n * 9 + n * 5)
         nbytes = float(n * 12 + npoint * 4)
-        rows["k3"].append(dict(site=f"{n}->{npoint}", per_eval=2, ms=ms, plain_ms=plain_ms,
-                               max_abs_err=0.0, flops=flops, bytes=nbytes))
+        latency_ms = (npoint - 1) * step_ms
+        rows.append(dict(site=f"{n}->{npoint}", per_eval=per_eval, ms=ms, plain_ms=plain_ms,
+                         max_abs_err=0.0, flops=flops, bytes=nbytes, bound_latency_ms=latency_ms))
         log(f"K3 fps {n}->{npoint}: kernel {ms:.4f} ms  plain {plain_ms:.4f} ms"
-            f"  bound {bound(flops, nbytes)[0]:.6f} ms ({bound(flops, nbytes)[1]})  indices equal")
+            f"  bound {bound(flops, nbytes)[0]:.6f} ms ({bound(flops, nbytes)[1]}),"
+            f" latency bound {latency_ms:.4f} ms  indices equal")
     return rows
 
 
@@ -510,6 +599,8 @@ def kernel_entry(name, source, replaces, rows, launches):
     }
     if "mm_flops" in rows[0]:  # K1, K2: the bound with the products on the tensor cores
         entry["bound_tc_ms"] = sum(bound_tc(r) * r["per_eval"] for r in rows)
+    if "bound_latency_ms" in rows[0]:  # K3: its dependent steps at the fixed cost of one
+        entry["bound_latency_ms"] = per_pass("bound_latency_ms")
     return entry
 
 
@@ -783,6 +874,11 @@ def serve(torch, rng, surf, config, label):
     return svc, launches
 
 
+# the CUDA kernels of one K1 call (csrc/attention.cu)
+K1_KERNELS = ("knn_kernel", "attn_kernel", "attn_bcast_kernel", "glob_logits_kernel",
+              "weights_in_out_kernel")
+
+
 def trace(torch, run, wall_ms, what):
     """Device time of one call of ``run`` by kind, from ``torch.profiler``'s
     CUDA activity: the port's kernels (K1 = selection + attention, K2 = the
@@ -806,7 +902,7 @@ def trace(torch, run, wall_ms, what):
         kind = ("K4" if "knn_points_kernel" in e.name
                 else "gather" if "gather_rows_kernel" in e.name
                 else "frags" if "weight_frags_kernel" in e.name
-                else "K1" if "attn_kernel" in e.name or "knn_kernel" in e.name
+                else "K1" if any(s in e.name for s in K1_KERNELS)
                 else "K2" if "bwd_rows_kernel" in e.name or "wgrad" in e.name
                 else "K3" if "fps_kernel" in e.name
                 else "cuBLAS" if "gemm" in e.name

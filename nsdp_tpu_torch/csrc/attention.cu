@@ -20,7 +20,7 @@
 // What bounds it on an H100: operations.  At the decoder site (D=200,
 // k=7 + 1 global slot) the three D x D products per slot are ~1.9 MFLOP per
 // query against ~1.6 KB of compulsory traffic, far right of the f32 ridge
-// point.  Two kernels, launched back to back on one stream:
+// point.  Kernels launched back to back on one stream:
 //   * knn_kernel (steps 1-2) writes the (B, Nq, k) int32 neighbour indices,
 //     the only intermediate that reaches device memory.  One warp per query,
 //     eight queries per block sharing each chunk of kv points staged in
@@ -36,9 +36,25 @@
 //     slots, i.e. R <= 32 rows (query, slot) that go through every MLP
 //     together (two blocks fit an SM at D <= 200, so one block's gathers
 //     and softmax overlap the other's products).  The slot softmax is a
-//     last pass over the logits and values in shared memory.
-// Weights arrive in nn.Linear's (out, in) layout, contiguous: the modules'
-// weights are read in place, with no copy per call.
+//     last pass over the logits and values in shared memory.  Weights
+//     arrive in nn.Linear's (out, in) layout, contiguous, and are read in
+//     place.
+//   * attn_bcast_kernel replaces attn_kernel where the query is one row
+//     broadcast over a batch item's queries (row stride 0) with a global
+//     slot and k <= 8: the decoder, three quarters of K1's time per
+//     evaluation on attn_kernel.  Its global slot's logits fc_gamma(q - k_glob) are the same for
+//     every query, so glob_logits_kernel computes them once per batch item;
+//     a thread then owns one query's k neighbour rows by 4 adjacent
+//     channels (50 x 4 = D at D = 200: no padded column) through all three
+//     products, keeps the values and logits in registers and does the
+//     query's softmax itself.  The products read an (in, out) copy of the
+//     weights made once per call (weights_in_out_kernel), staged into a
+//     3-deep ring of 32-row tiles by 16-byte cp.async, one barrier per
+//     tile, the ring running on across the three products; 500 threads (16
+//     warps) a block and one block an SM at D = 200.
+// Both compute every output with the same chains -- an fmaf per input, in
+// ascending order, from 0, then + bias; the slot softmax in slot order, the
+// global slot last -- so both give the same bits.
 
 #include <cuda_runtime.h>
 
@@ -69,7 +85,10 @@ struct Params {
   const float* gw0; const float* gb0;  // (D, D), (D)
   const float* gw1; const float* gb1;  // (D, D), (D)
   float* out;            // (B, Nq, D)
+  float* glog;           // (B, D) global-slot logits (broadcast path), or null
+  const float* wt;       // (3, D, 4 nx) (in, out) dw1, gw0, gw1 (broadcast path)
   int B, Nq, M, D, k;
+  int nx, ny;            // broadcast path: threads across the channels, queries a block
 };
 
 // ---- kNN selection (knn_select.cuh, shared with K4) -------------------------
@@ -131,7 +150,7 @@ __global__ void __launch_bounds__(kThreads, 2) attn_kernel(const Params p) {
 
   // ---- fc_delta layer 1 -> pos; fc_gamma input and values ------------------
   float acc[kRT][CJ];
-  rows_gemm<CJ, false>(ht, p.dw1, D, ws, acc);
+  rows_gemm<CJ>(ht, p.dw1, D, ws, acc);
   const bool pos_only = p.q == nullptr;
 #pragma unroll
   for (int j = 0; j < CJ; ++j) {
@@ -163,7 +182,7 @@ __global__ void __launch_bounds__(kThreads, 2) attn_kernel(const Params p) {
   }
 
   // ---- fc_gamma -------------------------------------------------------------
-  rows_gemm<CJ, false>(ut, p.gw0, D, ws, acc);
+  rows_gemm<CJ>(ut, p.gw0, D, ws, acc);
 #pragma unroll
   for (int j = 0; j < CJ; ++j) {
     const int d = tx + j * kNX;
@@ -174,7 +193,7 @@ __global__ void __launch_bounds__(kThreads, 2) attn_kernel(const Params p) {
     for (int i = 0; i < kRT; ++i) h[i] = fmaxf(acc[i][j] + b0, 0.0f);
     store_rows(ht, d, h);
   }
-  rows_gemm<CJ, false>(ht, p.gw1, D, ws, acc);
+  rows_gemm<CJ>(ht, p.gw1, D, ws, acc);
 #pragma unroll
   for (int j = 0; j < CJ; ++j) {
     const int d = tx + j * kNX;
@@ -228,6 +247,239 @@ cudaError_t launch_attention(const Params& p, int device, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
+
+// ---- the broadcast query's path ----------------------------------------------
+
+constexpr int kBcastKMax = 8;    // most neighbours a thread's rows hold
+constexpr int kBcastThreads = 512;
+constexpr int kBcastQueries = 16;  // most queries a block
+constexpr int kStages = 3;       // weight tiles in flight
+constexpr int kTile = 32;        // weight rows a tile
+constexpr int kMaxSmem = 232448; // opt-in shared memory of an sm_90 block
+
+// The global slot's logits, fc_gamma(q - k_glob), once per batch item: the
+// chains of rows_gemm (an fmaf per input, ascending, from 0, then + bias),
+// so they carry the bits attn_kernel's own global row would give.
+__global__ void __launch_bounds__(kThreads) glob_logits_kernel(const Params p) {
+  __shared__ float u[kDMax], h[kDMax];
+  const int b = blockIdx.x, D = p.D;
+  for (int d = threadIdx.x; d < D; d += kThreads)
+    u[d] = p.q[b * p.q_sb + d] - p.k_glob[(size_t)b * D + d];
+  __syncthreads();
+  for (int d = threadIdx.x; d < D; d += kThreads) {
+    float acc = 0.0f;
+    for (int kk = 0; kk < D; ++kk) acc = fmaf(u[kk], p.gw0[d * D + kk], acc);
+    h[d] = fmaxf(acc + p.gb0[d], 0.0f);
+  }
+  __syncthreads();
+  for (int d = threadIdx.x; d < D; d += kThreads) {
+    float acc = 0.0f;
+    for (int kk = 0; kk < D; ++kk) acc = fmaf(h[kk], p.gw1[d * D + kk], acc);
+    p.glog[(size_t)b * D + d] = acc + p.gb1[d];
+  }
+}
+
+// wt[m][kk][d] = w_m[d][kk] for the three D x D products (m: dw1, gw0, gw1),
+// columns D .. dp - 1 zero.
+__global__ void weights_in_out_kernel(const Params p, int dp, float* wt) {
+  const size_t n = (size_t)3 * p.D * dp;
+  for (size_t e = blockIdx.x * (size_t)blockDim.x + threadIdx.x; e < n;
+       e += (size_t)gridDim.x * blockDim.x) {
+    const int d = (int)(e % dp), kk = (int)(e / dp % p.D), m = (int)(e / dp / p.D);
+    const float* w = m == 0 ? p.dw1 : m == 1 ? p.gw0 : p.gw1;
+    wt[e] = d < p.D ? w[(size_t)d * p.D + kk] : 0.0f;
+  }
+}
+
+// Stage k-tile g of the three products' sequence (product g / nt, its rows
+// [c kTile, c kTile + kTile), c = g % nt) into ring slot g % kStages: contiguous
+// rows of wt, 16 bytes a copy.  Commits a group even past the last tile, so
+// every thread counts the same groups.
+__device__ __forceinline__ void stage_ring(float* ring, const float* __restrict__ wt, int D, int dp,
+                                           int nt, int g) {
+  if (g < 3 * nt) {
+    const int m = g / nt, r0 = (g - m * nt) * kTile, kn = min(kTile, D - r0);
+    const float* src = wt + ((size_t)m * D + r0) * dp;
+    float* dst = ring + (g % kStages) * kTile * dp;
+    for (int e = threadIdx.x; e < kn * dp / 4; e += blockDim.x)
+      cp_async16(dst + 4 * e, src + 4 * e);
+  }
+  cp_async_commit();
+}
+
+// One reduction step of a thread's RT rows by 4 channels.
+template <int RT>
+__device__ __forceinline__ void fma_step4(const float* xrow, const float* wrow,
+                                          float (&acc)[RT][4]) {
+  const float4 x0 = *reinterpret_cast<const float4*>(xrow);
+  const float4 x1 = *reinterpret_cast<const float4*>(xrow + 4);
+  const float4 w4 = *reinterpret_cast<const float4*>(wrow);
+  const float x[8] = {x0.x, x0.y, x0.z, x0.w, x1.x, x1.y, x1.z, x1.w};
+  const float w[4] = {w4.x, w4.y, w4.z, w4.w};
+#pragma unroll
+  for (int i = 0; i < RT; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(x[i], w[j], acc[i][j]);
+}
+
+// A thread's RT rows of channel d into a transposed activation (8 floats a
+// query, 16-byte stores).
+template <int RT>
+__device__ __forceinline__ void store8(float* dst, const float (&v)[RT]) {
+  float r[8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i) r[i] = i < RT ? v[i] : 0.0f;
+  reinterpret_cast<float4*>(dst)[0] = make_float4(r[0], r[1], r[2], r[3]);
+  reinterpret_cast<float4*>(dst)[1] = make_float4(r[4], r[5], r[6], r[7]);
+}
+
+size_t bcast_smem_bytes(int nx, int ny) {
+  const int dp = 4 * nx, P = ny * kRT + 4;
+  return (size_t)(2 * dp * P + kStages * kTile * dp + ny * kRT * 4) * sizeof(float) +
+         ny * kRT * sizeof(int);
+}
+
+// Thread (tx, ty) owns query blockIdx.x * ny + ty of batch item blockIdx.y:
+// its rows 0 .. k-1 (RT >= k; rows k .. RT-1 idle) by channels 4 tx .. 4 tx + 3.
+template <int RT>
+__global__ void __launch_bounds__(kBcastThreads, 1) attn_bcast_kernel(const Params p) {
+  extern __shared__ float4 smem4[];
+  float* smem = reinterpret_cast<float*>(smem4);
+  const int D = p.D, M = p.M, k = p.k, nx = p.nx, ny = p.ny, dp = 4 * nx, P = ny * kRT + 4;
+  float* xa = smem;                          // (dp, P) fc_delta's, then fc_gamma's hidden layer
+  float* xb = xa + dp * P;                   // (dp, P) fc_gamma's input
+  float* ring = xb + dp * P;                 // (kStages, kTile, dp) weight tiles
+  float* dxs = ring + kStages * kTile * dp;  // (ny * 8, 4) position deltas
+  int* nbr = reinterpret_cast<int*>(dxs + ny * kRT * 4);  // (ny * 8) kv index per row
+
+  const int b = blockIdx.y, q0 = blockIdx.x * ny;
+  const int tid = threadIdx.x, tx = tid % nx, ty = tid / nx, n = q0 + ty;
+  const int nt = (D + kTile - 1) / kTile;    // k-tiles of one product
+  for (int g = 0; g < kStages - 1; ++g)       // the first tiles load under the set-up
+    stage_ring(ring, p.wt, D, dp, nt, g);
+
+  // ---- neighbours and position deltas --------------------------------------
+  const float* kv = p.kv_xyz + (size_t)b * M * 3;
+  for (int e = tid; e < ny * kRT; e += blockDim.x) {
+    const int t = e / kRT, s = e % kRT, q = q0 + t;
+    const bool nb = s < k && q < p.Nq;
+    const int j = nb ? p.idx[((size_t)b * p.Nq + q) * k + s] : 0;
+    nbr[e] = j;
+    const float* xq = p.xyz_q + ((size_t)b * p.Nq + (nb ? q : 0)) * 3;
+#pragma unroll
+    for (int c = 0; c < 3; ++c) dxs[e * 4 + c] = nb ? __fsub_rn(xq[c], kv[3 * j + c]) : 0.0f;
+  }
+  __syncthreads();
+
+  // ---- fc_delta layer 0 (the ring's first barrier publishes it) -------------
+#pragma unroll
+  for (int c = 0; c < 4; ++c) {
+    const int d = 4 * tx + c;
+    if (d >= D) continue;
+    const float w0 = p.dw0[3 * d], w1 = p.dw0[3 * d + 1], w2 = p.dw0[3 * d + 2], b0 = p.db0[d];
+    float h[RT];
+#pragma unroll
+    for (int i = 0; i < RT; ++i) {
+      const float* dx = dxs + (ty * kRT + i) * 4;
+      h[i] = fmaxf(fmaf(dx[0], w0, fmaf(dx[1], w1, fmaf(dx[2], w2, b0))), 0.0f);
+    }
+    store8(xa + d * P + ty * kRT, h);
+  }
+
+  // ---- the three products: fc_delta layer 1, fc_gamma layers 0 and 1 -------
+  float acc[RT][4], val[RT][4];
+  for (int g = 0; g < 3 * nt; ++g) {
+    const int m = g / nt, c = g - m * nt;
+    if (c == 0) {
+#pragma unroll
+      for (int i = 0; i < RT; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) acc[i][j] = 0.0f;
+    }
+    cp_async_wait<kStages - 2>();  // tile g has landed (this thread's copies) ...
+    __syncthreads();  // ... everyone's; and tile g - 1's slot is consumed: refill it
+    stage_ring(ring, p.wt, D, dp, nt, g + kStages - 1);
+    const float* tile = ring + (g % kStages) * kTile * dp + 4 * tx;
+    const float* xc = (m == 1 ? xb : xa) + c * kTile * P + ty * kRT;
+    const int kn = min(kTile, D - c * kTile);
+    if (kn == kTile) {
+#pragma unroll
+      for (int kk = 0; kk < kTile; ++kk) fma_step4<RT>(xc + kk * P, tile + kk * dp, acc);
+    } else {
+      for (int kk = 0; kk < kn; ++kk) fma_step4<RT>(xc + kk * P, tile + kk * dp, acc);
+    }
+    if (c != nt - 1 || m == 2) continue;
+    // a product's epilogue; the next product's first barrier publishes it
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int d = 4 * tx + j;
+      if (d >= D) continue;
+      float x[RT];
+      if (m == 0) {  // pos -> u = (q - K[n]) + pos into xb; values V[n] + pos kept
+        const float b1 = p.db1[d], qv = p.q[b * p.q_sb + d];
+#pragma unroll
+        for (int i = 0; i < RT; ++i) {
+          const float pos = acc[i][j] + b1;
+          const size_t row = ((size_t)b * M + nbr[ty * kRT + i]) * D + d;
+          x[i] = (qv - p.K[row]) + pos;
+          val[i][j] = p.V[row] + pos;
+        }
+        store8(xb + d * P + ty * kRT, x);
+      } else {       // fc_gamma's hidden layer into xa
+        const float b0 = p.gb0[d];
+#pragma unroll
+        for (int i = 0; i < RT; ++i) x[i] = fmaxf(acc[i][j] + b0, 0.0f);
+        store8(xa + d * P + ty * kRT, x);
+      }
+    }
+  }
+
+  // ---- logits and the per-channel softmax over the slots, global last ------
+  if (n >= p.Nq) return;
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const int d = 4 * tx + j;
+    if (d >= D) continue;
+    const float b1 = p.gb1[d], lg = p.glog[(size_t)b * D + d];
+    float l[RT];
+#pragma unroll
+    for (int i = 0; i < RT; ++i) l[i] = acc[i][j] + b1;
+    float mx = l[0];
+#pragma unroll
+    for (int s = 1; s < RT; ++s)
+      if (s < k) mx = fmaxf(mx, l[s]);
+    mx = fmaxf(mx, lg);
+    float se = 0.0f, o = 0.0f;
+#pragma unroll
+    for (int s = 0; s < RT; ++s) {
+      if (s >= k) continue;
+      const float ex = expf(l[s] - mx);
+      se += ex;
+      o = fmaf(ex, val[s][j], o);
+    }
+    const float ex = expf(lg - mx);
+    se += ex;
+    o = fmaf(ex, p.v_glob[(size_t)b * D + d], o);
+    p.out[((size_t)b * p.Nq + n) * D + d] = o / se;
+  }
+}
+
+template <int RT>
+cudaError_t launch_bcast(const Params& p, int device, cudaStream_t stream) {
+  static bool opted_in[kMaxDevices];
+  if (!opted_in[device]) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        attn_bcast_kernel<RT>, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
+    if (err != cudaSuccess) return failed(err);
+    opted_in[device] = true;
+  }
+  weights_in_out_kernel<<<264, 256, 0, stream>>>(p, 4 * p.nx, const_cast<float*>(p.wt));
+  glob_logits_kernel<<<p.B, kThreads, 0, stream>>>(p);
+  const dim3 grid((p.Nq + p.ny - 1) / p.ny, p.B);
+  attn_bcast_kernel<RT><<<grid, p.nx * p.ny, bcast_smem_bytes(p.nx, p.ny), stream>>>(p);
+  return cudaGetLastError();
+}
+
 cudaError_t launch_knn(const float* xyz_q, const float* kv_xyz, const float* penalty, int B,
                        int Nq, int M, int k, int* idx, cudaStream_t stream) {
   const dim3 grid((Nq + knnsel::kWarps - 1) / knnsel::kWarps, B);
@@ -247,28 +499,43 @@ extern "C" {
 
 const char* nsdp_error_string(int err) { return cudaGetErrorString((cudaError_t)err); }
 
+// Whether a call takes the broadcast path (attn_bcast_kernel).
+int nsdp_attention_bcast(int has_glob, long long q_sn, int k) {
+  return has_glob && q_sn == 0 && k <= kBcastKMax;
+}
+
 // idx: (B, Nq, k) int32 scratch for the neighbour indices, written here.
-// dw0, dw1, gw0, gw1: (out, in) weights, contiguous.
+// dw0, dw1, gw0, gw1: (out, in) weights, contiguous.  Where the query is
+// broadcast (q_sn == 0) with a global slot and k <= 8 (the broadcast path,
+// nsdp_attention_bcast), glog is (B, D) and wt (3, D, 4 ceil(D / 4)) float32
+// scratch on the device; else both are null.
 int nsdp_fused_attention(
     const float* xyz_q, const float* kv_xyz, const float* penalty,
     const float* q, long long q_sb, long long q_sn,
     const float* K, const float* V, const float* k_glob, const float* v_glob,
     const float* dw0, const float* db0, const float* dw1, const float* db1,
     const float* gw0, const float* gb0, const float* gw1, const float* gb1,
-    int* idx, float* out, int B, int Nq, int M, int D, int k, int device, void* stream) {
+    int* idx, float* out, float* glog, float* wt, int B, int Nq, int M, int D, int k,
+    int device, void* stream) {
   if (B < 1 || Nq < 1 || M < 1 || D < 1 || D > kDMax || k < 1 || k > kKMax || k > M ||
       k + (k_glob ? 1 : 0) > kRows || device < 0 || device >= kMaxDevices)
     return (int)cudaErrorInvalidValue;
   if ((q == nullptr) != (K == nullptr) || (K == nullptr) != (V == nullptr) ||
       (k_glob == nullptr) != (v_glob == nullptr) || (k_glob != nullptr && q == nullptr))
     return (int)cudaErrorInvalidValue;
+  const bool bcast = nsdp_attention_bcast(k_glob != nullptr, q_sn, k);
+  if ((glog != nullptr) != bcast || (wt != nullptr) != bcast) return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)failed(err);
   const cudaStream_t s = (cudaStream_t)stream;
   err = launch_knn(xyz_q, kv_xyz, penalty, B, Nq, M, k, idx, s);
   if (err != cudaSuccess) return (int)err;
+  const int nx = (D + 3) / 4;
+  int ny = kBcastThreads / nx < kBcastQueries ? kBcastThreads / nx : kBcastQueries;
+  while (ny > 1 && bcast_smem_bytes(nx, ny) > (size_t)kMaxSmem) --ny;
   const Params p{xyz_q, kv_xyz, idx, q, q_sb, q_sn, K, V, k_glob, v_glob,
-                 dw0, db0, dw1, db1, gw0, gb0, gw1, gb1, out, B, Nq, M, D, k};
+                 dw0, db0, dw1, db1, gw0, gb0, gw1, gb1, out, glog, wt, B, Nq, M, D, k, nx, ny};
+  if (bcast) return (int)(k == 7 ? launch_bcast<7>(p, device, s) : launch_bcast<8>(p, device, s));
   switch ((D + kNX - 1) / kNX) {
     case 1: return (int)launch_attention<1>(p, device, s);
     case 2: return (int)launch_attention<2>(p, device, s);

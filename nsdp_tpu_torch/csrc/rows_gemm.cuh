@@ -30,6 +30,10 @@ __device__ __forceinline__ void cp_async4(float* smem, const float* gmem) {
   const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s), "l"(gmem));
 }
+__device__ __forceinline__ void cp_async16(float* smem, const float* gmem) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(gmem));
+}
 __device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
 template <int N>
 __device__ __forceinline__ void cp_async_wait() { asm volatile("cp.async.wait_group %0;\n" ::"n"(N)); }
@@ -38,28 +42,17 @@ __device__ __forceinline__ void cp_async_wait() { asm volatile("cp.async.wait_gr
 // fall in distinct shared-memory banks.
 __host__ __device__ __forceinline__ int tile_pitch(int D) { return D | 1; }
 
-// Stage reduction rows [c*kKC, c*kKC + kKC) of the product's weight into dst
-// as kKC rows of pitch P.  w is (out, in) = D x D, row-major.
-//   TRANS = false: x @ w^T (a forward layer), tile[kk][d] = w[d][c*kKC + kk]:
-//     kKC threads down each output channel's contiguous inputs;
-//   TRANS = true:  dy @ w (a layer's input gradient), tile[kk][d] =
-//     w[c*kKC + kk][d]: consecutive threads along a contiguous weight row.
-template <bool TRANS>
+// Stage reduction rows [c*kKC, c*kKC + kKC) of the product x @ w^T's weight
+// into dst as kKC rows of pitch P: tile[kk][d] = w[d][c*kKC + kk], kKC
+// threads down each output channel's contiguous inputs.  w is (out, in) =
+// D x D, row-major.
 __device__ __forceinline__ void stage_tile(float* dst, const float* __restrict__ w, int D, int P,
                                            int c) {
   const int r0 = c * kKC;
-  if (TRANS) {
-    const int kn = min(kKC, D - r0);
-    for (int e = threadIdx.x; e < kn * D; e += kThreads) {
-      const int r = e / D, d = e - r * D;
-      cp_async4(dst + r * P + d, w + (size_t)(r0 + r) * D + d);
-    }
-  } else {
-    const int r = threadIdx.x % kKC;
-    if (r0 + r < D)
-      for (int d = threadIdx.x / kKC; d < D; d += kThreads / kKC)
-        cp_async4(dst + r * P + d, w + d * D + r0 + r);
-  }
+  const int r = threadIdx.x % kKC;
+  if (r0 + r < D)
+    for (int d = threadIdx.x / kKC; d < D; d += kThreads / kKC)
+      cp_async4(dst + r * P + d, w + d * D + r0 + r);
   cp_async_commit();
 }
 
@@ -90,11 +83,11 @@ __device__ __forceinline__ void fma_step(const float* xrow, const float* wrow, i
     for (int j = 0; j < CJ; ++j) acc[i][j] = fmaf(xr[i], wc[j], acc[i][j]);
 }
 
-// acc[i][j] = sum_kk xt[kk][ty*kRT + i] * tile[kk][tx + j*kNX] (stage_tile)
+// acc[i][j] = sum_kk xt[kk][ty*kRT + i] * w[tx + j*kNX][kk]
 // xt: (D, kRP) transposed activations in shared memory; w: (D, D), (out, in),
 // in global memory; ws: two kKC x P tiles of shared memory.  Ends with a
 // barrier, so xt may be overwritten next.
-template <int CJ, bool TRANS>
+template <int CJ>
 __device__ void rows_gemm(const float* xt, const float* __restrict__ w, int D, float* ws,
                           float (&acc)[kRT][CJ]) {
   const int ty = threadIdx.x / kNX, P = tile_pitch(D);
@@ -103,10 +96,10 @@ __device__ void rows_gemm(const float* xt, const float* __restrict__ w, int D, f
 #pragma unroll
     for (int j = 0; j < CJ; ++j) acc[i][j] = 0.0f;
   const int n_tiles = (D + kKC - 1) / kKC;
-  stage_tile<TRANS>(ws, w, D, P, 0);
+  stage_tile(ws, w, D, P, 0);
   for (int c = 0; c < n_tiles; ++c) {
     if (c + 1 < n_tiles) {
-      stage_tile<TRANS>(ws + ((c + 1) & 1) * kKC * P, w, D, P, c + 1);
+      stage_tile(ws + ((c + 1) & 1) * kKC * P, w, D, P, c + 1);
       cp_async_wait<1>();
     } else {
       cp_async_wait<0>();
@@ -130,19 +123,6 @@ __device__ __forceinline__ void store_rows(float* xt, int d, const float (&v)[kR
   float4* dst = reinterpret_cast<float4*>(xt + d * kRP + (threadIdx.x / kNX) * kRT);
 #pragma unroll
   for (int u = 0; u < kRT / 4; ++u) dst[u] = make_float4(v[4 * u], v[4 * u + 1], v[4 * u + 2], v[4 * u + 3]);
-}
-
-// Load a thread's kRT rows of column d from a transposed activation buffer.
-__device__ __forceinline__ void load_rows(const float* xt, int d, float (&v)[kRT]) {
-  const float4* src = reinterpret_cast<const float4*>(xt + d * kRP + (threadIdx.x / kNX) * kRT);
-#pragma unroll
-  for (int u = 0; u < kRT / 4; ++u) {
-    const float4 x = src[u];
-    v[4 * u] = x.x;
-    v[4 * u + 1] = x.y;
-    v[4 * u + 2] = x.z;
-    v[4 * u + 3] = x.w;
-  }
 }
 
 // A failed runtime call also sets the thread's last error; clear it, so the

@@ -11,7 +11,9 @@ The encoder is ``pointransformer`` (shipped) or ``pointnet++`` (ablation),
 the decoder ``crossatten`` (shipped) or ``interp`` (ablation), by
 ``encoder_dict`` / ``decoder_dict`` as in ``nsdp_tpu/models/__init__.py:79-100``.
 The port has one path (every kNN attention through the fused kernel), so
-``fused_attention`` is not read.
+``fused_attention`` is not read.  It runs in float32 and keeps every
+activation for the backward: ``build_model`` refuses ``compute_dtype`` other
+than ``float32`` and ``remat: true`` rather than ignore them.
 """
 
 from typing import Any, Dict
@@ -71,12 +73,24 @@ def build_deformation_network(config: Dict[str, Any], no_input_corr: bool = Fals
                               use_normals=model_cfg.get("use_normals", False))
 
 
+def _refuse_unported(model_cfg: Dict[str, Any]) -> None:
+    """Raise on the JAX package's keys that the port does not honour
+    (``nsdp_tpu/models/__init__.py``: bfloat16 activations, ``nn.remat``)."""
+    dtype = model_cfg.get("compute_dtype")
+    if dtype is not None and dtype != "float32":
+        raise NotImplementedError(
+            f"model.compute_dtype: {dtype!r} is not supported by the port (float32 only)")
+    if model_cfg.get("remat", False):
+        raise NotImplementedError("model.remat: true is not supported by the port")
+
+
 def build_model(config: Dict[str, Any], device=None) -> nn.Module:
     """The model for ``config['model']['type']`` on ``device`` (``cuda``
     unless told otherwise; raises with no card), in eval mode;
     ``model.train()`` selects train mode (batch statistics in every
     BatchNorm), as the training steps do."""
     device = resolve_device(device)
+    _refuse_unported(config["model"])
     model_type = config["model"]["type"]
     if model_type == "forward":
         net = build_deformation_network(config, False, device)

@@ -25,7 +25,10 @@ before the residual and the BatchNorm.
 
 The kernel (``csrc/attention.cu``, K1) replaces the TPU kernel
 ``_attn_kernel``; see the note at the top of the source for what bounds it
-on the card and how its design answers that.
+on the card and how its design answers that.  A query broadcast over a
+batch item's queries (row stride 0, the decoder's) with a global slot and
+``k <= 8`` takes the source's broadcast path, which computes the global
+slot once per batch item; every path gives the same bits.
 
 Gradients (counterpart of the custom VJPs ``knn_vector_attention`` and
 ``knn_vector_attention_proj``, ``attention_pallas.py:1086-1248``): when grad
@@ -88,10 +91,13 @@ def fused_vector_attention_plain(
     return (e * value).sum(dim=2) / e.sum(dim=2)
 
 
-_SIGNATURES = {"nsdp_fused_attention": (ctypes.c_int, (
-    [ctypes.c_void_p] * 4 + [ctypes.c_longlong] * 2 + [ctypes.c_void_p] * 14
-    + [ctypes.c_int] * 6 + [ctypes.c_void_p]
-))}
+_SIGNATURES = {
+    "nsdp_fused_attention": (ctypes.c_int, (
+        [ctypes.c_void_p] * 4 + [ctypes.c_longlong] * 2 + [ctypes.c_void_p] * 16
+        + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+    )),
+    "nsdp_attention_bcast": (ctypes.c_int, [ctypes.c_int, ctypes.c_longlong, ctypes.c_int]),
+}
 _SIGNATURES_BWD = {"nsdp_fused_attention_bwd": (ctypes.c_int, (
     [ctypes.c_void_p] * 4 + [ctypes.c_longlong] * 2 + [ctypes.c_void_p] * 23
     + [ctypes.c_int] * 7 + [ctypes.c_void_p]
@@ -239,13 +245,19 @@ def _launch(xyz_q, kv_xyz, q_feats, K_a, V_a, delta_w0, delta_b0, delta_w1,
     ptr = _Pointers()
     q_ptr, q_sb, q_sn = ptr.query(q_feats)
     lib = _build.load("attention", _SIGNATURES)
+    # the decoder's broadcast query: scratch for its global slot's logits
+    # and an (in, out) copy of the three D x D weights
+    glog = wt = None
+    if lib.nsdp_attention_bcast(k_glob is not None, q_sn, k):
+        glog = torch.empty((B, D), dtype=torch.float32, device=xyz_q.device)
+        wt = torch.empty((3, D, -(-D // 4) * 4), dtype=torch.float32, device=xyz_q.device)
     err = lib.nsdp_fused_attention(
         ptr(xyz_q), ptr(kv_xyz), ptr(penalty), q_ptr, q_sb, q_sn,
         ptr(K_a), ptr(V_a), ptr(k_glob), ptr(v_glob),
         ptr.linear(delta_w0), ptr(delta_b0), ptr.linear(delta_w1), ptr(delta_b1),
         ptr.linear(gamma_w0), ptr(gamma_b0), ptr.linear(gamma_w1), ptr(gamma_b1),
-        idx.data_ptr(), out.data_ptr(), B, Nq, M, D, k, xyz_q.device.index or 0,
-        _build.stream_of(xyz_q),
+        idx.data_ptr(), out.data_ptr(), ptr(glog), ptr(wt), B, Nq, M, D, k,
+        xyz_q.device.index or 0, _build.stream_of(xyz_q),
     )
     _build.check(lib, err, f"attention kernel (B={B}, Nq={Nq}, M={M}, D={D}, k={k})")
     fused_vector_attention.launches += 1

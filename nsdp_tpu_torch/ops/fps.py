@@ -8,9 +8,10 @@ all-invalid cloud picks 0.
 
 The kernel (``csrc/fps.cu``) replaces the TPU kernel
 ``nsdp_tpu/ops/fps_pallas.py::_fps_kernel``; see the note at the top of the
-source for what bounds it on the card.  The kernel keeps the whole cloud in
-shared memory, 16 bytes a point, so on the card a cloud holds at most
-``MAX_POINTS`` points; the plain version takes any size.
+source for what bounds it on the card.  Up to ``SMEM_POINTS`` points the
+kernel keeps the whole cloud in shared memory, 16 bytes a point; a larger
+cloud takes its second variant, which keeps the running min-distance in a
+(B, N) scratch on the card that the wrapper allocates.  Both take any size.
 """
 
 import ctypes
@@ -20,11 +21,12 @@ import torch
 from nsdp_tpu_torch.ops import _build
 
 # (227 KB of shared memory a Hopper block may opt in to, less 512 bytes of
-# static arrays) / 16 bytes a point; the same limit as csrc/fps.cu.
-MAX_POINTS = (232448 - 512) // 16
+# static arrays) / 16 bytes a point: the largest cloud the shared-memory
+# variant takes (csrc/fps.cu kSmemPoints); above it a scratch is allocated.
+SMEM_POINTS = (232448 - 512) // 16
 _SIGNATURES = {"nsdp_fps": (ctypes.c_int, [
     ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-    ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
+    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
 ])}
 
 
@@ -62,15 +64,13 @@ def _launch(xyz: torch.Tensor, npoint: int) -> torch.Tensor:
     if xyz.ndim != 3 or xyz.shape[-1] != 3:
         raise ValueError(f"expected (B, N, 3) input, got {tuple(xyz.shape)}")
     B, N, _ = xyz.shape
-    if N > MAX_POINTS:
-        raise ValueError(
-            f"the FPS kernel keeps the cloud in shared memory and takes at most "
-            f"{MAX_POINTS} points, got {N}"
-        )
     lib = _build.load("fps", _SIGNATURES)
     xyz = xyz.contiguous()
     out = torch.empty((B, npoint), dtype=torch.int32, device=xyz.device)
-    err = lib.nsdp_fps(xyz.data_ptr(), B, N, npoint, out.data_ptr(),
+    scratch = (torch.empty((B, N), dtype=torch.float32, device=xyz.device)
+               if N > SMEM_POINTS else None)
+    err = lib.nsdp_fps(xyz.data_ptr(), B, N, npoint,
+                       None if scratch is None else scratch.data_ptr(), out.data_ptr(),
                        xyz.device.index or 0, _build.stream_of(xyz))
     _build.check(lib, err, f"fps kernel (B={B}, N={N}, npoint={npoint})")
     furthest_point_sample.launches += 1
@@ -81,9 +81,8 @@ def furthest_point_sample(xyz: torch.Tensor, npoint: int) -> torch.Tensor:
     """Furthest-point sampling, (B, N, 3) -> (B, npoint) int32 indices.
 
     A CPU tensor runs :func:`furthest_point_sample_plain`; a CUDA tensor
-    launches the kernel of ``csrc/fps.cu`` and counts the launch in
-    ``furthest_point_sample.launches``.  The kernel takes clouds of at most
-    ``MAX_POINTS`` points and raises ``ValueError`` beyond.
+    launches the kernel of ``csrc/fps.cu`` (either variant, for any N) and
+    counts the launch in ``furthest_point_sample.launches``.
     """
     if xyz.device.type == "cpu":
         return furthest_point_sample_plain(xyz, npoint)

@@ -20,6 +20,7 @@ import torch
 
 from nsdp_tpu_torch import resolve_device
 from nsdp_tpu_torch.models import build_model, init_random
+from nsdp_tpu_torch.training.checkpoints import read_state_dict
 from nsdp_tpu_torch.utils.padding import pad_queries
 
 
@@ -28,16 +29,24 @@ class DeformationService:
 
     Args:
       config: the YAML config (``utils.config.load_config``).
-      state_dict: the model's weights (e.g. ``utils.convert.from_jax_variables``);
-        None draws seeded random weights (``models.init_random``).
+      state_dict: the model's weights (e.g. ``utils.convert.from_jax_variables``).
+      weight_file: a model file (the reference's torch format or a raw state
+        dict, ``training.checkpoints.read_state_dict``) to load instead; a
+        missing file raises ``FileNotFoundError``.  With neither
+        ``state_dict`` nor ``weight_file`` the weights are seeded random
+        (``models.init_random``).
       buckets: query-count ladder requests are padded to.
       device: ``cuda`` by default; ``cpu`` runs the plain PyTorch path.
-      seed: seed of the random weights when ``state_dict`` is None.
+      seed: seed of the random weights.
     """
 
     def __init__(self, config: Dict, state_dict: Optional[Dict] = None,
                  buckets: Sequence[int] = (4096, 16384, 65536), device=None,
-                 seed: int = 0):
+                 seed: int = 0, weight_file: Optional[str] = None):
+        if state_dict is not None and weight_file is not None:
+            raise ValueError("pass state_dict or weight_file, not both")
+        if weight_file is not None:
+            state_dict = read_state_dict(weight_file)
         self.device = resolve_device(device)
         self.config = config
         self.buckets = sorted(buckets)
@@ -50,12 +59,16 @@ class DeformationService:
 
     @classmethod
     def from_config(cls, config_path: str, **kwargs) -> "DeformationService":
-        """Service for a YAML config.  The config's ``test.weight_file`` (a
-        reference torch checkpoint) is not loaded by the port yet: pass
-        ``state_dict`` or get seeded random weights."""
+        """Service for a YAML config, with the weights of its
+        ``test.weight_file`` (as ``nsdp_tpu/serving.py`` loads them; a missing
+        file raises ``FileNotFoundError``).  ``state_dict=...`` serves given
+        weights instead, ``weight_file=None`` seeded random ones."""
         from nsdp_tpu_torch.utils.config import load_config
 
-        return cls(load_config(config_path), **kwargs)
+        config = load_config(config_path)
+        if "state_dict" not in kwargs:
+            kwargs.setdefault("weight_file", config.get("test", {}).get("weight_file"))
+        return cls(config, **kwargs)
 
     def _bucket(self, q: int) -> int:
         for b in self.buckets:

@@ -135,6 +135,25 @@ def test_fps_kernel_matches_plain(case, cuda, rng):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("n", [14496, 14497, 50000, 60000])
+def test_fps_kernel_takes_any_cloud_size(n, cuda, rng):
+    """Both sides of the shared-memory variant's size (14,496 points) and
+    clouds of 50,000 and 60,000 points, one launch each: a cloud with points
+    at the origin and an all-invalid one (|p|^2 <= 1e-3 everywhere), index
+    for index."""
+    xyz = rng.randn(2, n, 3).astype(np.float32)
+    xyz[0, 7:n:5] = 0.0
+    xyz[1] = 1e-2
+    x = torch.from_numpy(xyz).to(cuda)
+    before = port_fps.furthest_point_sample.launches
+    got = port_fps.furthest_point_sample(x, 500)
+    torch.cuda.synchronize()
+    assert port_fps.furthest_point_sample.launches == before + 1
+    assert torch.equal(got, port_fps.furthest_point_sample_plain(x, 500))
+    assert not got[1].any()
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("masked", [False, True])
 @pytest.mark.parametrize("mode", ["pos_only", "table", "proj", "global"])
 def test_attention_kernel_matches_plain(mode, masked, cuda, rng):
@@ -157,6 +176,32 @@ def test_attention_kernel_widths(mode, D, k, cuda, rng):
     with torch.inference_mode():
         got = _port_attention(a, w, cuda)
         ref = _port_attention(a, w, "cpu")
+    np.testing.assert_allclose(got.cpu().numpy(), ref.numpy(), rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("D,k", [(200, 7), (120, 5), (36, 8), (256, 7), (130, 6)])
+def test_attention_kernel_broadcast_query_gives_the_same_bits(D, k, cuda, rng):
+    """The decoder's query is one row per batch item, broadcast over the
+    queries (row stride 0): its global slot is computed once per batch item.
+    The same query materialised row by row takes the per-row global slot;
+    both give the same bits, at Nq = 77 (not a multiple of a block's
+    queries) and at D = 130 (not a multiple of a thread's 4 channels)."""
+    a, w = _attention_case(rng, "global", False, B=2, M=300, D=D, k=k, nq=77)
+    q_row = torch.as_tensor(a["q_feats"][:, :1], device=cuda)
+    t = lambda x: torch.as_tensor(x, device=cuda)
+    args = [t(a[key]) for key in ("xyz_q", "kv_xyz")]
+    rest = [t(a["K_a"]), t(a["V_a"]), *[t(x) for x in w]]
+    kw = dict(k=k, k_glob=t(a["k_glob"]), v_glob=t(a["v_glob"]))
+    with torch.inference_mode():
+        bcast = q_row.expand(2, 77, D)
+        assert bcast.stride(1) == 0
+        got = port_attention.fused_vector_attention(*args, bcast, *rest, **kw)
+        rows = port_attention.fused_vector_attention(*args, bcast.contiguous(), *rest, **kw)
+        ref = port_attention.fused_vector_attention(
+            *[x.cpu() for x in args], bcast.cpu(), *[x.cpu() for x in rest],
+            k=k, k_glob=kw["k_glob"].cpu(), v_glob=kw["v_glob"].cpu())
+    assert torch.equal(got, rows)
     np.testing.assert_allclose(got.cpu().numpy(), ref.numpy(), rtol=1e-4, atol=1e-5)
 
 

@@ -112,3 +112,18 @@ def test_weight_round_trip(rng):
         assert sorted(flat) == sorted(want), col
         for key, v in want.items():
             np.testing.assert_array_equal(flat[key], v, err_msg="/".join(key))
+
+
+@pytest.mark.parametrize("key,value,builds", [
+    ("compute_dtype", "bfloat16", False), ("remat", True, False),
+    ("compute_dtype", "float32", True), ("remat", False, True),
+])
+def test_build_model_refuses_keys_it_cannot_honour(key, value, builds):
+    """``compute_dtype`` other than float32 and ``remat: true`` raise,
+    naming the key; their float32 / false values build as without them."""
+    cfg = {"model": dict(CFG["model"], **{key: value})}
+    if builds:
+        assert isinstance(build_model(cfg, device="cpu"), torch.nn.Module)
+    else:
+        with pytest.raises(NotImplementedError, match=f"model.{key}"):
+            build_model(cfg, device="cpu")

@@ -125,9 +125,17 @@ def test_wrappers_dispatch_on_device(rng):
         port_fps.furthest_point_sample(torch.zeros(1, 4, 3, device="meta"), 2)
 
 
-def test_fps_kernel_states_its_cloud_limit():
-    """The FPS kernel keeps the cloud in shared memory; a larger cloud is
-    refused with the limit before anything is built or launched."""
-    assert port_fps.MAX_POINTS == 14496
-    with pytest.raises(ValueError, match=f"at most {port_fps.MAX_POINTS} points"):
-        port_fps._launch(torch.zeros(1, port_fps.MAX_POINTS + 1, 3), 4)
+def test_fps_above_the_shared_memory_cloud_matches_jax():
+    """A cloud above the kernel's shared-memory size (the card's second
+    variant): the port's FPS at N = 15,000 with points at the origin (never
+    picked), and a cloud whose first point is at the origin too, index for
+    index against the JAX package's XLA FPS."""
+    assert port_fps.SMEM_POINTS == 14496
+    rng = np.random.RandomState(3)
+    xyz = rng.randn(2, 15000, 3).astype(np.float32)
+    xyz[0, 100:400] = 0.0
+    xyz[1, ::7] = 0.0  # index 0 included
+    got = port_fps.furthest_point_sample(torch.from_numpy(xyz), 64)
+    ref = np.asarray(furthest_point_sample_xla(jnp.asarray(xyz), 64))
+    np.testing.assert_array_equal(got.numpy(), ref)
+    assert not np.isin(got.numpy()[0, 1:], np.arange(100, 400)).any()

@@ -7,11 +7,13 @@ with ``from_jax_variables``) and serve the same numpy requests.
 import numpy as np
 import pytest
 import torch
+import yaml
 
 from nsdp_tpu.serving import DeformationService as JaxService
 from nsdp_tpu_torch import resolve_device
 from nsdp_tpu_torch.models import build_deformation_network, build_model
 from nsdp_tpu_torch.serving import DeformationService
+from nsdp_tpu_torch.training import optimizer_factory, save_checkpoints
 from nsdp_tpu_torch.utils.config import load_config
 from nsdp_tpu_torch.utils.convert import from_jax_variables
 from nsdp_tpu_torch.utils.padding import next_bucket, pad_queries
@@ -123,3 +125,48 @@ def test_entry_points_default_to_the_card(monkeypatch):
     with pytest.raises(RuntimeError, match="device='cpu'"):
         resolve_device("cuda")
     assert resolve_device("cpu").type == "cpu"
+
+
+def _config_file(tmp_path, weight_file):
+    cfg = {"experiment": {"out_dir": str(tmp_path)}, "data": {}, "model": dict(CFG["model"]),
+           "training": {"optimizer": "Adam", "lr": 1e-3}}
+    cfg["model"]["encoder_kwargs"] = dict(cfg["model"]["encoder_kwargs"])
+    cfg["model"]["decoder_kwargs"] = dict(cfg["model"]["decoder_kwargs"])
+    if weight_file is not None:
+        cfg["test"] = {"weight_file": str(weight_file)}
+    path = tmp_path / "cfg.yaml"
+    path.write_text(yaml.safe_dump(cfg))
+    return path
+
+
+def test_from_config_loads_the_weight_file(tmp_path, rng):
+    """``test.weight_file``, a model file the port's own checkpointing
+    wrote, is what ``from_config`` serves."""
+    trained = DeformationService({"model": dict(CFG["model"])}, device="cpu", seed=5)
+    _, opt = optimizer_factory({"optimizer": "Adam", "lr": 1e-3}, trained.model.parameters())
+    save_checkpoints(3, trained.model, opt, str(tmp_path))
+    svc = DeformationService.from_config(
+        str(_config_file(tmp_path, tmp_path / "model_00003")), buckets=(64,), device="cpu")
+    for key, value in trained.model.state_dict().items():
+        assert torch.equal(svc.model.state_dict()[key], value), key
+    pts, surf, tgt, handle = _request(rng)
+    inputs = np.concatenate([surf, tgt, handle], -1)
+    np.testing.assert_array_equal(svc.deform(pts, inputs), trained.deform(pts, inputs))
+
+
+def test_from_config_weight_file_missing_none_or_doubled(tmp_path):
+    """A named file that is missing raises; ``weight_file=None`` serves the
+    seeded random weights; weights given twice raise."""
+    path = _config_file(tmp_path, tmp_path / "missing.pt")
+    with pytest.raises(FileNotFoundError):
+        DeformationService.from_config(str(path), device="cpu")
+    seeded = DeformationService.from_config(str(path), device="cpu", weight_file=None, seed=4)
+    ref = DeformationService({"model": dict(CFG["model"])}, device="cpu", seed=4)
+    for key, value in ref.model.state_dict().items():
+        assert torch.equal(seeded.model.state_dict()[key], value), key
+    no_file = DeformationService.from_config(str(_config_file(tmp_path, None)), device="cpu", seed=4)
+    assert all(torch.equal(no_file.model.state_dict()[k], v)
+               for k, v in ref.model.state_dict().items())
+    with pytest.raises(ValueError, match="not both"):
+        DeformationService({"model": dict(CFG["model"])}, device="cpu",
+                           state_dict=ref.model.state_dict(), weight_file=str(path))
