@@ -79,7 +79,20 @@ Phases (any failure exits non-zero and prints no result line):
    ``gamma_b1`` is in phase 2b;
 4c. configuration A by phases 4 and 4b's rules: its halves at full width
    on a small query set and a tiny predict, then one full-width stage-2
-   step by halves (on a batch seed without near-ties, as phase 4b's).
+   step by halves (on a batch seed without near-ties, as phase 4b's);
+5. entry points: synthetic fixtures at the shipped sizes in a temporary
+   directory (deform4d: 4 frames of a 40,962-vertex mesh, 5000 surface and
+   space samples; TOSCA-style meshes of 40,962 and 10,242 vertices) and a
+   weight file of seeded weights; ``python -m nsdp_tpu_torch.test`` on the
+   shipped ``arbitrary.yaml`` (3 pairs) and ``python -m nsdp_tpu_torch.run``
+   on ``configs/tosca/head.yaml`` for each mesh, in process: 34 K1 and 8 K3
+   launches per pair (two full evaluations), 4 of them by
+   ``fps_global_kernel`` on the 40,962-vertex mesh, the written meshes and
+   point clouds finite; wall time per pair split into data, test_on_batch,
+   metrics and writers; one pair of ``test`` and of ``run`` on 10,242
+   vertices against the CPU by halves (phase 4's rule); then K1's begin
+   blocks and first set abstraction at M = 40,962 and K3 on the mesh and on
+   its canonicalised surface (40,962 -> 500) against their plain versions.
 
 The second-to-last lines are the card (``nvidia-smi``) and a ``kernels``
 JSON object (K1's and K2's entries also carry ``bound_tc_ms``, their bound
@@ -270,7 +283,7 @@ def k1_inputs(torch, rng, surf, fps_500, fps_100, site, B=1):
     dev = torch.device("cuda")
     t = lambda a: torch.as_tensor(np.asarray(a, np.float32), device=dev)
     rep = lambda x: np.repeat(np.asarray(x)[None], B, axis=0)
-    cloud = {5000: surf, 500: surf[fps_500], 100: surf[fps_500][fps_100]}
+    cloud = {len(surf): surf, 500: surf[fps_500], 100: surf[fps_500][fps_100]}
     kv = cloud[m]
     if name.startswith("set_abstraction"):
         xyz_q = -cloud[nq]  # FPS centres; the set abstraction negates both sets
@@ -372,49 +385,58 @@ def k1_work(site):
 
 
 def check_kernels(torch, rng, surf):
-    from nsdp_tpu_torch.ops import attention, fps
+    from nsdp_tpu_torch.ops import fps
 
     x = torch.as_tensor(surf[None], device="cuda")
     fps_500 = fps.furthest_point_sample(x, 500)[0].cpu().numpy()
     fps_100 = fps.furthest_point_sample(
         torch.as_tensor(surf[fps_500][None], device="cuda"), 100)[0].cpu().numpy()
 
-    rows = {"k1": [], "fps": (fps_500, fps_100)}
-    for site in k1_sites():
-        a = k1_inputs(torch, rng, surf, fps_500, fps_100, site)
-        kw = {key: a[key] for key in ("k_glob", "v_glob", "kv_mask") if key in a}
-        pos = (a["xyz_q"], a["kv_xyz"], a["q_feats"], a["K_a"], a["V_a"], *a["weights"])
-        run = lambda: attention.fused_vector_attention(*pos, k=a["k"], **kw)
-        penalty = attention.mask_penalty(a["kv_mask"]) if "kv_mask" in a else None
-        run_plain = lambda: attention.fused_vector_attention_plain(
-            *pos, a["k"], a.get("k_glob"), a.get("v_glob"), penalty)
-        with torch.inference_mode():
-            got = run()
-            torch.cuda.synchronize()
-            digest = k1_digest(got)
-            if digest != K1_DIGESTS.get(site[0]):
-                fail(f"K1 at {site[0]}: output digest {digest} differs from the recorded"
-                     f" {K1_DIGESTS.get(site[0])} (K1_DIGESTS): a bit of the output moved")
-            ref = run_plain()
-            err = float((got - ref).abs().max())
-            if not torch.allclose(got, ref, **K1_TOL):
-                fail(f"K1 at {site[0]}: max abs err {err} beyond {K1_TOL}")
-            ms = time_ms(torch, run, 5)
-            plain_ms = time_ms(torch, run_plain, 3)
-            split = kernel_split(torch, run, 5)
-        flops, nbytes = k1_work(site)
-        rows["k1"].append(dict(site=site[0], per_eval=site[1], Nq=site[2], M=site[3],
-                               k=site[4], D=site[5], ms=ms, plain_ms=plain_ms,
-                               max_abs_err=err, flops=flops, bytes=nbytes, split=split,
-                               mm_flops=k1_mm_flops(site)))
-        log(f"K1 {site[0]:<26} Nq={site[2]:<6} M={site[3]:<5} k={site[4]:<3} D={site[5]:<4}"
-            f" kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  bound {bound(flops, nbytes)[0]:.4f} ms"
-            f" ({bound(flops, nbytes)[1]}), on the tensor cores {bound_tc(rows['k1'][-1]):.4f} ms"
-            f"  max_abs_err {err:.3g}")
-        log(f"   device by kernel (ms): {format_split(split)}; output sha256 {digest} (recorded)")
-
+    rows = {"fps": (fps_500, fps_100)}
+    rows["k1"] = [check_k1_site(torch, k1_inputs(torch, rng, surf, fps_500, fps_100, site), site)
+                  for site in k1_sites()]
     rows["k3"] = check_fps(torch, surf, fps_500)
     return rows
+
+
+def check_k1_site(torch, a, site, digest=True):
+    """K1 at ``site`` on the arguments ``a`` against its plain version
+    (``K1_TOL``), and with ``digest`` bit for bit against ``K1_DIGESTS``;
+    timed beside it -> the site's row."""
+    from nsdp_tpu_torch.ops import attention
+
+    kw = {key: a[key] for key in ("k_glob", "v_glob", "kv_mask") if key in a}
+    pos = (a["xyz_q"], a["kv_xyz"], a["q_feats"], a["K_a"], a["V_a"], *a["weights"])
+    run = lambda: attention.fused_vector_attention(*pos, k=a["k"], **kw)
+    penalty = attention.mask_penalty(a["kv_mask"]) if "kv_mask" in a else None
+    run_plain = lambda: attention.fused_vector_attention_plain(
+        *pos, a["k"], a.get("k_glob"), a.get("v_glob"), penalty)
+    with torch.inference_mode():
+        got = run()
+        torch.cuda.synchronize()
+        sha = k1_digest(got)
+        if digest and sha != K1_DIGESTS.get(site[0]):
+            fail(f"K1 at {site[0]}: output digest {sha} differs from the recorded"
+                 f" {K1_DIGESTS.get(site[0])} (K1_DIGESTS): a bit of the output moved")
+        ref = run_plain()
+        err = float((got - ref).abs().max())
+        if not torch.allclose(got, ref, **K1_TOL):
+            fail(f"K1 at {site[0]}: max abs err {err} beyond {K1_TOL}")
+        del got, ref
+        ms = time_ms(torch, run, 5)
+        plain_ms = time_ms(torch, run_plain, 3)
+        split = kernel_split(torch, run, 5)
+    flops, nbytes = k1_work(site)
+    row = dict(site=site[0], per_eval=site[1], Nq=site[2], M=site[3], k=site[4], D=site[5],
+               ms=ms, plain_ms=plain_ms, max_abs_err=err, flops=flops, bytes=nbytes,
+               split=split, mm_flops=k1_mm_flops(site))
+    log(f"K1 {site[0]:<26} Nq={site[2]:<6} M={site[3]:<5} k={site[4]:<3} D={site[5]:<4}"
+        f" kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  bound {bound(flops, nbytes)[0]:.4f} ms"
+        f" ({bound(flops, nbytes)[1]}), on the tensor cores {bound_tc(row):.4f} ms"
+        f"  max_abs_err {err:.3g}")
+    log(f"   device by kernel (ms): {format_split(split)}; output sha256 {sha}"
+        f" ({'recorded' if digest else 'not recorded'})")
+    return row
 
 
 def check_fps(torch, surf, fps_500):
@@ -433,24 +455,32 @@ def check_fps(torch, surf, fps_500):
     step_ms = fps_step_ms(torch, fps)
     for per_eval, npoint, cloud in ((2, 500, surf), (2, 100, surf[fps_500]),
                                     (0, 500, large[0]), (0, 500, large[1])):
-        n = len(cloud)
-        xyz = torch.as_tensor(cloud[None], device="cuda")
-        got = fps.furthest_point_sample(xyz, npoint)
-        torch.cuda.synchronize()
-        ref = fps.furthest_point_sample_plain(xyz, npoint)
-        if not torch.equal(got, ref):
-            fail(f"K3 {n}->{npoint}: indices differ from the plain version")
-        ms = time_ms(torch, lambda: fps.furthest_point_sample(xyz, npoint), 5)
-        plain_ms = time_ms(torch, lambda: fps.furthest_point_sample_plain(xyz, npoint), 3)
-        flops = float((npoint - 1) * n * 9 + n * 5)
-        nbytes = float(n * 12 + npoint * 4)
-        latency_ms = (npoint - 1) * step_ms
-        rows.append(dict(site=f"{n}->{npoint}", per_eval=per_eval, ms=ms, plain_ms=plain_ms,
-                         max_abs_err=0.0, flops=flops, bytes=nbytes, bound_latency_ms=latency_ms))
-        log(f"K3 fps {n}->{npoint}: kernel {ms:.4f} ms  plain {plain_ms:.4f} ms"
-            f"  bound {bound(flops, nbytes)[0]:.6f} ms ({bound(flops, nbytes)[1]}),"
-            f" latency bound {latency_ms:.4f} ms  indices equal")
+        rows.append(check_fps_cloud(torch, cloud, npoint, per_eval, step_ms))
     return rows
+
+
+def check_fps_cloud(torch, cloud, npoint, per_eval, step_ms, what=""):
+    """K3 on one (N, 3) cloud against its plain version, index for index,
+    timed beside it and its latency bound -> the site's row."""
+    from nsdp_tpu_torch.ops import fps
+
+    n = len(cloud)
+    xyz = torch.as_tensor(np.asarray(cloud, np.float32)[None], device="cuda")
+    got = fps.furthest_point_sample(xyz, npoint)
+    torch.cuda.synchronize()
+    ref = fps.furthest_point_sample_plain(xyz, npoint)
+    if not torch.equal(got, ref):
+        fail(f"K3 {n}->{npoint}{what}: indices differ from the plain version")
+    ms = time_ms(torch, lambda: fps.furthest_point_sample(xyz, npoint), 5)
+    plain_ms = time_ms(torch, lambda: fps.furthest_point_sample_plain(xyz, npoint), 3)
+    flops = float((npoint - 1) * n * 9 + n * 5)
+    nbytes = float(n * 12 + npoint * 4)
+    latency_ms = (npoint - 1) * step_ms
+    log(f"K3 fps {n}->{npoint}{what}: kernel {ms:.4f} ms  plain {plain_ms:.4f} ms"
+        f"  bound {bound(flops, nbytes)[0]:.6f} ms ({bound(flops, nbytes)[1]}),"
+        f" latency bound {latency_ms:.4f} ms  indices equal")
+    return dict(site=f"{n}->{npoint}{what}", per_eval=per_eval, ms=ms, plain_ms=plain_ms,
+                max_abs_err=0.0, flops=flops, bytes=nbytes, bound_latency_ms=latency_ms)
 
 
 def clouds(torch, rng, surf, B):
@@ -776,6 +806,7 @@ def reset_counts():
     attention.fused_vector_attention.launches = 0
     attention.fused_vector_attention_backward.launches = 0
     fps.furthest_point_sample.launches = 0
+    fps.furthest_point_sample.global_launches = 0
     knn.knn.launches = 0
     gather.gather_rows.launches = 0
 
@@ -904,7 +935,7 @@ def trace(torch, run, wall_ms, what):
                 else "frags" if "weight_frags_kernel" in e.name
                 else "K1" if any(s in e.name for s in K1_KERNELS)
                 else "K2" if "bwd_rows_kernel" in e.name or "wgrad" in e.name
-                else "K3" if "fps_kernel" in e.name
+                else "K3" if "fps_kernel" in e.name or "fps_global_kernel" in e.name
                 else "cuBLAS" if "gemm" in e.name
                 else "copies" if "Memcpy" in e.name or "Memset" in e.name
                 else "other")
@@ -1071,6 +1102,30 @@ def tiny_config(encoder):
     }}
 
 
+def hold_against_cpu(torch, what, card, f32, f64):
+    """Serving's rule (``PERF.md`` section 2) for one output of the card
+    against the plain path on the CPU in float32 and float64, all on the
+    host: within ``E2E_TOL`` of float32 or, where the float32 path itself
+    errs beyond that against float64, a largest absolute error against
+    float64 at most twice float32's; and a relative L2 error against
+    float64 at most twice float32's."""
+    err, floor = rel_err(card, f64), rel_err(f32, f64)
+    worst, worst_f32 = [float((x.double() - f64).abs().max()) for x in (card, f32)]
+    log(f"reference {what}: max |output| {float(f64.abs().max()):.4g};"
+        f" card vs CPU float32 max abs err {float((card - f32).abs().max()):.3g};"
+        f" max abs err against float64: card {worst:.3g}, CPU float32 {worst_f32:.3g};"
+        f" relative L2 error against float64: card {err:.3g}, CPU float32 {floor:.3g}")
+    # where the float32 path itself errs beyond E2E_TOL against float64
+    # (random weights amplify rounding by the output's scale), the card may
+    # instead err at most twice as much
+    if not torch.allclose(card, f32, **E2E_TOL) and worst > 2 * worst_f32:
+        fail(f"{what}: card vs CPU max abs err {float((card - f32).abs().max())}, against"
+             f" float64 {worst:.3g}, more than twice the CPU float32 path's {worst_f32:.3g}")
+    if err > max(2 * floor, 1e-6):
+        fail(f"{what}: the card's relative error {err:.3g} against float64 is more than twice"
+             f" the CPU float32 path's {floor:.3g}")
+
+
 def check_reference(torch, svc, rng, surf, label):
     """The card against the plain path on the CPU (same weights).  Halves
     are compared on identical inputs, so every FPS and kNN selection sees
@@ -1105,22 +1160,7 @@ def check_reference(torch, svc, rng, surf, label):
         for what, card, f32, f64 in (("space_cano", sc, sc_c, sc_d),
                                      ("surf_cano", su, su_c, su_d),
                                      ("deform", out_g, out_c, out_d)):
-            err, floor = rel_err(card, f64), rel_err(f32, f64)
-            worst, worst_f32 = [float((x.double() - f64).abs().max()) for x in (card, f32)]
-            log(f"reference {label}: full width {what}: max |output| {float(f64.abs().max()):.4g};"
-                f" card vs CPU float32 max abs err {float((card - f32).abs().max()):.3g};"
-                f" max abs err against float64: card {worst:.3g}, CPU float32 {worst_f32:.3g};"
-                f" relative L2 error against float64: card {err:.3g}, CPU float32 {floor:.3g}")
-            # where the float32 path itself errs beyond E2E_TOL against
-            # float64 (random weights amplify rounding by the output's
-            # scale), the card may instead err at most twice as much
-            if not torch.allclose(card, f32, **E2E_TOL) and worst > 2 * worst_f32:
-                fail(f"{label} full width {what}: card vs CPU max abs err"
-                     f" {float((card - f32).abs().max())}, against float64 {worst:.3g}, more than"
-                     f" twice the CPU float32 path's {worst_f32:.3g}")
-            if err > max(2 * floor, 1e-6):
-                fail(f"{label} full width {what}: the card's relative error {err:.3g} against float64"
-                     f" is more than twice the CPU float32 path's {floor:.3g}")
+            hold_against_cpu(torch, f"{label}: full width {what}", card, f32, f64)
 
         tiny = tiny_config(svc.config["model"]["encoder"])
         small_g = init_random(build_model(tiny, device="cuda"), 1)
@@ -1232,6 +1272,239 @@ def check_training_reference(torch, label, cfg=None, batch_seed=7):
         f" held absolutely) and {n_stats} running statistics within the rule; largest ratio of"
         f" the card's error to the CPU float32 path's {worst[0]:.3g} ({worst[1]})")
 
+
+# ---------------------------------------------------------------- phase 5
+
+# launches (K1, K2, K3, K4, gather) per pair of the test and run entry points:
+# two full evaluations (the surface samples, then the padded vertices)
+PAIR_LAUNCHES = (34, 0, 8, 0, 0)
+MESHES = {40962: 6, 10242: 5}  # vertices of an icosphere -> its subdivisions
+REFERENCE_ROWS = 2048  # query rows of each set held against the CPU
+
+
+def large_k1_sites():
+    """K1 as an encoder conditioned on every vertex of a 40,962-vertex mesh
+    runs it (``run`` on a user-handle config): the begin blocks at N = M,
+    pos-only and featured, and the first set abstraction from 500 FPS
+    centres.  Off phase 3's path, so 0 launches per evaluation there."""
+    n = 40962
+    return [
+        (f"bwd_encoder_begin_{n}", 0, n, n, 10, 120, "pos_only", False),
+        (f"fwd_encoder_begin_{n}", 0, n, n, 10, 120, "featured", False),
+        (f"set_abstraction_0_{n}", 0, 500, n, 16, 120, "featured", False),
+    ]
+
+
+def write_config(cfg, path):
+    import yaml
+
+    with open(path, "w") as f:
+        yaml.safe_dump(cfg, f)
+    return path
+
+
+def seeded_weight_file(torch, cfg, directory):
+    """A model file of ``training/checkpoints.py`` with seeded weights whose
+    deformed positions are O(1) (``init_random``'s ``out_scale``, as a
+    trained model's: the metrics' KD-tree search slows ~40-fold on O(100)
+    predictions) -> (its path, the model on the card)."""
+    from nsdp_tpu_torch.models import build_model, init_random
+    from nsdp_tpu_torch.training import optimizer_factory, save_checkpoints
+
+    model = init_random(build_model(cfg, device="cuda"), 0, out_scale=0.01)
+    _, opt = optimizer_factory(cfg["training"], model.parameters())
+    save_checkpoints(0, model, opt, directory)
+    return os.path.join(directory, "model_00000"), model
+
+
+def first_pair(cfg):
+    """The first pair of ``cfg``'s test split as a batch of 1, the global
+    ``np.random`` seeded."""
+    from nsdp_tpu_torch.data import dataset_dict
+
+    np.random.seed(0)
+    t = cfg["test"]
+    ds = dataset_dict[cfg["data"]["type"]](cfg, t["iden_split"], t["motion_split"],
+                                           load_mesh=True, num_sampled_pairs=t["num_sampled_pairs"])
+    return ds.collate_fn([ds[0]])
+
+
+def check_pair_reference(torch, model, cfg, batch, label):
+    """One pair's predictions as ``test_on_batch`` makes them on the card
+    (the surface samples; the vertices padded to the 4096 bucket) against
+    the plain path on the CPU in float32 and float64, by
+    :func:`hold_against_cpu`.  Cut at the canonical pose as phase 4 cuts:
+    the card's halves must give test_on_batch's bits, and the CPU's deform
+    half takes the card's canonicalised points, so every selection sees
+    the same coordinates.  Queries are independent of each other, so each
+    set is held on every k-th row (``REFERENCE_ROWS`` at most)."""
+    from nsdp_tpu_torch.models import build_model
+    from nsdp_tpu_torch.training import optimizer_factory
+    from nsdp_tpu_torch.training.steps import make_steps, test_on_batch
+    from nsdp_tpu_torch.utils.padding import pad_queries
+
+    inputs = batch["surface_samples_inputs"]
+    sets = {"surface_samples_tgt_pred": inputs[..., 0:3], "verts_tgt_pred": batch["verts_src"]}
+    _, opt = optimizer_factory({}, model.parameters())
+    _, pred = test_on_batch(make_steps(model, "arbitrary", opt, device="cuda"), dict(batch),
+                            compute_loss=False)
+    g = lambda a: torch.as_tensor(np.asarray(a, np.float32), device="cuda")
+    card, picks = [], []
+    with torch.inference_mode():
+        t_in = g(inputs)  # sliced as FlowArbitrary.predict slices it
+        for key, pts in sets.items():
+            q = pts.shape[1]
+            sc, su = model.canonicalize(g(pad_queries(pts, 4096)[0] if key == "verts_tgt_pred"
+                                          else pts), t_in[..., 0:3])
+            out = model.deform(sc, su, t_in[..., 3:6], t_in[..., 6:7])
+            if not np.array_equal(out[:, :q].cpu().numpy(), pred[key]):
+                fail(f"{label}: the card's halves differ from test_on_batch's {key}")
+            rows = np.arange(0, q, -(-q // REFERENCE_ROWS))
+            picks.append(pts[:, rows])
+            card.append((sc[:, rows].cpu(), su.cpu(), out[:, rows].cpu()))
+    if not torch.equal(card[0][1], card[1][1]):
+        fail(f"{label}: the canonicalised surface differs between the two evaluations")
+    card = [torch.cat([card[0][0], card[1][0]], 1), card[0][1],
+            torch.cat([card[0][2], card[1][2]], 1)]
+    state = {k: v.cpu() for k, v in model.state_dict().items()}
+    queries = np.concatenate(picks, axis=1)
+    cpu = {}
+    with torch.inference_mode():
+        for dtype in (torch.float32, torch.float64):
+            m = build_model(cfg, device="cpu").to(dtype)
+            m.load_state_dict(state)
+            c = lambda a: torch.as_tensor(np.asarray(a)).to(dtype)
+            sc, su = m.canonicalize(c(queries), c(inputs[..., 0:3]))
+            out = m.deform(card[0].to(dtype), card[1].to(dtype), c(inputs[..., 3:6]),
+                           c(inputs[..., 6:7]))
+            cpu[dtype] = (sc, su, out)
+    log(f"reference {label}: {picks[0].shape[1]} of {inputs.shape[1]} surface-sample and"
+        f" {picks[1].shape[1]} of {batch['verts_src'].shape[1]} vertex predictions, conditioned on"
+        f" {inputs.shape[1]} points; the card's halves give test_on_batch's bits")
+    for i, what in enumerate(("space_cano", "surf_cano", "deform")):
+        hold_against_cpu(torch, f"{label}: {what}", card[i], cpu[torch.float32][i],
+                         cpu[torch.float64][i])
+
+
+def read_outputs(directory, shape, count, what):
+    """The ``count`` deformed meshes or point clouds an entry point wrote
+    under ``directory``: finite, of ``shape``."""
+    from nsdp_tpu_torch.utils import meshio
+
+    names = sorted(os.listdir(os.path.join(directory, "deformed")))
+    if len(names) != count:
+        fail(f"{what}: {len(names)} deformed files in {directory}, expected {count}")
+    for name in names:
+        check_output(meshio.load_mesh(os.path.join(directory, "deformed", name))[0], shape,
+                     f"{what} {name}")
+
+
+def report_entry(what, times, wall, card):
+    n = len(times["writers"])
+    split = ", ".join(f"{k} {sum(v) / n:.3f} s" for k, v in times.items())
+    by_batch = ", ".join(f"{t * 1e3:.1f}" for t in times["test_on_batch"])
+    log(f"entry points: {what}: {n} pair(s) in {wall:.2f} s; per pair {split}; test_on_batch"
+        f" by batch {by_batch} ms ({card})")
+
+
+def entry_points(torch, rows, card):
+    """Phase 5: the test and run entry points on the card at full width
+    (the launches of their main path checked), the card against the CPU on
+    a pair of each, then K1 and K3 at M = 40,962 against their plain
+    versions (their rows appended to ``rows``)."""
+    import tempfile
+
+    from nsdp_tpu_torch import run as port_run
+    from nsdp_tpu_torch import test as port_test
+    from nsdp_tpu_torch.data.synthetic import (
+        generate_synthetic_dataset,
+        generate_userhandle_dataset,
+    )
+    from nsdp_tpu_torch.ops import fps
+    from nsdp_tpu_torch.utils import meshio
+    from nsdp_tpu_torch.utils.config import load_config
+    from nsdp_tpu_torch.utils.generation import define_userhandle_folder_name
+
+    t_phase = time.perf_counter()
+    argv = ["--matmul_precision", "highest", "--num_threads", str(os.cpu_count())]
+    with tempfile.TemporaryDirectory() as root:
+        t0 = time.perf_counter()
+        fx = generate_synthetic_dataset(
+            os.path.join(root, "deform4d"), n_identities=1, n_motions_per_identity=1, n_frames=4,
+            n_surface=5000, n_space=5000, subdivisions=6)
+        meshes = {n: generate_userhandle_dataset(os.path.join(root, f"mesh{n}"), subdivisions=s)
+                  for n, s in MESHES.items()}
+        cfg = load_config(CONFIG)
+        weight_file, model = seeded_weight_file(torch, cfg, root)
+        log(f"entry points: fixtures (deform4d: 4 frames of a 40962-vertex mesh, 5000 surface and"
+            f" space samples; TOSCA-style meshes of 40962 and 10242 vertices) and the weight file"
+            f" written in {time.perf_counter() - t0:.1f} s")
+
+        cfg["experiment"]["out_dir"] = os.path.join(root, "test")
+        cfg["data"].update(dataset_dir=fx["dataset_dir"], split_dir=fx["split_dir"], interval=1)
+        cfg["test"]["weight_file"] = weight_file
+        path = write_config(cfg, os.path.join(root, "test.yaml"))
+        reset_counts()  # ---- the main path: test, then run on each mesh
+        t0 = time.perf_counter()
+        times = port_test.main([path, *argv])
+        wall = time.perf_counter() - t0
+        pairs = len(times["writers"])
+        expect_launches((0,) * 5, tuple(pairs * x for x in PAIR_LAUNCHES), f"test, {pairs} pairs")
+        out = os.path.join(cfg["experiment"]["out_dir"], cfg["experiment"]["name"],
+                           cfg["test"]["motion_split"])
+        read_outputs(os.path.join(out, "meshes"), (40962, 3), pairs, "test mesh")
+        read_outputs(os.path.join(out, "pointclouds"), (5000, 3), pairs, "test point cloud")
+        with open(out + ".txt") as f:
+            if sum("loss:" in line for line in f) != pairs:
+                fail(f"test: {out}.txt lacks its {pairs} progress lines")
+        report_entry("test, deform4d arbitrary.yaml", times, wall, card)
+
+        uh = load_config(os.path.join(REPO, "configs", "tosca", "head.yaml"))
+        uh["test"]["weight_file"] = weight_file
+        for n in MESHES:
+            uh["experiment"]["out_dir"] = os.path.join(root, f"run{n}")
+            uh["data"].update(dataset_dir=meshes[n]["dataset_dir"], split_dir=meshes[n]["split_dir"])
+            path = write_config(uh, os.path.join(root, f"run{n}.yaml"))
+            before, global_before = counts(), fps.furthest_point_sample.global_launches
+            t0 = time.perf_counter()
+            times = port_run.main([path, *argv])
+            wall = time.perf_counter() - t0
+            expect_launches(before, PAIR_LAUNCHES, f"run on {n} vertices")
+            n_global = fps.furthest_point_sample.global_launches - global_before
+            want_global = 4 if n > fps.SMEM_POINTS else 0  # 2 encoders x 2 evaluations
+            if n_global != want_global:
+                fail(f"run on {n} vertices: {n_global} launches of fps_global_kernel, expected"
+                     f" {want_global}")
+            read_outputs(os.path.join(uh["experiment"]["out_dir"], uh["experiment"]["name"],
+                                      define_userhandle_folder_name(uh), "meshes"),
+                         (n, 3), 1, f"run mesh ({n} vertices)")
+            report_entry(f"run, tosca head.yaml on {n} vertices ({n_global} of the 8 FPS launches"
+                         f" by fps_global_kernel)", times, wall, card)
+        # ---- end of the main path (its launches checked run by run)
+
+        check_pair_reference(torch, model, cfg, first_pair(cfg), "test pair (40962 vertices)")
+        check_pair_reference(torch, model, uh, first_pair(uh), "run pair (10242 vertices)")
+
+        verts = meshio.load_mesh(os.path.join(meshes[40962]["dataset_dir"], "cat0", "0000",
+                                              "model_normalized.obj"))[0]
+    x = torch.as_tensor(verts[None], device="cuda")
+    fps_500 = fps.furthest_point_sample(x, 500)[0].cpu().numpy()
+    fps_100 = fps.furthest_point_sample(
+        torch.as_tensor(verts[fps_500][None], device="cuda"), 100)[0].cpu().numpy()
+    rng = np.random.RandomState(5)
+    for site in large_k1_sites():
+        a = k1_inputs(torch, rng, verts, fps_500, fps_100, site)
+        rows["k1"].append(check_k1_site(torch, a, site, digest=False))
+        del a
+        torch.cuda.empty_cache()
+    with torch.inference_mode():
+        surf_cano = model.canonicalize(x, x)[1][0].cpu().numpy()  # the forward encoder's cloud
+    step_ms = fps_step_ms(torch, fps)
+    rows["k3"] += [check_fps_cloud(torch, verts, 500, 0, step_ms, " (mesh vertices)"),
+                   check_fps_cloud(torch, surf_cano, 500, 0, step_ms, " (canonicalised)")]
+    log(f"entry points: phase 5 took {time.perf_counter() - t_phase:.1f} s")
+
+
 def short_name(mangled: str) -> str:
     """``attn_kernel<4>`` from a mangled kernel name."""
     m = re.search(r"\d+([A-Za-z_]+?_kernel)(ILi(\d+)E)?", mangled)
@@ -1312,6 +1585,8 @@ def main() -> None:
     torch.cuda.empty_cache()
     train(torch, rng, ABLATION_RUNS)
     check_training_reference(torch, "A", ablation_config("A"), batch_seed=19)
+    torch.cuda.empty_cache()
+    entry_points(torch, rows, card)
 
     kernels = [
         kernel_entry("fused_knn_vector_attention", "nsdp_tpu_torch/csrc/attention.cu",

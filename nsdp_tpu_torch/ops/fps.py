@@ -74,6 +74,8 @@ def _launch(xyz: torch.Tensor, npoint: int) -> torch.Tensor:
                        xyz.device.index or 0, _build.stream_of(xyz))
     _build.check(lib, err, f"fps kernel (B={B}, N={N}, npoint={npoint})")
     furthest_point_sample.launches += 1
+    if scratch is not None:
+        furthest_point_sample.global_launches += 1
     return out
 
 
@@ -82,7 +84,8 @@ def furthest_point_sample(xyz: torch.Tensor, npoint: int) -> torch.Tensor:
 
     A CPU tensor runs :func:`furthest_point_sample_plain`; a CUDA tensor
     launches the kernel of ``csrc/fps.cu`` (either variant, for any N) and
-    counts the launch in ``furthest_point_sample.launches``.
+    counts the launch in ``furthest_point_sample.launches``, and a launch
+    of the variant above ``SMEM_POINTS`` also in ``.global_launches``.
     """
     if xyz.device.type == "cpu":
         return furthest_point_sample_plain(xyz, npoint)
@@ -92,3 +95,4 @@ def furthest_point_sample(xyz: torch.Tensor, npoint: int) -> torch.Tensor:
 
 
 furthest_point_sample.launches = 0
+furthest_point_sample.global_launches = 0

@@ -1,5 +1,6 @@
-"""Train / validate / predict steps on one device (counterpart of
-``nsdp_tpu/training/steps.py:28-314``; reference
+"""Train / validate / predict steps on one device, and the test entry
+points' per-batch evaluation (counterpart of
+``nsdp_tpu/training/steps.py:28-374``; reference
 ``model/deformation_networks.py:63-109``, ``model/flow_arbitrary.py:30-85``).
 
 Batch dict contract (the keys the reference datasets emit; numpy arrays or
@@ -17,12 +18,14 @@ backward, every FPS K3; nothing carries gradients through a selection.
 import math
 from typing import Any, Callable, Dict, List, Optional
 
+import numpy as np
 import torch
 from torch import nn
 
 from nsdp_tpu_torch import resolve_device
 from nsdp_tpu_torch.nn.blocks import BatchNorm
 from nsdp_tpu_torch.training.optim import set_learning_rate
+from nsdp_tpu_torch.utils.padding import predict_padded
 
 BN_DECAY = 0.9  # the running statistics' EMA decay, 1 - BatchNorm momentum
 
@@ -163,3 +166,44 @@ def make_steps(model: nn.Module, model_type: str, optimizer: torch.optim.Optimiz
         "validate_step_masked": validate_step_masked,
         "predict": predict,
     }
+
+
+def test_on_batch(steps: Dict[str, Callable], batch: Dict[str, Any],
+                  compute_loss: bool = True, bucket: int = 4096):
+    """The per-batch evaluation of the test and run entry points
+    (counterpart of ``nsdp_tpu/training/steps.py:317-374``; reference
+    ``test_on_batch_*``): deform the surface samples and the
+    full-resolution vertices, stash both in ``batch`` as numpy
+    (``surface_samples_tgt_pred``, ``verts_tgt_pred``), and optionally take
+    the vertex loss.
+
+    The queried source points are the surface samples, not space samples,
+    for every model type (reference ``deformation_networks.py:91-109``,
+    ``flow_arbitrary.py:66-85``).  Vertex queries are bucket-padded
+    (:func:`nsdp_tpu_torch.utils.padding.predict_padded`); a padded partial
+    batch's ``surface_valid_mask`` reaches both evaluations, and the loss is
+    taken over ``verts_valid_mask`` where the batch has one.
+
+    Returns ``(loss, batch)``; the loss is 0.0 without vertices or without
+    ``compute_loss``.
+    """
+    inputs = batch["surface_samples_inputs"]
+    point_mask = batch.get("surface_valid_mask")
+    batch["surface_samples_tgt_pred"] = (
+        steps["predict"](inputs[:, :, 0:3], inputs, point_mask).cpu().numpy()
+    )
+    if "verts_src" not in batch:
+        return 0.0, batch
+    batch["verts_tgt_pred"] = predict_padded(
+        steps, batch["verts_src"], inputs, bucket, point_mask=point_mask
+    )
+    if not compute_loss or "verts_tgt" not in batch:
+        return 0.0, batch
+    pred = torch.as_tensor(batch["verts_tgt_pred"])
+    tgt = torch.as_tensor(np.asarray(batch["verts_tgt"], np.float32))
+    mask = batch.get("verts_valid_mask")
+    if mask is None:
+        return float(compute_l2_error(pred, tgt)), batch
+    mask = torch.as_tensor(np.asarray(mask, np.float32))
+    delta2 = 0.5 * torch.sum((pred - tgt) ** 2, dim=-1) * mask
+    return float(torch.sum(delta2) / torch.clamp(torch.sum(mask), min=1.0)), batch

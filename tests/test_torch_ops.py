@@ -100,6 +100,11 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
             for m in ("optim", "steps", "checkpoints", "partial_load")} <= set(sources)
     assert {REPO / "nsdp_tpu_torch" / "ops" / f"{m}.py"
             for m in ("knn", "gather", "geometry", "pointnet2_compat")} <= set(sources)
+    assert {REPO / "nsdp_tpu_torch" / "data" / f"{m}.py"
+            for m in ("__init__", "datasets", "loader", "transforms", "synthetic")} <= set(sources)
+    assert {REPO / "nsdp_tpu_torch" / "utils" / f"{m}.py"
+            for m in ("meshio", "metrics", "generation", "logger", "visualize")} <= set(sources)
+    assert {REPO / "nsdp_tpu_torch" / f"{m}.py" for m in ("test", "run")} <= set(sources)
     offenders = [
         f"{p.relative_to(REPO)}: {mod}"
         for p in sources
