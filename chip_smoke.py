@@ -92,7 +92,26 @@ Phases (any failure exits non-zero and prints no result line):
    metrics and writers; one pair of ``test`` and of ``run`` on 10,242
    vertices against the CPU by halves (phase 4's rule); then K1's begin
    blocks and first set abstraction at M = 40,962 and K3 on the mesh and on
-   its canonicalised surface (40,962 -> 500) against their plain versions.
+   its canonicalised surface (40,962 -> 500) against their plain versions;
+6. the training entry point: ``python -m nsdp_tpu_torch.train``, in
+   process, on a synthetic deform4d fixture at the shipped sample counts
+   (4 identities x 2 motions x 9 frames, 5000 surface and space samples)
+   with the shipped ``forward``, ``backward`` and ``arbitrary`` configs cut
+   only in their data paths, ``interval``, ``num_sampled_pairs``, epochs (2)
+   and save and validation frequencies (1): stage 1 twice, stage 2 from
+   their last files, each with ``--profile_dir``, then stage 2 resumed to a
+   third epoch.  Every train step must launch K1/K2/K3/K4/gather 8/8/2/0/0
+   or 17/17/4/0/0 and every validation batch the forward half of that; each
+   run writes ``params.json``, ``stats.txt``, two model and optimizer files
+   and one ``modelbest_*``, finite losses, moved parameters; stage 2's
+   branches hold the stage-1 files bit for bit before its first step, the
+   resume starts at epoch 2 from ``model_00001``/``opt_00001`` bit for bit;
+   ``watch_stats`` on the card launches as a train step and leaves the model,
+   its ``.grad`` and the optimizer bit for bit as they were.  Logged per run:
+   StepTimer's step intervals, the wall time of the loop's parts
+   (``main``'s return), peak memory, the synchronising CUDA calls of a step
+   (``torch.cuda.set_sync_debug_mode``), and the traced first epoch's device
+   activity and idle share.
 
 The second-to-last lines are the card (``nvidia-smi``) and a ``kernels``
 JSON object (K1's and K2's entries also carry ``bound_tc_ms``, their bound
@@ -910,6 +929,19 @@ K1_KERNELS = ("knn_kernel", "attn_kernel", "attn_bcast_kernel", "glob_logits_ker
               "weights_in_out_kernel")
 
 
+def busy_us(spans) -> float:
+    """Length of the union of (start, end) intervals: the device's busy time."""
+    spans = sorted(spans)
+    total, (s0, e0) = 0.0, spans[0]
+    for s, e in spans[1:]:
+        if s > e0:
+            total += e0 - s0
+            s0, e0 = s, e
+        else:
+            e0 = max(e0, e)
+    return total + e0 - s0
+
+
 def trace(torch, run, wall_ms, what):
     """Device time of one call of ``run`` by kind, from ``torch.profiler``'s
     CUDA activity: the port's kernels (K1 = selection + attention, K2 = the
@@ -940,15 +972,7 @@ def trace(torch, run, wall_ms, what):
                 else "copies" if "Memcpy" in e.name or "Memset" in e.name
                 else "other")
         kinds[kind] += e.time_range.elapsed_us() / 1e3
-    spans = sorted((e.time_range.start, e.time_range.end) for e in events)
-    busy_us, (s0, e0) = 0.0, spans[0]
-    for s, e in spans[1:]:
-        if s > e0:
-            busy_us += e0 - s0
-            s0, e0 = s, e
-        else:
-            e0 = max(e0, e)
-    busy = (busy_us + e0 - s0) / 1e3
+    busy = busy_us([(e.time_range.start, e.time_range.end) for e in events]) / 1e3
     log(f"trace: {what}, {len(events)} device activities, busy {busy:.2f} ms"
         f" ({', '.join(f'{k} {v:.2f}' for k, v in kinds.items())} ms); against the"
         f" {wall_ms:.2f} ms untraced the device idles {100 * (1 - busy / wall_ms):.1f}%")
@@ -1505,6 +1529,309 @@ def entry_points(torch, rows, card):
     log(f"entry points: phase 5 took {time.perf_counter() - t_phase:.1f} s")
 
 
+# ---------------------------------------------------------------- phase 6
+
+# the training entry point's fixture: 4 identities x 2 motions x 9 frames at
+# the shipped sample counts (72 stage-1 pairs, 648 stage-2 training pairs);
+# num_sampled_pairs (training, validation) cut so an epoch takes 4 batches of
+# 16 in stage 1 and 5 of 8 in stage 2, and a validation 2 batches, the
+# second padded
+CLI_FIXTURE = dict(n_identities=4, n_motions_per_identity=2, n_frames=9, n_surface=5000,
+                   n_space=5000, subdivisions=3)
+CLI_PAIRS = {"forward": (64, 20), "backward": (64, 20), "arbitrary": (40, 12)}
+CLI_EPOCHS = 2
+# launches (K1, K2, K3, K4, gather) per validation batch: a train step's forward
+VAL_LAUNCHES = {"forward": (8, 0, 2, 0, 0), "backward": (8, 0, 2, 0, 0),
+                "arbitrary": (17, 0, 4, 0, 0)}
+
+
+def cli_config(label, fx, root, epochs=CLI_EPOCHS, weights=None):
+    """The shipped ``configs/deform4d/<label>.yaml`` with only the data
+    paths, ``interval``, ``num_sampled_pairs``, the epochs and the save and
+    validation frequencies changed (and, in stage 2, the stage-1 files) ->
+    the path of the config written."""
+    from nsdp_tpu_torch.utils.config import load_config
+
+    cfg = load_config(os.path.join(REPO, "configs", "deform4d", f"{label}.yaml"))
+    cfg["experiment"]["out_dir"] = os.path.join(root, "out")
+    cfg["data"].update(dataset_dir=fx["dataset_dir"], split_dir=fx["split_dir"], interval=1)
+    cfg["training"].update(num_sampled_pairs=CLI_PAIRS[label][0], epochs=epochs,
+                           save_frequency=1)
+    cfg["validation"].update(num_sampled_pairs=CLI_PAIRS[label][1], frequency=1)
+    if weights is not None:
+        cfg["training"].update(weight_forward_file=weights[0], weight_backward_file=weights[1])
+    return write_config(cfg, os.path.join(root, f"{label}_{epochs}.yaml")), cfg
+
+
+def recording_steps(torch, make_steps, record, label):
+    """``make_steps`` whose train and validation steps check their launches
+    (``TRAIN_LAUNCHES`` / ``VAL_LAUNCHES``) and feed ``record``: the model,
+    the optimizer and the real step functions, their state before the first
+    step (host copies), each step's loss, the last batch, and the
+    synchronising CUDA calls (``torch.cuda.set_sync_debug_mode``) from the
+    end of the first step to the end of the second: the loader, the
+    batch's upload and a whole step, before its late loss read."""
+    import warnings
+
+    from nsdp_tpu_torch.training.async_ckpt import host_copy
+
+    def make(model, model_type, optimizer, **kwargs):
+        steps = make_steps(model, model_type, optimizer, **kwargs)
+        train, validate = steps["train_step"], steps["validate_step_masked"]
+        record.update(model=model, optimizer=optimizer, steps=dict(steps), losses=[], val=0,
+                      syncs=[])
+
+        def train_step(batch, lr, fetch=True):
+            n = len(record["losses"])
+            if n == 0:
+                record["first"] = host_copy(model.state_dict())
+                record["first_opt"] = host_copy(optimizer.state_dict())
+            before = counts()
+            loss = train(batch, lr, fetch)
+            if n == 1:
+                torch.cuda.set_sync_debug_mode("default")
+                record["syncs"] = [str(w.message) for w in record.pop("caught")
+                                   if "called a synchronizing" in str(w.message)]
+                record.pop("catcher").__exit__(None, None, None)
+            expect_launches(before, TRAIN_LAUNCHES[label], f"{label} train step through the CLI")
+            record["losses"].append(loss)
+            record["batch"] = batch
+            if n == 0:
+                record["catcher"] = warnings.catch_warnings(record=True)
+                record["caught"] = record["catcher"].__enter__()
+                warnings.simplefilter("always")
+                torch.cuda.set_sync_debug_mode("warn")
+            return loss
+
+        def validate_step_masked(batch, mask):
+            before = counts()
+            loss = validate(batch, mask)
+            expect_launches(before, VAL_LAUNCHES[label], f"{label} validation batch")
+            record["val"] += 1
+            return loss
+
+        steps.update(train_step=train_step, validate_step_masked=validate_step_masked)
+        return steps
+
+    return make
+
+
+def trace_idle(directory):
+    """(device activities, busy ms, window ms, idle share) of the one
+    Chrome trace ``trace_steps`` wrote into ``directory``: the window spans
+    every recorded event, host and device."""
+    names = [f for f in os.listdir(directory) if f.endswith(".json")]
+    if len(names) != 1:
+        fail(f"{directory} holds {len(names)} traces, expected 1")
+    with open(os.path.join(directory, names[0])) as f:
+        events = [e for e in json.load(f)["traceEvents"] if e.get("ph") == "X"]
+    device = [(e["ts"], e["ts"] + e["dur"]) for e in events
+              if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
+    if not device:
+        fail(f"the trace in {directory} holds no device activity")
+    window = (max(e["ts"] + e.get("dur", 0) for e in events)
+              - min(e["ts"] for e in events)) / 1e3
+    busy = busy_us(device) / 1e3
+    return len(device), busy, window, 1 - busy / window
+
+
+def check_cli_files(directory, label):
+    want = ["model_00000", "model_00001", "opt_00000", "opt_00001", "params.json", "stats.txt"]
+    names = sorted(os.listdir(directory))
+    best = [n for n in names if n.startswith("modelbest_")]
+    if [n for n in names if not n.startswith("modelbest_")] != want or len(best) != 1:
+        fail(f"{label}: the CLI wrote {names}, expected {want} and one modelbest_*")
+    return best[0]
+
+
+def cli_losses(path):
+    """(epoch, loss) of every progress line of a ``stats.txt``."""
+    with open(path) as f:
+        return [(int(m.group(1)), float(m.group(2))) for m in
+                re.finditer(r"epoch: (-?\d+) - batch: \d+ - loss: (\S+)", f.read())]
+
+
+def same_state(torch, got, want, what):
+    """Two host state dicts (nested for an optimizer's) equal bit for bit."""
+    if isinstance(want, dict):
+        if sorted(map(str, got)) != sorted(map(str, want)):
+            fail(f"{what}: keys differ")
+        for k in want:
+            same_state(torch, got[k], want[k], f"{what}/{k}")
+    elif isinstance(want, (list, tuple)):
+        for i, (a, b) in enumerate(zip(got, want)):
+            same_state(torch, a, b, f"{what}/{i}")
+    elif isinstance(want, torch.Tensor):
+        if not torch.equal(got, want):
+            fail(f"{what} differs")
+    elif got != want:
+        fail(f"{what}: {got} != {want}")
+
+
+def check_watch(torch, record):
+    """``watch_stats`` on the card, once, on the run's last batch: the
+    launches of a train step, and the model, its ``.grad`` and the
+    optimizer left bit for bit as they were."""
+    from nsdp_tpu_torch.training.async_ckpt import host_copy
+
+    model, opt = record["model"], record["optimizer"]
+    state = host_copy(model.state_dict())
+    grads = [None if p.grad is None else p.grad.clone() for p in model.parameters()]
+    opt_state = host_copy(opt.state_dict())
+    before = counts()
+    t0 = time.perf_counter()
+    (p_top, _), (g_top, _) = record["steps"]["watch_stats"](record["batch"])
+    ms = (time.perf_counter() - t0) * 1e3
+    expect_launches(before, TRAIN_LAUNCHES["forward"], "watch_stats")
+    same_state(torch, host_copy(model.state_dict()), state, "watch_stats: the model")
+    same_state(torch, host_copy(opt.state_dict()), opt_state, "watch_stats: the optimizer")
+    for p, g in zip(model.parameters(), grads):
+        if not ((p.grad is None and g is None) or torch.equal(p.grad, g)):
+            fail("watch_stats changed a .grad")
+    norms = ", ".join(f"{k} {v:.4g} / {g_top[k]:.4g}" for k, v in p_top.items())
+    log(f"train CLI: watch_stats on the card in {ms:.1f} ms: 8/8/2/0/0 launches, the model, its"
+        f" .grad and the optimizer unchanged bit for bit; parameter / gradient norms {norms}")
+
+
+def cli_run(torch, label, path, cfg, record, ticks, argv, card):
+    """One run of ``python -m nsdp_tpu_torch.train`` in process, its
+    launches checked step by step -> (experiment directory, the last
+    epoch's wall time a step in ms, steps an epoch)."""
+    from nsdp_tpu_torch import train as port_train
+    from nsdp_tpu_torch.training import read_state_dict
+
+    reset_counts()  # ---- the main path: one run of the training entry point
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ticks.clear()
+    t0 = time.perf_counter()
+    times = port_train.main([path, *argv])
+    wall = time.perf_counter() - t0
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    launches = counts()  # ---- end of the main path
+    directory = os.path.join(cfg["experiment"]["out_dir"], cfg["experiment"]["name"])
+    n_steps = len(times["step"])
+    want = tuple(n_steps * t + record["val"] * v
+                 for t, v in zip(TRAIN_LAUNCHES[label], VAL_LAUNCHES[label]))
+    if launches != want or n_steps != len(record["losses"]) or record["val"] == 0:
+        fail(f"{label}: {launches} launches for {n_steps} steps and {record['val']} validation"
+             f" batches, expected {want}")
+    lines = cli_losses(os.path.join(directory, "stats.txt"))
+    losses = [float(x) for x in record["losses"]] + [x for _, x in lines]
+    if not np.isfinite(losses).all():
+        fail(f"{label}: non-finite loss in {losses}")
+    names = dict(record["model"].named_parameters())
+    final = read_state_dict(os.path.join(directory, f"model_{cfg['training']['epochs'] - 1:05d}"))
+    moved = max(float((final[k] - v).abs().max()) for k, v in record["first"].items() if k in names)
+    if not moved > 0:
+        fail(f"{label}: the parameters did not move")
+    if record["syncs"]:
+        fail(f"{label}: a step through the CLI synchronised with the card: {record['syncs'][:3]}")
+    # StepTimer ticks once a step, after queueing it and before the late read
+    # of the previous step's loss; inside an epoch's loop the ticks are a
+    # step apart (the epoch's last tick, after the loop, queues nothing)
+    per_epoch = n_steps // len({e for e, _ in lines if e > 0})
+    epochs = [ticks[i:i + per_epoch] for i in range(0, len(ticks), per_epoch)]
+    intervals = [[(b - a) * 1e3 for a, b in zip(e[:-2], e[1:-1])] for e in epochs]
+    last = {k: [x * 1e3 for x in times[k][-per_epoch:]] for k in ("data", "step", "fetch")}
+    epoch_ms = sum(map(sum, last.values())) / per_epoch
+    rest = ", ".join(f"{k} {sum(times[k]) * 1e3:.1f} ms ({len(times[k])}x)"
+                     for k in ("watch", "validation", "checkpoint"))
+    log(f"train CLI {label}: {n_steps} steps (B={cfg['training']['batch_size']}) and"
+        f" {record['val']} validation batches in {wall:.2f} s; step interval (StepTimer's ticks"
+        f" inside the loop) by epoch {'; '.join(', '.join(f'{x:.1f}' for x in e) for e in intervals)}"
+        f" ms, the last epoch's median {float(np.median(intervals[-1])):.1f} ms; the last epoch"
+        f" {epoch_ms:.1f} ms a step, per step data"
+        f" {', '.join(f'{x:.1f}' for x in last['data'])}, step"
+        f" {', '.join(f'{x:.1f}' for x in last['step'])}, fetch"
+        f" {', '.join(f'{x:.1f}' for x in last['fetch'])} ms; {rest}; peak memory"
+        f" {peak_gb:.2f} GB; largest parameter move {moved:.3g}; no synchronising call from the"
+        f" end of the first step to the end of the second ({card})")
+    return directory, epoch_ms, per_epoch
+
+
+def train_cli(torch, card):
+    """Phase 6: ``python -m nsdp_tpu_torch.train`` at full width, in
+    process: stage 1 (forward, backward), stage 2 from their last files,
+    then a resume of stage 2."""
+    import tempfile
+
+    from nsdp_tpu_torch import train as port_train
+    from nsdp_tpu_torch.data.synthetic import generate_synthetic_dataset
+    from nsdp_tpu_torch.training import read_state_dict
+    from nsdp_tpu_torch.utils.profiling import StepTimer
+
+    t_phase = time.perf_counter()
+    make_steps, timer = port_train.make_steps, port_train.StepTimer
+    record, ticks = {}, []  # what the recording steps and timer see of a run
+
+    class RecordingTimer(StepTimer):
+        def tick(self):
+            super().tick()
+            ticks.append(time.perf_counter())
+
+    port_train.StepTimer = RecordingTimer
+    argv = ["--seed", "0", "--num_workers", "4", "--matmul_precision", "highest"]
+    try:
+        with tempfile.TemporaryDirectory() as root:
+            t0 = time.perf_counter()
+            fx = generate_synthetic_dataset(os.path.join(root, "data"), **CLI_FIXTURE)
+            log(f"train CLI: fixture (4 identities x 2 motions x 9 frames of a 642-vertex mesh,"
+                f" 5000 surface and space samples) in {time.perf_counter() - t0:.1f} s; the shipped"
+                f" configs cut to: data paths, interval 1, num_sampled_pairs (training,"
+                f" validation) {CLI_PAIRS}, epochs {CLI_EPOCHS} (then 3 to resume stage 2),"
+                f" save_frequency 1, validation.frequency 1; widths, depth, batches and"
+                f" optimizer as shipped")
+            last = {}
+            for label in ("forward", "backward", "arbitrary"):
+                weights = None if label != "arbitrary" else (last["forward"], last["backward"])
+                path, cfg = cli_config(label, fx, root, weights=weights)
+                trace_dir = os.path.join(root, "trace", label)
+                port_train.make_steps = recording_steps(torch, make_steps, record, label)
+                directory, epoch_ms, per_epoch = cli_run(
+                    torch, label, path, cfg, record, ticks, [*argv, "--profile_dir", trace_dir],
+                    card)
+                best = check_cli_files(directory, label)
+                last[label] = os.path.join(directory, "model_00001")
+                if weights is not None:
+                    for branch, wfile in zip(("model_deform", "model_canonicalize"), weights):
+                        sub = {k[len(branch) + 1:]: v for k, v in record["first"].items()
+                               if k.startswith(branch + ".")}
+                        same_state(torch, sub, read_state_dict(wfile),
+                                   f"stage 2: {branch} before the first step")
+                n_dev, busy, window, idle = trace_idle(trace_dir)
+                per_step = busy / per_epoch
+                log(f"train CLI {label}: traced first epoch {window:.1f} ms, {n_dev} device"
+                    f" activities, busy {busy:.1f} ms: the device idles {100 * idle:.1f}%"
+                    f" (its first step's warm-up and the loader's start included); {per_step:.1f}"
+                    f" ms busy a step against the untraced last epoch's {epoch_ms:.1f} ms a step:"
+                    f" {100 * (1 - per_step / epoch_ms):.1f}% idle; {best}; {card}")
+                if label == "forward":
+                    check_watch(torch, record)
+                record.clear()
+                torch.cuda.empty_cache()
+
+            path, cfg = cli_config("arbitrary", fx, root, epochs=3,
+                                   weights=(last["forward"], last["backward"]))
+            port_train.make_steps = recording_steps(torch, make_steps, record, "arbitrary")
+            directory, _, _ = cli_run(torch, "arbitrary", path, cfg, record, ticks, argv, card)
+            same_state(torch, record["first"], read_state_dict(last["arbitrary"]),
+                       "resume: the model before its first step")
+            opt = torch.load(last["arbitrary"].replace("model_", "opt_"), map_location="cpu",
+                             weights_only=True)["optimizer_state_dict"]
+            same_state(torch, record["first_opt"], opt, "resume: the optimizer before its first step")
+            epochs = {e for e, _ in cli_losses(os.path.join(directory, "stats.txt")) if e > 0}
+            if epochs != {3} or "model_00002" not in os.listdir(directory):
+                fail(f"resume: trained epochs {epochs}, expected {{3}} and model_00002")
+            log("train CLI: stage 2 resumed at epoch 2 from model_00001 / opt_00001, loaded bit"
+                " for bit; stage 1's last files grafted bit for bit into stage 2's branches")
+            record.clear()
+    finally:
+        port_train.make_steps, port_train.StepTimer = make_steps, timer
+    torch.cuda.empty_cache()
+    log(f"train CLI: phase 6 took {time.perf_counter() - t_phase:.1f} s")
+
+
 def short_name(mangled: str) -> str:
     """``attn_kernel<4>`` from a mangled kernel name."""
     m = re.search(r"\d+([A-Za-z_]+?_kernel)(ILi(\d+)E)?", mangled)
@@ -1587,6 +1914,7 @@ def main() -> None:
     check_training_reference(torch, "A", ablation_config("A"), batch_seed=19)
     torch.cuda.empty_cache()
     entry_points(torch, rows, card)
+    train_cli(torch, card)
 
     kernels = [
         kernel_entry("fused_knn_vector_attention", "nsdp_tpu_torch/csrc/attention.cu",

@@ -19,6 +19,7 @@ channels-last layout, with the kernel dimension squeezed out.
 
 from typing import Optional
 
+import numpy as np
 import torch
 from torch import nn
 
@@ -70,16 +71,21 @@ class BatchNorm(nn.BatchNorm1d):
             return (x - self.running_mean) * inv * self.weight + self.bias
         flat = x.reshape(-1, x.shape[-1])
         if mask is None:
-            n = flat.new_tensor(float(flat.shape[0]))
+            # the Bessel factor on the host, rounded as the float32 division
+            # on the device would round it: a tensor made from a Python
+            # number is a copy that waits for the device
+            n = np.float32(flat.shape[0])
+            bessel = float(n / max(n - np.float32(1.0), np.float32(1.0)))
             mean = flat.mean(dim=0)
             var = torch.square(flat - mean).mean(dim=0)
         else:
             w = mask.reshape(-1, 1).to(x.dtype)
             n = torch.clamp(w.sum(), min=1.0)
+            bessel = n / torch.clamp(n - 1.0, min=1.0)
             mean = (flat * w).sum(dim=0) / n
             var = (torch.square(flat - mean) * w).sum(dim=0) / n
         with torch.no_grad():
-            unbiased = var * (n / torch.clamp(n - 1.0, min=1.0))
+            unbiased = var * bessel
             m = 1.0 - self.momentum
             self.running_mean.copy_(m * self.running_mean + self.momentum * mean)
             self.running_var.copy_(m * self.running_var + self.momentum * unbiased)

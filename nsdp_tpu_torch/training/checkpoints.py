@@ -15,7 +15,7 @@ port reads the published ``forward.pt`` / ``backward.pt`` / ``arbitrary.pt``
 
 import os
 import re
-from typing import Dict, Optional, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 from torch import nn
@@ -33,17 +33,24 @@ def read_state_dict(path: str) -> Dict[str, torch.Tensor]:
     return obj
 
 
-def _save_model(path: str, epoch: int, model: nn.Module) -> None:
-    state = {k: v.detach().cpu() for k, v in model.state_dict().items()}
+def _write_model(path: str, epoch: int, state: Dict[str, torch.Tensor]) -> None:
+    state = {k: v.detach().cpu() for k, v in state.items()}
     torch.save({"epoch": epoch, "model_state_dict": state}, path)
+
+
+def write_checkpoints(epoch: int, model_state: Dict[str, torch.Tensor],
+                      optimizer_state: Dict[str, Any], experiment_directory: str) -> None:
+    """Write ``model_{epoch:05d}`` and ``opt_{epoch:05d}`` from a model's and
+    an optimizer's state dicts."""
+    _write_model(os.path.join(experiment_directory, f"model_{epoch:05d}"), epoch, model_state)
+    torch.save({"epoch": epoch, "optimizer_state_dict": optimizer_state},
+               os.path.join(experiment_directory, f"opt_{epoch:05d}"))
 
 
 def save_checkpoints(epoch: int, model: nn.Module, optimizer: torch.optim.Optimizer,
                      experiment_directory: str) -> None:
     """Write ``model_{epoch:05d}`` and ``opt_{epoch:05d}``."""
-    _save_model(os.path.join(experiment_directory, f"model_{epoch:05d}"), epoch, model)
-    torch.save({"epoch": epoch, "optimizer_state_dict": optimizer.state_dict()},
-               os.path.join(experiment_directory, f"opt_{epoch:05d}"))
+    write_checkpoints(epoch, model.state_dict(), optimizer.state_dict(), experiment_directory)
 
 
 def load_checkpoints(model: nn.Module, optimizer: torch.optim.Optimizer,
@@ -69,11 +76,17 @@ def load_checkpoints(model: nn.Module, optimizer: torch.optim.Optimizer,
     return epoch + 1
 
 
+def write_best_checkpoints(epoch: int, model_state: Dict[str, torch.Tensor],
+                           experiment_directory: str, val_loss: float) -> None:
+    """Write ``modelbest_{epoch:05d}_{val_loss:03f}`` from a model's state dict."""
+    path = os.path.join(experiment_directory, f"modelbest_{epoch:05d}_{val_loss:03f}")
+    _write_model(path, epoch, model_state)
+
+
 def save_best_checkpoints(epoch: int, model: nn.Module, experiment_directory: str,
                           val_loss: float) -> None:
     """Write ``modelbest_{epoch:05d}_{val_loss:03f}``."""
-    path = os.path.join(experiment_directory, f"modelbest_{epoch:05d}_{val_loss:03f}")
-    _save_model(path, epoch, model)
+    write_best_checkpoints(epoch, model.state_dict(), experiment_directory, val_loss)
 
 
 def load_best_checkpoints(model: nn.Module, experiment_directory: str

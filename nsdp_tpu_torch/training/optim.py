@@ -64,3 +64,11 @@ def set_learning_rate(optimizer: torch.optim.Optimizer, lr: float) -> None:
     """The epoch's rate into every parameter group."""
     for group in optimizer.param_groups:
         group["lr"] = lr
+
+
+def print_num_parameters(model: torch.nn.Module, name: str = "model") -> int:
+    """Parameter count, printed as the reference prints it
+    (``model/learningrate.py:6-9``; ``nsdp_tpu/training/optim.py:67-71``)."""
+    n = sum(p.numel() for p in model.parameters())
+    print(f"Number of parameters in {name}:  {n} / {n}")
+    return n

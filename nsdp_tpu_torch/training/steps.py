@@ -86,11 +86,15 @@ def make_steps(model: nn.Module, model_type: str, optimizer: torch.optim.Optimiz
         model's dtype.
 
     Returns:
-      ``train_step(batch, lr) -> loss``, ``validate_step(batch) -> loss``,
+      ``train_step(batch, lr, fetch=True) -> loss``,
+      ``validate_step(batch) -> loss``,
       ``validate_step_masked(batch, sample_mask) -> loss`` (mean over the
-      rows with a nonzero ``sample_mask``) and
+      rows with a nonzero ``sample_mask``),
+      ``watch_stats(batch) -> (param_norms, grad_norms)`` and
       ``predict(points, surface_samples_inputs, point_mask=None) -> tensor``.
-      Losses are Python floats.
+      Losses are Python floats, except ``train_step(..., fetch=False)``'s
+      without ``nan_guard``: a 0-d tensor on ``device``, so that the host
+      queues the step without waiting for the device.
     """
     device = resolve_device(device)
     arbitrary = model_type == "arbitrary"
@@ -98,6 +102,10 @@ def make_steps(model: nn.Module, model_type: str, optimizer: torch.optim.Optimiz
     cano_bns = _batch_norms(model.model_canonicalize.encoder) if arbitrary else []
     params = list(model.parameters())
     dtype = params[0].dtype
+    # each top-level module with the positions of its parameters in ``params``
+    position = {id(p): i for i, p in enumerate(params)}
+    children = [(name, [position[id(p)] for p in child.parameters()])
+                for name, child in model.named_children()]
 
     def tensor(x):
         return None if x is None else torch.as_tensor(x, dtype=dtype, device=device)
@@ -109,20 +117,27 @@ def make_steps(model: nn.Module, model_type: str, optimizer: torch.optim.Optimiz
             return model(points, inputs[..., 0:3], inputs[..., 3:6], inputs[..., 6:7], point_mask)
         return model(points, inputs, point_mask)
 
-    def train_step(batch: Dict[str, Any], lr: float) -> float:
+    def train_loss(batch: Dict[str, Any]) -> torch.Tensor:
+        """The train-mode loss of ``batch`` (running statistics updated in
+        place; the stage-2 encoder's first update only)."""
         model.train()
+        pred = forward(batch["space_samples_src"], batch["surface_samples_inputs"],
+                       batch.get("surface_valid_mask"))
+        return compute_l2_error(pred, tensor(batch["space_samples_tgt"]))
+
+    def train_step(batch: Dict[str, Any], lr: float, fetch: bool = True):
         saved_all = _snapshot(all_bns) if nan_guard else None
         saved_cano = _snapshot(cano_bns)
         optimizer.zero_grad(set_to_none=True)
-        pred = forward(batch["space_samples_src"], batch["surface_samples_inputs"],
-                       batch.get("surface_valid_mask"))
-        loss = compute_l2_error(pred, tensor(batch["space_samples_tgt"]))
+        loss = train_loss(batch)
         loss.backward()
-        value = float(loss.detach())
-        if nan_guard and not math.isfinite(value):
-            _restore(all_bns, saved_all)
-            optimizer.zero_grad(set_to_none=True)
-            return value
+        loss = loss.detach()
+        if nan_guard:  # the update depends on the loss: read it now
+            value = float(loss)
+            if not math.isfinite(value):
+                _restore(all_bns, saved_all)
+                optimizer.zero_grad(set_to_none=True)
+                return value
         _double_bn_update(cano_bns, saved_cano)
         for p in params:
             # a parameter the loss does not reach (the interp decoder leaves
@@ -133,7 +148,38 @@ def make_steps(model: nn.Module, model_type: str, optimizer: torch.optim.Optimiz
                 p.grad = torch.zeros_like(p)
         set_learning_rate(optimizer, lr)
         optimizer.step()
-        return value
+        if nan_guard:
+            return value
+        return float(loss) if fetch else loss
+
+    def watch_stats(batch: Dict[str, Any]):
+        """Parameter and gradient norms of one train-mode forward and
+        backward on ``batch`` (``nsdp_tpu/training/steps.py:268-287``, the
+        counterpart of the reference's ``wandb.watch``): ``((top-level
+        module -> global L2 norm), per-parameter L2 norms)`` for the
+        parameters and for the loss's gradients (no weight decay, no
+        clipping).  The top-level modules are the model's children, as the
+        JAX variables' top-level keys are.  The model is left as it was:
+        parameters, running statistics, train/eval mode, ``.grad``; the
+        optimizer is not touched."""
+        was_training = model.training
+        saved = _snapshot(all_bns)
+        try:
+            grads = torch.autograd.grad(train_loss(batch), params, allow_unused=True)
+        finally:
+            _restore(all_bns, saved)
+            model.train(was_training)
+        grads = [torch.zeros_like(p) if g is None else g for p, g in zip(params, grads)]
+        with torch.no_grad():
+            p_leaves = torch.stack([torch.linalg.vector_norm(p) for p in params])
+            g_leaves = torch.stack([torch.linalg.vector_norm(g) for g in grads])
+            host = torch.stack([p_leaves, g_leaves]).cpu()
+        out = []
+        for leaves in host:
+            top = {name: float(torch.sqrt(torch.sum(leaves[idx] ** 2)))
+                   for name, idx in children}
+            out.append((top, leaves.numpy()))
+        return tuple(out)
 
     @torch.no_grad()
     def validate_step(batch: Dict[str, Any]) -> float:
@@ -164,6 +210,7 @@ def make_steps(model: nn.Module, model_type: str, optimizer: torch.optim.Optimiz
         "train_step": train_step,
         "validate_step": validate_step,
         "validate_step_masked": validate_step_masked,
+        "watch_stats": watch_stats,
         "predict": predict,
     }
 

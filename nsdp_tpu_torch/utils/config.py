@@ -5,6 +5,8 @@ reference (``utils/training_utils.py:14-31``), the same defaults, the same
 checks, so the shipped config files (``configs/``) load unchanged.
 """
 
+import json
+import os
 from typing import Any, Dict
 
 import yaml
@@ -54,3 +56,16 @@ def validate_config(config: Dict[str, Any]) -> None:
     if model["type"] not in ("forward", "backward", "arbitrary"):
         raise ValueError(f"unknown model type {model['type']!r}")
     model.setdefault("use_normals", False)
+
+
+def save_experiment_params(args, experiment_name: str, directory: str, config=None) -> None:
+    """Dump the argparse vars and the experiment config to ``params.json``
+    (``nsdp_tpu/utils/config.py:64-75``; the reference
+    ``utils/training_utils.py:19-31`` merges both)."""
+    params = {k: str(v) for k, v in vars(args).items()}
+    params["experiment_name"] = experiment_name
+    if config is not None:
+        params["config"] = config
+    os.makedirs(directory, exist_ok=True)
+    with open(os.path.join(directory, "params.json"), "w") as f:
+        json.dump(params, f, indent=2)

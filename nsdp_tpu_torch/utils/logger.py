@@ -1,6 +1,5 @@
 """Stats logging with the reference's aggregation semantics (the port's own
-copy of ``nsdp_tpu/utils/logger.py``, without the parameter/gradient norm
-logging, which waits for the port's training CLI).
+copy of ``nsdp_tpu/utils/logger.py``).
 
 ``AverageAggregator``'s *setter accumulates* (``logger[k].value = v`` adds a
 sample; ``.value`` reads the running mean) — reference ``utils/logger.py:5-17``.
@@ -8,6 +7,9 @@ sample; ``.value`` reads the running mean) — reference ``utils/logger.py:5-17`
 carriage-return progress and file append.  ``WandB`` adds per-epoch logging of
 the aggregated values on ``clear()`` (``val_`` prefix for validation epochs);
 wandb itself is an optional dependency, imported only by ``WandB.init``.
+``WandB.log_watch`` logs the parameter and gradient norms of the training
+steps' ``watch_stats`` (the counterpart of the reference's
+``wandb.watch(model)``, ``utils/logger.py:102-103``).
 """
 
 import sys
@@ -93,6 +95,21 @@ class StatsLogger:
         return self._loss.value
 
 
+def watch_log_dict(param_norms, grad_norms):
+    """Flatten per-module parameter/gradient norms into a wandb-loggable
+    dict (``nsdp_tpu/utils/logger.py:94-113``): the top-level modules' global
+    L2 norms as scalars (``param_norm/<module>``, ``grad_norm/<module>``)
+    and the per-parameter norm vectors (``param_leaf_norms``,
+    ``grad_leaf_norms``) for histograms.  ``param_norms`` / ``grad_norms``
+    are ``(top-level norms: dict, per-parameter norms: vector)`` pairs."""
+    out = {}
+    for prefix, (top, leaves) in (("param", param_norms), ("grad", grad_norms)):
+        for mod, v in top.items():
+            out[f"{prefix}_norm/{mod}"] = float(v)
+        out[f"{prefix}_leaf_norms"] = [float(x) for x in leaves]
+    return out
+
+
 class WandB(StatsLogger):
     """StatsLogger that also ships aggregates to Weights & Biases per epoch."""
 
@@ -101,6 +118,8 @@ class WandB(StatsLogger):
         experiment_arguments,
         project: str = "experiment",
         name: str = "experiment_name",
+        watch: bool = False,
+        log_frequency: int = 10,
     ):
         try:
             import wandb
@@ -113,11 +132,25 @@ class WandB(StatsLogger):
         self.experiment_name = name
         self._epoch = 0
         self._validation = False
+        self.watch = watch
+        self.log_frequency = log_frequency
         wandb.login()
         cfg = experiment_arguments
         if hasattr(cfg, "items"):
             cfg = dict(cfg.items())
         wandb.init(project=project or None, name=name or None, config=cfg)
+
+    def log_watch(self, param_norms, grad_norms):
+        """Log the norms of ``watch_stats`` (:func:`watch_log_dict`; the
+        per-parameter vectors as wandb histograms) with ``commit=False``, so
+        they join the epoch's aggregates that :meth:`clear` logs."""
+        if not hasattr(self, "_wandb"):
+            return
+        values = watch_log_dict(param_norms, grad_norms)
+        hist = getattr(self._wandb, "Histogram", None)
+        for k in ("param_leaf_norms", "grad_leaf_norms"):
+            values[k] = hist(values[k]) if hist is not None else None
+        self._wandb.log({k: v for k, v in values.items() if v is not None}, commit=False)
 
     def print_progress(self, epoch, batch, loss, precision="{:.5f}"):
         super().print_progress(epoch, batch, loss, precision)

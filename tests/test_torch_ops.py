@@ -104,7 +104,9 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
             for m in ("__init__", "datasets", "loader", "transforms", "synthetic")} <= set(sources)
     assert {REPO / "nsdp_tpu_torch" / "utils" / f"{m}.py"
             for m in ("meshio", "metrics", "generation", "logger", "visualize")} <= set(sources)
-    assert {REPO / "nsdp_tpu_torch" / f"{m}.py" for m in ("test", "run")} <= set(sources)
+    assert {REPO / "nsdp_tpu_torch" / f"{m}.py" for m in ("test", "run", "train")} <= set(sources)
+    assert {REPO / "nsdp_tpu_torch" / m for m in ("training/async_ckpt.py",
+                                                  "utils/profiling.py")} <= set(sources)
     offenders = [
         f"{p.relative_to(REPO)}: {mod}"
         for p in sources
