@@ -22,7 +22,11 @@ Phases (any failure exits non-zero and prints no result line):
    the gather also beside ``torch.gather``, one PyTorch call that computes
    it (the port never calls it); K1's device time split by CUDA kernel
    (``torch.profiler``); K3's latency bound, its dependent steps at the
-   measured cost of one step of a 1024-point cloud;
+   measured cost of one step of a 1024-point cloud; K4's latency bound at
+   each site, the function's dependent chain: its k warp arg-min rounds
+   and a fan-in-32 reduction of the M points spread one a lane over warps
+   (ceil(log32 M) - 1 rounds more), at K4's measured cost of one round,
+   plus its fixed cost (``knn_round_ms``);
 2b. K2, the attention's backward, at every training site (batch 2): each
    gradient's relative L2 error against the plain version run in float64
    on the card at most twice the float32 plain version's (floor 1e-6);
@@ -111,12 +115,34 @@ Phases (any failure exits non-zero and prints no result line):
    StepTimer's step intervals, the wall time of the loop's parts
    (``main``'s return), peak memory, the synchronising CUDA calls of a step
    (``torch.cuda.set_sync_debug_mode``), and the traced first epoch's device
-   activity and idle share.
+   activity and idle share;
+7. several processes on the one card (``torch.distributed``; each rank a
+   ``python3 chip_smoke.py --rank ...`` process started here, the kernels
+   built before; a failed rank fails the phase and every rank is killed):
+   (a) two gloo ranks through ``make_steps(group=...)``, two stage-2 steps
+   of the shipped model (B = 8, 4 rows a rank, N = Q = 5000, phase 4b's
+   seeds, weights with O(1) outputs): K1/K2/K3 17/17/4 per step and rank;
+   the ranks' states bit for bit equal after two steps; after one, held by
+   halves at the canonical pose (the canonicalised points and their
+   gradients too) against one process on the card in float32
+   and the plain path in float64 by phase 4b's rule (4 times the float32
+   error, floor 1e-4); the same two ranks in float64 (the plain path)
+   within 1e-9 of one process; (b) one NCCL rank: bit for bit the step
+   without a group (K2's float64-atomic outputs replayed, its inputs held
+   bit for bit), no synchronising call from the end of its first step to
+   the end of its second, both timed, and one of each traced (the
+   device's idle share, the host's time in each all-reduce); (c) ``python -m
+   nsdp_tpu_torch.train`` (stage 1, ``forward.yaml`` on phase 6's fixture,
+   2 epochs) on two gloo ranks whose group the phase sets up before
+   ``main`` runs: the files written once, by rank 0, ``stats.txt`` holding
+   rank 0's progress lines, both ranks printing the same losses; each
+   rank's step interval and peak memory (two ranks sharing one card: not a
+   scaling figure).
 
 The second-to-last lines are the card (``nvidia-smi``) and a ``kernels``
 JSON object (K1's and K2's entries also carry ``bound_tc_ms``, their bound
-were their D x D products all on the tensor cores in 3xTF32; K3's
-``bound_latency_ms``); the last line is ``{"ok": true, "device": {...}}``.
+were their D x D products all on the tensor cores in 3xTF32; K3's and
+K4's ``bound_latency_ms``); the last line is ``{"ok": true, "device": {...}}``.
 
 K1's digests: ``K1_DIGESTS`` holds the SHA-256 of K1's output bytes at each
 phase-2 site, recorded from the kernel as it was before the decoder's
@@ -128,6 +154,7 @@ new CUDA toolkit (``expf`` and the compiler's code may round
 differently); the table's comment names the toolkit.
 """
 
+import contextlib
 import hashlib
 import json
 import os
@@ -541,12 +568,41 @@ def knn_work(site):
     return float(9 * B * nq * m), float(4 * floats)
 
 
+def knn_round_ms(torch):
+    """(fixed cost, cost of one warp arg-min round) of K4 in ms: the line
+    through its device times on one query against 32 points (one a lane: a
+    single scan step) at k = 17 and k = 32, both with a 32-entry list."""
+    from nsdp_tpu_torch.ops.knn import knn
+
+    kv = torch.as_tensor(surface(np.random.RandomState(3), 32)[None], device="cuda")
+    q = kv[:, :1].contiguous()
+    t17, t32 = [device_ms(torch, lambda k=k: knn(q, kv, k), 50) for k in (17, 32)]
+    round_ms = (t32 - t17) / 15
+    fixed_ms = t17 - 17 * round_ms
+    log(f"K4 one query of 32 points: k = 17 {t17 * 1e3:.3f} us, k = 32 {t32 * 1e3:.3f} us:"
+        f" one arg-min round {round_ms * 1e3:.4f} us, fixed cost {fixed_ms * 1e3:.3f} us")
+    if round_ms <= 0.0:
+        fail("K4: the device time did not grow with k, no cost of a round to take")
+    return fixed_ms, round_ms
+
+
+def knn_latency_ms(fixed_ms, round_ms, m, k) -> float:
+    """K4's latency bound at M points and k: the k dependent arg-min rounds
+    that emit the neighbours, behind ceil(log32 M) - 1 rounds that reduce
+    the M points, one a lane, across warps (fan-in 32, pipelined with the
+    emitting rounds), each at K4's cost of one round, plus its fixed cost
+    (the launch, staging and one distance a lane)."""
+    levels = max(1, -(-(m - 1).bit_length() // 5))  # ceil(log32 m)
+    return fixed_ms + (k + levels - 1) * round_ms
+
+
 def check_knn(torch, rng, surf):
     """K4 against ``knn_plain`` on the card, index for index and distance
-    for distance (phase 2)."""
+    for distance, timed beside it and its latency bound (phase 2)."""
     from nsdp_tpu_torch.ops.knn import knn, knn_plain
 
     rows = []
+    fixed_ms, round_ms = knn_round_ms(torch)
     for site in knn_sites():
         name, per_eval, B, nq, m, k, masked, rd = site
         if name == "large_cloud":
@@ -571,13 +627,15 @@ def check_knn(torch, rng, surf):
             fail(f"K4 at {name}: distances differ from the plain version")
         ms, plain_ms = device_ms(torch, run, 10), device_ms(torch, run_plain, 3)
         wall_ms = time_ms(torch, run, 5)
+        latency_ms = knn_latency_ms(fixed_ms, round_ms, m, k)
         flops, nbytes = knn_work(site)
         rows.append(dict(site=name, per_eval=per_eval, ms=ms, plain_ms=plain_ms, max_abs_err=0.0,
-                         flops=flops, bytes=nbytes))
+                         flops=flops, bytes=nbytes, bound_latency_ms=latency_ms))
         t_b, by = bound(flops, nbytes)
         log(f"K4 {name:<15} B={B:<2} Nq={nq:<5} M={m:<6} k={k:<3} mask={masked:d} dist={rd:d}"
-            f"  device: kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  bound {t_b:.6f} ms ({by});"
-            f" call (events) {wall_ms:.4f} ms; indices{' and distances' if rd else ''} equal")
+            f"  device: kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  bound {t_b:.6f} ms ({by}),"
+            f" latency bound {latency_ms:.4f} ms; call (events) {wall_ms:.4f} ms;"
+            f" indices{' and distances' if rd else ''} equal")
     return rows
 
 
@@ -648,7 +706,7 @@ def kernel_entry(name, source, replaces, rows, launches):
     }
     if "mm_flops" in rows[0]:  # K1, K2: the bound with the products on the tensor cores
         entry["bound_tc_ms"] = sum(bound_tc(r) * r["per_eval"] for r in rows)
-    if "bound_latency_ms" in rows[0]:  # K3: its dependent steps at the fixed cost of one
+    if "bound_latency_ms" in rows[0]:  # K3, K4: their dependent steps at their measured cost
         entry["bound_latency_ms"] = per_pass("bound_latency_ms")
     return entry
 
@@ -1013,18 +1071,22 @@ def train_batch(rng, B, N, Q, near_surface=False):
     }
 
 
-def train_setup(torch, model_type, seed, device="cuda", cfg=None):
+def train_setup(torch, model_type, seed, device="cuda", cfg=None, group=None, out_scale=1.0,
+                dtype=None):
     """(config, model, schedule, optimizer, steps) of a shipped config or of
-    ``cfg``, with seeded random weights."""
+    ``cfg``, with seeded random weights (``init_random``'s ``out_scale``;
+    the model in ``dtype``; steps over ``group``'s ranks)."""
     from nsdp_tpu_torch.models import build_model, init_random
     from nsdp_tpu_torch.training import make_steps, optimizer_factory
     from nsdp_tpu_torch.utils.config import load_config
 
     if cfg is None:
         cfg = load_config(os.path.join(REPO, "configs", "deform4d", f"{model_type}.yaml"))
-    model = init_random(build_model(cfg, device=device), seed)
+    model = init_random(build_model(cfg, device=device), seed, out_scale=out_scale)
+    if dtype is not None:
+        model = model.to(dtype)
     schedule, opt = optimizer_factory(cfg["training"], model.parameters())
-    steps = make_steps(model, model_type, opt, device=device)
+    steps = make_steps(model, model_type, opt, device=device, group=group)
     return cfg, model, schedule, opt, steps
 
 
@@ -1208,7 +1270,8 @@ def stage2_step_by_halves(torch, model, batch, device, dtype, cano=None, cot=Non
     the canonicalised points ``cano`` and the canonicalize half's backward
     is seeded with the cotangents ``cot`` -- both the card's, given to the
     CPU paths, so every FPS and kNN selection sees the same coordinates on
-    every path.  -> (loss, canonicalised points, their gradients)."""
+    every path.  -> (loss, its own canonicalised points, the gradients at
+    the canonicalised points the deform half took)."""
     from nsdp_tpu_torch.training.steps import (
         _batch_norms, _double_bn_update, _snapshot, compute_l2_error)
 
@@ -1219,16 +1282,15 @@ def stage2_step_by_halves(torch, model, batch, device, dtype, cano=None, cot=Non
     bns = _batch_norms(model.model_canonicalize.encoder)
     saved = _snapshot(bns)
     space_cano, surf_cano = model.canonicalize(t(batch["space_samples_src"]), inputs[..., 0:3])
-    if cano is None:
-        cano = (space_cano.detach(), surf_cano.detach())
-    sc, su = [t(c).detach().requires_grad_() for c in cano]
+    own = (space_cano.detach(), surf_cano.detach())
+    sc, su = [t(c).detach().requires_grad_() for c in (cano or own)]
     pred = model.deform(sc, su, inputs[..., 3:6], inputs[..., 6:7])
     loss = compute_l2_error(pred, t(batch["space_samples_tgt"]))
     loss.backward()
     grads = (sc.grad, su.grad)
     torch.autograd.backward([space_cano, surf_cano], [t(c) for c in (cot or grads)])
     _double_bn_update(bns, saved)  # the compound EMA of the stage-2 step
-    return float(loss.detach()), cano, grads
+    return float(loss.detach()), own, grads
 
 
 def check_training_reference(torch, label, cfg=None, batch_seed=7):
@@ -1635,6 +1697,47 @@ def trace_idle(directory):
     return len(device), busy, window, 1 - busy / window
 
 
+def trace_has_device(directory) -> bool:
+    name = [f for f in os.listdir(directory) if f.endswith(".json")][0]
+    with open(os.path.join(directory, name)) as f:
+        return any(e.get("cat") == "kernel" for e in json.load(f)["traceEvents"])
+
+
+COLLECTIVE_SPAN = re.compile(r"allreduce|all_reduce|record_param_comms", re.IGNORECASE)
+
+
+def trace_host(directory):
+    """The host side of the one Chrome trace in ``directory``: the
+    all-reduces' count and time (the dispatcher's ``c10d::allreduce_``, one
+    span per call), and the host's self time (a span's length less that of
+    the spans nested in it on its thread), summed over every thread, in
+    the collectives' spans (``COLLECTIVE_SPAN``, their autograd wrappers
+    included) and in every other operation; and the NCCL kernels' device
+    time -> a dict of ms."""
+    name = [f for f in os.listdir(directory) if f.endswith(".json")][0]
+    with open(os.path.join(directory, name)) as f:
+        events = [e for e in json.load(f)["traceEvents"] if e.get("ph") == "X"]
+    device = [(e["ts"], e["ts"] + e["dur"]) for e in events
+              if e.get("cat") == "kernel" and "nccl" in e["name"].lower()]
+    host = sorted((e for e in events if e.get("cat") in ("cpu_op", "user_annotation")),
+                  key=lambda e: (e["tid"], e["ts"], -e["dur"]))
+    self_ms = {"collective": 0.0, "other": 0.0}
+    stack = []  # (end, event, children's time) of the open spans of one thread
+    for e in host + [None]:
+        while stack and (e is None or e["tid"] != stack[-1][1]["tid"] or e["ts"] >= stack[-1][0]):
+            _, done, nested = stack.pop()
+            kind = "collective" if COLLECTIVE_SPAN.search(done["name"]) else "other"
+            self_ms[kind] += (done["dur"] - nested) / 1e3
+            if stack:
+                stack[-1][2] += done["dur"]
+        if e is not None:
+            stack.append([e["ts"] + e["dur"], e, 0.0])
+    calls = [e["dur"] for e in host if e["name"] == "c10d::allreduce_"]
+    return dict(all_reduces=len(calls), all_reduce_ms=sum(calls) / 1e3,
+                collective_self_ms=self_ms["collective"], other_self_ms=self_ms["other"],
+                nccl_device_ms=busy_us(device) / 1e3 if device else 0.0)
+
+
 def check_cli_files(directory, label):
     want = ["model_00000", "model_00001", "opt_00000", "opt_00001", "params.json", "stats.txt"]
     names = sorted(os.listdir(directory))
@@ -1832,6 +1935,551 @@ def train_cli(torch, card):
     log(f"train CLI: phase 6 took {time.perf_counter() - t_phase:.1f} s")
 
 
+# ---------------------------------------------------------------- phase 7
+
+MP_BATCH_SEED = 7  # phase 4b's
+MP_WEIGHT_SEED = 2  # phase 4b's
+# phase 7a's weights have outputs of O(1), as a trained model's (phase 5's
+# choice): with init_random's O(100) outputs the float32 gradients of the
+# canonicalising decoder are so ill-conditioned that two float32 paths that
+# sum in another order part by far more than either errs against float64
+# (PERF.md, section 6), while in float64 the ranks equal one process exactly
+MP_OUT_SCALE = 0.01
+RANK_TIMEOUT = 300  # seconds for one launch of the ranks
+SHARED_CARD = "2 ranks sharing one card (not a scaling figure)"
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def run_ranks(role, world, args, what):
+    """``world`` processes of ``python3 chip_smoke.py --rank ROLE RANK WORLD
+    PORT ARGS...`` to completion -> their standard outputs.  The pipes are
+    drained together; a rank that fails or outlasts ``RANK_TIMEOUT`` fails
+    the phase, and every process is killed with it."""
+    import threading
+
+    port = str(free_port())
+    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--rank", role, str(r),
+                               str(world), port, *args], cwd=REPO, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True) for r in range(world)]
+    outs = [""] * world
+
+    def drain(r):
+        outs[r] = procs[r].stdout.read()
+        procs[r].wait()
+
+    threads = [threading.Thread(target=drain, args=(r,), daemon=True) for r in range(world)]
+    try:
+        for t in threads:
+            t.start()
+        deadline = time.perf_counter() + RANK_TIMEOUT
+        for t in threads:
+            t.join(timeout=max(0.0, deadline - time.perf_counter()))
+        for r, p in enumerate(procs):
+            if threads[r].is_alive() or p.returncode != 0:
+                for p2 in procs:
+                    if p2.poll() is None:
+                        p2.kill()
+                fail(f"{what}: rank {r} of {world} failed (rc={p.poll()}):\n{outs[r][-6000:]}")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+    return outs
+
+
+def rank_summary(out, what):
+    """The JSON object a rank prints on its last ``rank:`` line."""
+    lines = [ln for ln in out.splitlines() if ln.startswith("rank: ")]
+    if not lines:
+        fail(f"{what}: a rank printed no summary:\n{out[-3000:]}")
+    return json.loads(lines[-1][len("rank: "):])
+
+
+def join_group(torch, backend, rank, world, port):
+    """This process's rank of a group set up here, on ``cuda:0``."""
+    import torch.distributed as dist
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.cuda.set_device(0)
+    dist.init_process_group(backend, init_method=f"tcp://localhost:{port}", world_size=world,
+                            rank=rank)
+    return dist.group.WORLD
+
+
+def mp_setup(torch, group=None, dtype=None):
+    """(config, model, schedule, optimizer, steps) of phase 7a's stage-2 model."""
+    return train_setup(torch, "arbitrary", seed=MP_WEIGHT_SEED, group=group,
+                       out_scale=MP_OUT_SCALE, dtype=dtype)
+
+
+def mp_batches():
+    """The two stage-2 batches of phase 7 (B = 8, N = Q = 5000)."""
+    rs = np.random.RandomState(MP_BATCH_SEED)
+    return [train_batch(rs, 8, 5000, 5000) for _ in range(2)]
+
+
+def model_state(torch, model, opt, grads=True):
+    """Host copies of the parameters, their gradients, the buffers and the
+    optimizer's state."""
+    from nsdp_tpu_torch.training.async_ckpt import host_copy
+
+    state = {"params": host_copy(dict(model.named_parameters())),
+             "buffers": host_copy(dict(model.named_buffers())),
+             "opt": host_copy(opt.state_dict())}
+    if grads:
+        state["grads"] = {k: p.grad.detach().cpu().clone() for k, p in model.named_parameters()}
+    return state
+
+
+def rank_step(torch, rank, world, port, outdir, dtype):
+    """Phase 7a, one of two gloo ranks on the card: two stage-2 steps of
+    the shipped model through ``make_steps(group=...)`` on this rank's 4
+    rows, in ``dtype``: float32 launching K1/K2/K3 as a stage-2 step does,
+    float64 through the plain path (:class:`plain_on_card`).  The states
+    after each step are written for the parent, and of the first step also
+    the canonicalised points and their gradients
+    (``FlowArbitrary.canonicalize``'s outputs; the parent's single process
+    takes them, as phase 4b's CPU paths take the card's)."""
+    from nsdp_tpu_torch.parallel import local_slice
+
+    group = join_group(torch, "gloo", rank, world, port)
+    dtype = getattr(torch, dtype)
+    _, model, schedule, opt, steps = mp_setup(torch, group, dtype)
+    lr = schedule.get_learning_rate(0)
+    want = TRAIN_LAUNCHES["arbitrary"] if dtype == torch.float32 else (0, 0, 0, 0, 0)
+    record = {"cot": [None, None]}
+    canonicalize = model.canonicalize
+
+    def recording(*args, **kwargs):
+        out = canonicalize(*args, **kwargs)
+        record["cano"] = [t.detach().cpu() for t in out]
+        for i, t in enumerate(out):
+            t.register_hook(lambda g, i=i: record["cot"].__setitem__(i, g.detach().cpu()))
+        return out
+
+    torch.cuda.reset_peak_memory_stats()
+    step_ms = []
+    with plain_on_card() if dtype == torch.float64 else contextlib.nullcontext():
+        for i, batch in enumerate(mp_batches()):
+            model.canonicalize = recording if i == 0 else canonicalize
+            before = counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            loss = steps["train_step"](local_slice(batch, 8), lr)
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            expect_launches(before, want, f"rank {rank}: stage-2 step on 4 rows")
+            state = dict(loss=loss, **model_state(torch, model, opt))
+            if i == 0:
+                state.update(cano=record["cano"], cot=record["cot"])
+            torch.save(state, os.path.join(outdir, f"step{i + 1}_rank{rank}.pt"))
+    print("rank: " + json.dumps({"rank": rank, "step_ms": step_ms,
+                                 "peak_gb": torch.cuda.max_memory_allocated() / 1e9}), flush=True)
+
+
+class K2Tape:
+    """K2's outputs of one run of a step, handed back in order to a second
+    run of it.  K2 scatters its key, value, global-slot and position
+    gradients by float64 atomics in no fixed order, so two runs of one step
+    may part in a last bit of those outputs; a run replayed from the tape
+    can be held bit for bit against the recorded one.  :meth:`check` then
+    holds K2's inputs of the two runs bit for bit and counts the output
+    elements in which K2's own second results parted from the first."""
+
+    def __init__(self):
+        self.recorded, self.replayed = [], []
+
+    @contextlib.contextmanager
+    def run(self, replay):
+        from nsdp_tpu_torch.ops import attention
+
+        real = attention.fused_vector_attention_backward
+
+        def taped(*args):
+            out = real(*args)
+            if not replay:
+                self.recorded.append((args, out))
+                return out
+            self.replayed.append((args, out))
+            return self.recorded[len(self.replayed) - 1][1]
+
+        taped.launches = real.launches  # the wrapper counts on its module name
+        attention.fused_vector_attention_backward = taped
+        try:
+            yield
+        finally:
+            attention.fused_vector_attention_backward = real
+            real.launches = taped.launches
+
+    def check(self, torch, what) -> int:
+        if len(self.recorded) != len(self.replayed):
+            fail(f"{what}: K2 ran {len(self.recorded)} and {len(self.replayed)} times")
+        same = lambda x, y: torch.equal(x, y) if isinstance(x, torch.Tensor) else x is y or x == y
+        parted = 0
+        for (args0, out0), (args1, out1) in zip(self.recorded, self.replayed):
+            if not all(same(x, y) for x, y in zip(args0, args1)):
+                fail(f"{what}: K2's inputs differ from the step without a group")
+            parted += sum(int((x != y).sum()) for x, y in zip(out0, out1) if x is not None)
+        self.recorded, self.replayed = [], []
+        return parted
+
+
+def rank_nccl(torch, rank, world, port, outdir):
+    """Phase 7b, one NCCL rank: the stage-2 step through
+    ``make_steps(group=...)`` against the step without a group from the same
+    weights on the same batches, bit for bit after each step (K2's outputs
+    of the step without a group replayed into the grouped one,
+    :class:`K2Tape`); no synchronising call from the end of the first
+    grouped step to the end of the second; then both steps timed in
+    turns."""
+    import warnings
+
+    from nsdp_tpu_torch.utils.profiling import trace_steps
+
+    group = join_group(torch, "nccl", rank, world, port)
+    # phase 3b's weights: their canonicalised clouds lie far from the
+    # origin, where FPS takes points for padding, so FPS picks distinct
+    # points and the gathers' backward (an atomic scatter-add where indices
+    # repeat) adds in a fixed order
+    _, model_g, schedule, opt_g, steps_g = train_setup(torch, "arbitrary", seed=MP_WEIGHT_SEED,
+                                                       group=group)
+    _, model_n, _, opt_n, steps_n = train_setup(torch, "arbitrary", seed=MP_WEIGHT_SEED)
+    lr = schedule.get_learning_rate(0)
+    # the batches go up first, as the training entry point uploads them
+    # before the step (a copy from pageable memory waits for the card)
+    b1, b2 = [{k: torch.as_tensor(v, device="cuda") for k, v in b.items()} for b in mp_batches()]
+    tape, losses, parted = K2Tape(), [], []
+    for i, batch in enumerate((b1, b2)):
+        with tape.run(replay=False):
+            losses.append(steps_n["train_step"](batch, lr, fetch=False))
+        with tape.run(replay=True), warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            if i == 1:  # from the end of the first grouped step to the end of the second
+                torch.cuda.set_sync_debug_mode("warn")
+            losses.append(steps_g["train_step"](batch, lr, fetch=False))
+            torch.cuda.set_sync_debug_mode("default")
+        syncs = [f"{w.filename}:{w.lineno}: {w.message}" for w in caught
+                 if "called a synchronizing" in str(w.message)]
+        if i == 1 and syncs:
+            fail(f"one NCCL rank: a step synchronised with the card {len(syncs)} times:"
+                 f" {sorted(set(syncs))}")
+        parted.append(tape.check(torch, f"one NCCL rank, step {i + 1}"))
+        same_state(torch, model_state(torch, model_g, opt_g), model_state(torch, model_n, opt_n),
+                   f"one NCCL rank against no group, step {i + 1}")
+        if not torch.equal(losses[-2], losses[-1]):
+            fail(f"one NCCL rank: loss {losses[-1]} differs from the step without a group's")
+    times = {"nccl": [], "none": []}
+    for _ in range(4):
+        for key, steps in (("nccl", steps_g), ("none", steps_n)):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            steps["train_step"](b2, lr)
+            torch.cuda.synchronize()
+            times[key].append((time.perf_counter() - t0) * 1e3)
+    # the collectives of a grouped step, and the cost of one alone
+    all_reduce, calls = torch.distributed.all_reduce, []
+    torch.distributed.all_reduce = lambda *a, **k: calls.append(1) or all_reduce(*a, **k)
+    steps_g["train_step"](b2, lr)
+    torch.distributed.all_reduce = all_reduce
+    x = torch.zeros(256, device="cuda")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(1000):
+        all_reduce(x, group=group)
+    torch.cuda.synchronize()
+    times["all_reduce_us"] = (time.perf_counter() - t0) * 1e3
+    # one step of each traced: window, device busy and idle share, and the
+    # all-reduces' host and device time (the profiler's own cost included)
+    traced = {}
+    for key, steps in (("nccl", steps_g), ("none", steps_n)):
+        for attempt in range(3):  # a profiling session may deliver no device activity
+            directory = os.path.join(outdir, f"trace_{key}_{attempt}")
+            with trace_steps(directory):
+                steps["train_step"](b2, lr)
+            if trace_has_device(directory):
+                break
+        _, busy, window, idle = trace_idle(directory)
+        traced[key] = dict(window_ms=window, busy_ms=busy, idle=idle, **trace_host(directory))
+    print("rank: " + json.dumps({"rank": rank, "k2_parted": parted, "all_reduces": len(calls),
+                                 "traced": traced, **times}), flush=True)
+
+
+def rank_cli(torch, rank, world, port, outdir, path):
+    """Phase 7c, one of two gloo ranks on the card: ``python -m
+    nsdp_tpu_torch.train`` in this process, on the group set up here,
+    ``--device cuda:0``; its step interval, peak memory and the calls that
+    write the run's files."""
+    import nsdp_tpu_torch.train as port_train
+    from nsdp_tpu_torch.training.async_ckpt import AsyncCheckpointer
+    from nsdp_tpu_torch.utils.profiling import StepTimer
+
+    join_group(torch, "gloo", rank, world, port)
+    ticks, writes = [], {"params": 0, "save": 0, "save_best": 0}
+
+    class RecordingTimer(StepTimer):
+        def tick(self):
+            super().tick()
+            ticks.append(time.perf_counter())
+
+    def counted(what, fn):
+        def call(*args, **kwargs):
+            writes[what] += 1
+            return fn(*args, **kwargs)
+        return call
+
+    port_train.StepTimer = RecordingTimer
+    port_train.save_experiment_params = counted("params", port_train.save_experiment_params)
+    AsyncCheckpointer.save = counted("save", AsyncCheckpointer.save)
+    AsyncCheckpointer.save_best = counted("save_best", AsyncCheckpointer.save_best)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    times = port_train.main([path, "--seed", "0", "--num_workers", "4", "--matmul_precision",
+                             "highest", "--device", "cuda:0"])
+    wall = time.perf_counter() - t0
+    per_epoch = len(times["step"]) // CLI_EPOCHS
+    last = ticks[-per_epoch:]  # the last epoch's ticks: after each step but its first, and after
+    print("rank: " + json.dumps({
+        "rank": rank, "wall_s": wall, "steps": len(times["step"]), "writes": writes,
+        "interval_ms": [(b - a) * 1e3 for a, b in zip(last[:-2], last[1:-1])],
+        "peak_gb": torch.cuda.max_memory_allocated() / 1e9}), flush=True)
+
+
+class plain_on_card:
+    """Within this context the model's attention and FPS take their plain
+    PyTorch versions on CUDA tensors too, so that a model in float64 runs
+    on the card: the float64 reference of phase 7a.  The neighbours are
+    selected in float32 from the float32 coordinates (the inputs and the
+    given canonicalised points), as K1 selects them, and FPS picks in
+    float32 as K3 does, so every selection is the card's."""
+
+    def __enter__(self):
+        from nsdp_tpu_torch.nn import blocks
+        from nsdp_tpu_torch.ops import attention, fps
+        from nsdp_tpu_torch.ops.knn import mask_penalty, select
+
+        def attend(xyz_q, kv_xyz, q_feats, K_a, V_a, *weights, k, k_glob=None, v_glob=None,
+                   kv_mask=None):
+            k = min(k, kv_xyz.shape[1])
+            penalty = None if kv_mask is None else mask_penalty(kv_mask.float())
+            idx = select(xyz_q.float(), kv_xyz.float(), k, penalty)[0]
+            return attention.fused_vector_attention_plain(
+                xyz_q, kv_xyz, q_feats, K_a, V_a, *weights, k, k_glob, v_glob, idx=idx)
+
+        self.saved = blocks.fused_vector_attention, blocks.furthest_point_sample
+        blocks.fused_vector_attention = attend
+        blocks.furthest_point_sample = fps.furthest_point_sample_plain
+        return self
+
+    def __exit__(self, *exc):
+        from nsdp_tpu_torch.nn import blocks
+
+        blocks.fused_vector_attention, blocks.furthest_point_sample = self.saved
+
+
+def single_process_step(torch, cano, cot, dtype):
+    """The single-process step of phase 7a's first batch on the card from
+    the same weights, by halves (:func:`stage2_step_by_halves`) on the
+    given canonicalised points and their gradients, in ``dtype`` (float64:
+    the plain path, :class:`plain_on_card`) -> its loss, gradients,
+    statistics, its own canonicalised points and its gradients at the
+    given ones (host copies)."""
+    _, model, _, opt, _ = mp_setup(torch, dtype=dtype)
+    with plain_on_card() if dtype == torch.float64 else contextlib.nullcontext():
+        loss, own, grads = stage2_step_by_halves(torch, model, mp_batches()[0], "cuda", dtype,
+                                                 cano, cot)
+    out = dict(loss=loss, cano=[c.cpu() for c in own], cot=[g.cpu() for g in grads],
+               **model_state(torch, model, opt))
+    del model, opt
+    torch.cuda.empty_cache()
+    return out
+
+
+def two_rank_step(torch, root, dtype, what):
+    """Two gloo ranks of :func:`rank_step` -> (the ranks' summaries, rank
+    0's state after the first step, the canonicalised points and their
+    gradients of the whole batch), the ranks' states after two steps
+    checked bit for bit equal."""
+    outs = run_ranks("step", 2, [root, dtype], what)
+    after = [torch.load(os.path.join(root, f"step2_rank{r}.pt"), weights_only=False)
+             for r in range(2)]
+    same_state(torch, after[1], after[0], f"{what}: rank 1's loss, parameters, gradients, Adam"
+               " state and running statistics after two steps, against rank 0's")
+    got = [torch.load(os.path.join(root, f"step1_rank{r}.pt"), weights_only=False)
+           for r in range(2)]
+    # the ranks' canonicalised points make the whole batch's; a rank's
+    # gradient there is that of the ranks' summed loss, the single
+    # process's that of their mean
+    cano = [torch.cat([g["cano"][i] for g in got]) for i in (0, 1)]
+    cot = [torch.cat([g["cot"][i] for g in got]) / len(got) for i in (0, 1)]
+    return [rank_summary(o, what) for o in outs], got[0], cano, cot
+
+
+def mp_steps(torch, root, card):
+    """Phase 7a: two gloo ranks sharing the card against one process, in
+    float32 through the kernels and in float64 through the plain path.
+
+    A whole step is not comparable by float32 rounding's rule: the ranks
+    sum the batch statistics in another order and run products of fewer
+    rows, the canonicalised points move by rounding, and FPS and kNN
+    near-ties on them may pick other points.  So each step is held by
+    halves cut at the canonical pose, as phase 4b holds the card against
+    the CPU: the single process takes the ranks' canonicalised points and
+    their gradients."""
+    summaries, got, cano, cot = two_rank_step(torch, root, "float32", "7a, two gloo ranks")
+    f32, f64 = [single_process_step(torch, cano, cot, dtype)
+                for dtype in (torch.float32, torch.float64)]
+    if abs(got["loss"] - f32["loss"]) > 1e-4 * abs(f32["loss"]):
+        fail(f"7a: by halves, the two ranks' loss {got['loss']} vs one process's {f32['loss']}")
+    rule = dict(factor=4.0, floor=1e-4)
+    # the seam: the ranks' canonicalised points against the single
+    # process's own, and the ranks' gradients there against its gradients
+    # at the same points
+    for i, what in enumerate(("space_cano", "surf_cano")):
+        check_gradient(f"7a, two ranks, {what}", cano[i], f32["cano"][i], f64["cano"][i], **rule)
+        check_gradient(f"7a, two ranks, d {what}", cot[i], f32["cot"][i], f64["cot"][i], **rule)
+    worst, n_zero = (0.0, ""), 0
+    for key, g in got["grads"].items():
+        weight = f64["grads"].get(key[:-4] + "weight") if key.endswith(".bias") else None
+        ratio = check_gradient(f"7a, two ranks, d {key}", g, f32["grads"][key], f64["grads"][key],
+                               weight, **rule)
+        n_zero += ratio is None
+        worst = max(worst, (ratio or 0.0, key))
+    stats = [k for k in got["buffers"] if k.endswith(("running_mean", "running_var"))]
+    for key in stats:
+        ratio = check_gradient(f"7a, two ranks, {key}", got["buffers"][key], f32["buffers"][key],
+                               f64["buffers"][key], **rule)
+        worst = max(worst, (ratio, key))
+    for s in summaries:
+        log(f"multi-process 7a, rank {s['rank']} (gloo, {SHARED_CARD}): stage-2 steps on 4 rows"
+            f" (B = 8, N = Q = 5000) {', '.join(f'{x:.1f}' for x in s['step_ms'])} ms, 17/17/4"
+            f" K1/K2/K3 launches each; peak memory {s['peak_gb']:.2f} GB")
+    log(f"multi-process 7a: loss, parameters, gradients, Adam state and running statistics bit"
+        f" for bit equal across the ranks after two steps; by halves against one process on the"
+        f" card in float32 and the plain path in float64 (losses {got['loss']:.7g},"
+        f" {f32['loss']:.7g}, {f64['loss']:.7g}): the canonicalised points and their gradients,"
+        f" {len(got['grads'])} gradients ({n_zero}"
+        f" analytically zero, held absolutely) and {len(stats)} running statistics within phase"
+        f" 4b's rule (4 times the float32 error, floor 1e-4); largest ratio of the ranks' error to"
+        f" the single process's {worst[0]:.3g} ({worst[1]}); {card}")
+
+    # float64: the two ranks equal one process but for float64 rounding
+    _, got, cano, cot = two_rank_step(torch, root, "float64", "7a, two gloo ranks in float64")
+    one = single_process_step(torch, cano, cot, torch.float64)
+    worst = (0.0, "")
+    for i, what in enumerate(("space_cano", "surf_cano")):
+        for name, g, want in ((what, cano[i], one["cano"][i]), (f"d {what}", cot[i], one["cot"][i])):
+            err = float((g - want).abs().max()) / max(float(want.abs().max()), 1e-30)
+            if err > 1e-9:
+                fail(f"7a in float64: {name}: two ranks against one process, largest error"
+                     f" {err:.3g} of its scale, beyond 1e-9")
+            worst = max(worst, (err, name))
+    for part in ("grads", "buffers"):
+        for key, g in got[part].items():
+            if part == "buffers" and not key.endswith(("running_mean", "running_var")):
+                continue
+            scale = float(one[part][key].abs().max())
+            if part == "grads" and key.endswith(".bias") and key[:-4] + "weight" in one[part]:
+                scale = max(scale, float(one[part][key[:-4] + "weight"].abs().max()))
+            err = float((g - one[part][key]).abs().max()) / max(scale, 1e-30)
+            if err > 1e-9:
+                fail(f"7a in float64: {part} {key}: two ranks against one process, largest error"
+                     f" {err:.3g} of its scale, beyond 1e-9")
+            worst = max(worst, (err, key))
+    log(f"multi-process 7a in float64 (the plain path on the card): the canonicalised points,"
+        f" their gradients, every gradient and running statistic of the two ranks within 1e-9"
+        f" of its scale of one process's; largest"
+        f" {worst[0]:.3g} ({worst[1]}); loss {got['loss']:.15g} against {one['loss']:.15g}")
+
+
+def mp_nccl(torch, root, card):
+    """Phase 7b: one NCCL rank against the step without a group."""
+    s = rank_summary(run_ranks("nccl", 1, [root], "7b, one NCCL rank")[0], "7b")
+    nccl, none = float(np.median(s["nccl"])), float(np.median(s["none"]))
+    log(f"multi-process 7b: one NCCL rank through make_steps(group=...) bit for bit the step"
+        f" without a group (two steps: parameters, gradients, Adam state, statistics, losses; K2's"
+        f" inputs bit for bit, its outputs replayed from the step without a group, its own parting"
+        f" from them in {' and '.join(map(str, s['k2_parted']))} elements: float64 atomics);"
+        f" no synchronising call from the end of its first step to the end of its second;"
+        f" stage-2 step (B = 8) {nccl:.2f} ms (median of 4; {', '.join(f'{x:.1f}' for x in s['nccl'])})"
+        f" against {none:.2f} ms without a group ({', '.join(f'{x:.1f}' for x in s['none'])}),"
+        f" in turns: {100 * (nccl / none - 1):+.1f}%; {s['all_reduces']} all-reduces a step, one of"
+        f" 256 floats {s['all_reduce_us']:.1f} us (1000 in a row); {card}")
+    g, n = s["traced"]["nccl"], s["traced"]["none"]
+    log(f"multi-process 7b traced (torch.profiler, one step each, its own cost included):"
+        f" grouped step window {g['window_ms']:.2f} ms, device busy {g['busy_ms']:.2f} ms, idle"
+        f" share {g['idle']:.3f}; without a group {n['window_ms']:.2f} ms, {n['busy_ms']:.2f} ms,"
+        f" {n['idle']:.3f}; {g['all_reduces']} all-reduce calls on the host {g['all_reduce_ms']:.2f}"
+        f" ms ({1e3 * g['all_reduce_ms'] / max(g['all_reduces'], 1):.1f} us each), NCCL kernels"
+        f" {g['nccl_device_ms']:.3f} ms on the device; host self time (all threads) in the"
+        f" collectives' spans {g['collective_self_ms']:.2f} ms, in every other operation"
+        f" {g['other_self_ms']:.2f} ms against {n['other_self_ms']:.2f} ms without a group; {card}")
+
+
+def mp_cli(torch, root, card):
+    """Phase 7c: the training entry point on two gloo ranks sharing the card."""
+    from nsdp_tpu_torch.data.synthetic import generate_synthetic_dataset
+
+    fx = generate_synthetic_dataset(os.path.join(root, "data"), **CLI_FIXTURE)
+    path, cfg = cli_config("forward", fx, root)
+    outs = run_ranks("cli", 2, [root, path], "7c, the training entry point on two gloo ranks")
+    summaries = [rank_summary(o, "7c") for o in outs]
+    printed = [[ln for ln in o.splitlines() if re.match(r"epoch: -?\d+ - batch", ln)]
+               for o in outs]
+    losses = [[float(re.search(r"loss: (\S+)", ln).group(1)) for ln in p] for p in printed]
+    if not losses[0] or losses[0] != losses[1]:
+        fail(f"7c: the ranks printed other losses: {losses}")
+    directory = os.path.join(cfg["experiment"]["out_dir"], cfg["experiment"]["name"])
+    best = check_cli_files(directory, "7c")
+    with open(os.path.join(directory, "stats.txt")) as f:
+        written = [ln.strip() for ln in f if ln.startswith("epoch")]
+    if written != printed[0]:
+        fail("7c: stats.txt does not hold rank 0's progress lines, each once")
+    writes = [s["writes"] for s in summaries]
+    if writes[1] != {"params": 0, "save": 0, "save_best": 0} or writes[0]["params"] != 1 \
+            or writes[0]["save"] != CLI_EPOCHS or writes[0]["save_best"] < 1:
+        fail(f"7c: rank 0 and rank 1 wrote {writes}")
+    for s in summaries:
+        log(f"multi-process 7c, rank {s['rank']} (gloo, {SHARED_CARD}): {s['steps']} steps of"
+            f" 8 rows (B = 16) in {s['wall_s']:.2f} s; step interval (the last epoch, inside the"
+            f" loop) {', '.join(f'{x:.1f}' for x in s['interval_ms'])} ms; peak memory"
+            f" {s['peak_gb']:.2f} GB")
+    log(f"multi-process 7c: losses printed equal on both ranks ({len(losses[0])} lines, the last"
+        f" {losses[0][-1]:.5g}); the files written once, by rank 0 ({best}); {card}")
+
+
+def multi_process(torch, card):
+    """Phase 7: (a) two gloo ranks on the card against one process, (b) one
+    NCCL rank against no group, (c) the training entry point on two gloo
+    ranks."""
+    import tempfile
+
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    for part in (mp_steps, mp_nccl, mp_cli):
+        with tempfile.TemporaryDirectory() as root:
+            part(torch, root, card)
+    log(f"multi-process: phase 7 took {time.perf_counter() - t_phase:.1f} s")
+
+
+def rank_main(argv) -> None:
+    """A rank of phase 7: ``--rank ROLE RANK WORLD PORT ARGS...``."""
+    import torch
+
+    sys.path.insert(0, REPO)
+    role, rank, world, port, *args = argv
+    run = {"step": rank_step, "nccl": rank_nccl, "cli": rank_cli}[role]
+    run(torch, int(rank), int(world), port, *args)
+    torch.distributed.destroy_process_group()
+
+
 def short_name(mangled: str) -> str:
     """``attn_kernel<4>`` from a mangled kernel name."""
     m = re.search(r"\d+([A-Za-z_]+?_kernel)(ILi(\d+)E)?", mangled)
@@ -1915,6 +2563,7 @@ def main() -> None:
     torch.cuda.empty_cache()
     entry_points(torch, rows, card)
     train_cli(torch, card)
+    multi_process(torch, card)
 
     kernels = [
         kernel_entry("fused_knn_vector_attention", "nsdp_tpu_torch/csrc/attention.cu",
@@ -1940,4 +2589,7 @@ def main() -> None:
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["--rank"]:
+        rank_main(sys.argv[2:])
+    else:
+        main()

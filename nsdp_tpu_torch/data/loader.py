@@ -1,7 +1,7 @@
 """Batching data loader with bounded background prefetch.
 
-The port's own copy of ``nsdp_tpu/data/loader.py`` (without its multi-host
-``batch_slice``).  It replaces torch's ``DataLoader`` (reference
+The port's own copy of ``nsdp_tpu/data/loader.py``, its per-rank
+``batch_slice`` included.  It replaces torch's ``DataLoader`` (reference
 ``train.py:121-136``) with a prefetching host pipeline: item assembly (numpy,
 disk IO, KD-tree transforms) runs in a worker pool while the card computes.
 Batches are numpy dicts; moving them to the device is the caller's (the step
@@ -58,6 +58,12 @@ class DataLoader:
         in-flight + unconsumed work is bounded by ``prefetch + num_workers``.
       worker_type: 'thread' (default) or 'process' (GIL-heavy transforms;
         dataset and collate_fn must be picklable).
+      batch_slice: optional slice of each batch's index list that this
+        loader assembles (data-parallel training: every rank draws the SAME
+        index order from the same ``seed`` and assembles only its
+        ``parallel.multihost.process_batch_slice``).  Requires
+        ``drop_last`` (a trailing partial batch would slice raggedly across
+        ranks).
     """
 
     def __init__(
@@ -71,9 +77,13 @@ class DataLoader:
         seed: Optional[int] = None,
         collate_fn: Optional[Callable] = None,
         worker_type: str = "thread",
+        batch_slice: Optional[slice] = None,
     ):
         if worker_type not in ("thread", "process"):
             raise ValueError(f"worker_type {worker_type!r}")
+        if batch_slice is not None and not drop_last:
+            raise ValueError("batch_slice requires drop_last=True")
+        self.batch_slice = batch_slice
         self.dataset = dataset
         self.batch_size = batch_size
         self.shuffle = shuffle
@@ -89,7 +99,8 @@ class DataLoader:
         order = self.rng.permutation(n) if self.shuffle else np.arange(n)
         end = n - (n % self.batch_size) if self.drop_last else n
         for start in range(0, end, self.batch_size):
-            yield order[start : start + self.batch_size]
+            idxs = order[start : start + self.batch_size]
+            yield idxs if self.batch_slice is None else idxs[self.batch_slice]
 
     def __len__(self):
         n = len(self.dataset)

@@ -17,6 +17,8 @@ named ``bn``, ``bn1``, ``bnorm0`` ...  The reference's 1x1 ``Conv1d`` layers
 channels-last layout, with the kernel dimension squeezed out.
 """
 
+import contextlib
+from contextvars import ContextVar
 from typing import Optional
 
 import numpy as np
@@ -30,6 +32,28 @@ from nsdp_tpu_torch.ops import (
     index_points,
 )
 from nsdp_tpu_torch.ops.knn import knn
+from nsdp_tpu_torch.parallel.dist import all_reduce_sum
+
+# The process group whose ranks' rows make up one batch for train-mode
+# BatchNorm (the counterpart of ``nsdp_tpu/nn/blocks.py:41-55``): every op
+# of the model is row-wise except BatchNorm, whose statistics must span the
+# whole batch for a data-parallel step to equal the single-process one.  A
+# context variable carries it instead of an argument threaded through every
+# module; ``training.steps.make_steps(group=...)`` enters it around the
+# train-mode forward.
+_BN_SYNC_GROUP: ContextVar = ContextVar("nsdp_bn_sync_group", default=None)
+
+
+@contextlib.contextmanager
+def bn_sync(group):
+    """Within this context, train-mode BatchNorm takes its statistics over
+    the rows of every rank of ``group`` (``torch.distributed``; None: this
+    process's rows only)."""
+    token = _BN_SYNC_GROUP.set(group)
+    try:
+        yield
+    finally:
+        _BN_SYNC_GROUP.reset(token)
 
 
 class TwoLayerMLP(nn.Sequential):
@@ -60,6 +84,16 @@ class BatchNorm(nn.BatchNorm1d):
     Bessel-corrected one (``n / (n - 1)`` over the valid count) enters the
     running variance, momentum 0.1.  ``mask`` (the leading axes of ``x``,
     nonzero = valid row) weights the batch statistics; eval mode ignores it.
+
+    Under :func:`bn_sync` the statistics span every rank's rows, as
+    ``bn_sync_axis`` makes them (``nsdp_tpu/nn/blocks.py:150-176``): one
+    differentiable all-reduce of the sum (with the valid count packed
+    beside it where there is a mask), then one of the centred squared sum,
+    and the Bessel factor over the global count.  Without a mask the global
+    count is the world size times the local rows, a host number, so no
+    step waits for the device; the ranks' rows are equal in number.  The
+    statistics are sums over the count with or without a group, so one
+    rank's result is the unsynced one bit for bit.
     """
 
     def __init__(self, features: int, device=None):
@@ -69,21 +103,28 @@ class BatchNorm(nn.BatchNorm1d):
         if not self.training:
             inv = torch.rsqrt(self.running_var + self.eps)
             return (x - self.running_mean) * inv * self.weight + self.bias
+        group = _BN_SYNC_GROUP.get()
+        total = (lambda t: t) if group is None else (lambda t: all_reduce_sum(t, group))
         flat = x.reshape(-1, x.shape[-1])
         if mask is None:
+            rows = flat.shape[0] * (1 if group is None else torch.distributed.get_world_size(group))
             # the Bessel factor on the host, rounded as the float32 division
             # on the device would round it: a tensor made from a Python
             # number is a copy that waits for the device
-            n = np.float32(flat.shape[0])
+            n = np.float32(rows)
             bessel = float(n / max(n - np.float32(1.0), np.float32(1.0)))
-            mean = flat.mean(dim=0)
-            var = torch.square(flat - mean).mean(dim=0)
+            mean = total(flat.sum(dim=0)) / rows
+            var = total(torch.square(flat - mean).sum(dim=0)) / rows
         else:
             w = mask.reshape(-1, 1).to(x.dtype)
-            n = torch.clamp(w.sum(), min=1.0)
+            s, count = (flat * w).sum(dim=0), w.sum()
+            if group is not None:
+                packed = all_reduce_sum(torch.cat([s, count.reshape(1)]), group)
+                s, count = packed[:-1], packed[-1]
+            n = torch.clamp(count, min=1.0)
             bessel = n / torch.clamp(n - 1.0, min=1.0)
-            mean = (flat * w).sum(dim=0) / n
-            var = (torch.square(flat - mean) * w).sum(dim=0) / n
+            mean = s / n
+            var = total((torch.square(flat - mean) * w).sum(dim=0)) / n
         with torch.no_grad():
             unbiased = var * bessel
             m = 1.0 - self.momentum

@@ -11,9 +11,16 @@ Queries are zero-padded to a ladder of bucket sizes (exact: field queries
 are independent), so the card sees few distinct shapes.  The model runs
 under ``torch.inference_mode``; every kNN attention and FPS of the path is a
 hand-written CUDA kernel on the card.
+
+``devices=(...)`` splits the query axis over several devices of one process
+(the counterpart of a ``('data', 'query')`` mesh with ``data=1``,
+``nsdp_tpu/serving.py:25-35,129-131,338-352``): one replica of the model
+per device encodes the surface and decodes its share of the queries; the
+shares are concatenated in order.
 """
 
-from typing import Dict, Optional, Sequence
+import copy
+from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -35,19 +42,27 @@ class DeformationService:
         missing file raises ``FileNotFoundError``.  With neither
         ``state_dict`` nor ``weight_file`` the weights are seeded random
         (``models.init_random``).
-      buckets: query-count ladder requests are padded to.
+      buckets: query-count ladder requests are padded to (each rounded up
+        to a multiple of the number of devices).
       device: ``cuda`` by default; ``cpu`` runs the plain PyTorch path.
       seed: seed of the random weights.
+      devices: several devices to split every request's queries over, one
+        replica of the model each (``self.model`` is the first); instead of
+        ``device``.
     """
 
     def __init__(self, config: Dict, state_dict: Optional[Dict] = None,
                  buckets: Sequence[int] = (4096, 16384, 65536), device=None,
-                 seed: int = 0, weight_file: Optional[str] = None):
+                 seed: int = 0, weight_file: Optional[str] = None,
+                 devices: Optional[Sequence] = None):
         if state_dict is not None and weight_file is not None:
             raise ValueError("pass state_dict or weight_file, not both")
+        if devices is not None and device is not None:
+            raise ValueError("pass device or devices, not both")
         if weight_file is not None:
             state_dict = read_state_dict(weight_file)
-        self.device = resolve_device(device)
+        self.devices = [resolve_device(d) for d in (devices or [device])]
+        self.device = self.devices[0]
         self.config = config
         self.buckets = sorted(buckets)
         self.model_type = config["model"]["type"]
@@ -56,6 +71,8 @@ class DeformationService:
             init_random(self.model, seed)
         else:
             self.model.load_state_dict(state_dict, strict=True)
+        self.replicas = [self.model] + [copy.deepcopy(self.model).to(d)
+                                        for d in self.devices[1:]]
 
     @classmethod
     def from_config(cls, config_path: str, **kwargs) -> "DeformationService":
@@ -71,14 +88,24 @@ class DeformationService:
         return cls(config, **kwargs)
 
     def _bucket(self, q: int) -> int:
-        for b in self.buckets:
-            if q <= b:
-                return b
-        big = self.buckets[-1]  # round up to a multiple of the largest bucket
-        return ((q + big - 1) // big) * big
+        out = next((b for b in self.buckets if q <= b), None)
+        if out is None:  # round up to a multiple of the largest bucket
+            big = self.buckets[-1]
+            out = ((q + big - 1) // big) * big
+        m = len(self.devices)  # every device takes an equal share
+        return ((out + m - 1) // m) * m
 
-    def _tensor(self, a) -> torch.Tensor:
-        return torch.as_tensor(np.asarray(a, np.float32), device=self.device)
+    def _tensor(self, a, device=None) -> torch.Tensor:
+        return torch.as_tensor(np.asarray(a, np.float32), device=device or self.device)
+
+    def _shares(self, padded: np.ndarray) -> List[np.ndarray]:
+        """The (B, Q, 3) padded queries cut into one equal share per device."""
+        return np.split(padded, len(self.devices), axis=1)
+
+    def _joined(self, outs: List[torch.Tensor]) -> torch.Tensor:
+        """The replicas' (B, share, 3) outputs joined in order along the
+        queries, on the first device."""
+        return outs[0] if len(outs) == 1 else torch.cat([o.to(self.device) for o in outs], dim=1)
 
     def warmup(self, n_surface: int) -> None:
         """Run every serving entry once at every bucket size -- ``deform``
@@ -119,11 +146,11 @@ class DeformationService:
         q = points.shape[1]
         padded, _ = pad_queries(np.asarray(points), self._bucket(q))
         with torch.inference_mode():
-            out = self.model.predict(
-                self._tensor(padded), self._tensor(surface_samples_inputs),
-                None if point_mask is None else self._tensor(point_mask),
-            )
-            out = out[:, :q].cpu().numpy()
+            # every replica's work is queued before the first result is read
+            outs = [model.predict(self._tensor(share, d), self._tensor(surface_samples_inputs, d),
+                                  None if point_mask is None else self._tensor(point_mask, d))
+                    for model, d, share in zip(self.replicas, self.devices, self._shares(padded))]
+            out = self._joined(outs)[:, :q].cpu().numpy()
         return out[0] if squeeze else out
 
     def edit_session(self, points: np.ndarray, surface_samples_src: np.ndarray,
@@ -148,24 +175,26 @@ class DeformationService:
             )
         q = points.shape[0]
         padded, _ = pad_queries(np.asarray(points)[None], self._bucket(q))
-        pm = None if point_mask is None else self._tensor(point_mask).reshape(1, -1)
+        shares = []
         with torch.inference_mode():
-            space_cano, surf_cano = self.model.canonicalize(
-                self._tensor(padded), self._tensor(surface_samples_src)[None], pm
-            )
-        return EditSession(self, space_cano, surf_cano, q, pm)
+            for model, d, share in zip(self.replicas, self.devices, self._shares(padded)):
+                pm = None if point_mask is None else self._tensor(point_mask, d).reshape(1, -1)
+                space_cano, surf_cano = model.canonicalize(
+                    self._tensor(share, d), self._tensor(surface_samples_src, d)[None], pm
+                )
+                shares.append((space_cano, surf_cano, pm))
+        return EditSession(self, shares, q)
 
 
 class EditSession:
-    """Precomputed canonicalisation + per-drag forward evaluation."""
+    """Precomputed canonicalisation + per-drag forward evaluation, per
+    device: its share of the canonicalised queries, the canonicalised
+    surface and the point mask."""
 
-    def __init__(self, service: DeformationService, space_cano, surf_cano,
-                 q: int, point_mask=None):
+    def __init__(self, service: DeformationService, shares, q: int):
         self._service = service
-        self._space_cano = space_cano
-        self._surf_cano = surf_cano
+        self._shares = shares
         self._q = q
-        self._point_mask = point_mask
 
     def drag(self, surface_samples_tgt: np.ndarray, handle_mask: np.ndarray) -> np.ndarray:
         """Deform the session's query points toward a (partial) target.
@@ -181,9 +210,8 @@ class EditSession:
         svc = self._service
         mask = np.asarray(handle_mask, np.float32).reshape(-1, 1)
         with torch.inference_mode():
-            out = svc.model.deform(
-                self._space_cano, self._surf_cano,
-                svc._tensor(surface_samples_tgt)[None], svc._tensor(mask)[None],
-                self._point_mask,
-            )
-            return out[0, : self._q].cpu().numpy()
+            outs = [model.deform(space_cano, surf_cano, svc._tensor(surface_samples_tgt, d)[None],
+                                 svc._tensor(mask, d)[None], pm)
+                    for model, d, (space_cano, surf_cano, pm)
+                    in zip(svc.replicas, svc.devices, self._shares)]
+            return svc._joined(outs)[0, : self._q].cpu().numpy()

@@ -24,10 +24,26 @@ its backward and every FPS a hand-written kernel) unless ``--device cpu``
 asks for the plain PyTorch path.  Weights start from
 ``models.init_random(model, seed)``, then ``training.weight_file`` or the
 stage-1 files ``training.weight_forward_file`` / ``weight_backward_file``
-of an 'arbitrary' model.  One process, one device.
+of an 'arbitrary' model.
+
+One process, one device -- or data-parallel, one process per device under
+``torch.distributed`` (``train.py:81-83,114-139,192-200,239,255-293``):
+
+    torchrun --nproc_per_node N -m nsdp_tpu_torch.train CONFIG [--device cpu]
+
+Each rank runs on ``cuda:LOCAL_RANK`` (NCCL) or the CPU (gloo), assembles
+its own rows of every training batch, and the step equals the
+single-process step on the whole batch (``make_steps(group=...)``).  The
+weights are broadcast from rank 0 once loaded; validation batches are
+padded to a multiple of the world size and sliced per rank; every rank
+runs the watch norms and validation (they are collectives), and only rank
+0 writes files (``params.json``, ``stats.txt``, checkpoints, the wandb
+log, the profile).  A process group that exists before ``main`` is used
+as it is.
 """
 
 import argparse
+import contextlib
 import os
 import sys
 import time
@@ -35,10 +51,20 @@ from typing import Dict, List
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
-from nsdp_tpu_torch import resolve_device
 from nsdp_tpu_torch.data import DataLoader, dataset_dict
 from nsdp_tpu_torch.models import build_model, init_random
+from nsdp_tpu_torch.parallel import (
+    broadcast_module,
+    check_train_batch,
+    initialize_distributed,
+    is_main_process,
+    local_slice,
+    process_batch_slice,
+    rank,
+    world_size,
+)
 from nsdp_tpu_torch.test import MATMUL_PRECISION
 from nsdp_tpu_torch.training import (
     load_best_checkpoints,
@@ -79,7 +105,8 @@ def parse_args(argv):
     parser.add_argument("--profile_dir", default=None,
                         help="write a torch.profiler trace of the first epoch to this directory")
     parser.add_argument("--device", default="cuda",
-                        help="cuda (default) or cpu, the plain PyTorch path")
+                        help="cuda (default; cuda:LOCAL_RANK under several ranks) or cpu, "
+                        "the plain PyTorch path")
     return parser.parse_args(argv)
 
 
@@ -138,28 +165,41 @@ def main(argv) -> Dict[str, List[float]]:
     (the whole pass) and ``checkpoint`` (the snapshots on this thread, and
     the last wait for the writer)."""
     args = parse_args(argv)
-    device = resolve_device(args.device)
+    # before the first CUDA tensor: the process group, the rank's device
+    device = initialize_distributed(args.device)
+    n_proc, main_proc = world_size(), is_main_process()
+    group = dist.group.WORLD if n_proc > 1 else None
     torch.set_num_threads(args.num_threads)
     torch.set_float32_matmul_precision(MATMUL_PRECISION[args.matmul_precision])
     np.random.seed(args.seed)
-    print("Running on", torch.cuda.get_device_name(device) if device.type == "cuda" else device)
+    where = torch.cuda.get_device_name(device) if device.type == "cuda" else device
+    if n_proc > 1:
+        where = f"{where} (rank {rank()} of {n_proc} processes)"
+    print("Running on", where)
 
     config = load_config(args.config_file)
     experiment_name = config["experiment"]["name"]
     experiment_directory = os.path.join(config["experiment"]["out_dir"], experiment_name)
     os.makedirs(experiment_directory, exist_ok=True)
-    save_experiment_params(args, experiment_name, experiment_directory, config)
-    print(f"Save experiment statistics in {experiment_directory}")
+    if main_proc:
+        save_experiment_params(args, experiment_name, experiment_directory, config)
+        print(f"Save experiment statistics in {experiment_directory}")
 
     train_dataset = make_dataset(config, "training")
     validation_dataset = make_dataset(config, "validation")
     batch_size = config["training"].get("batch_size", 16)
+    check_train_batch(batch_size)
+    # every rank draws the same shuffled order (the same seed) and assembles
+    # only its own rows of each batch
     train_loader = DataLoader(train_dataset, batch_size=batch_size, shuffle=True,
-                              drop_last=True, num_workers=args.num_workers, seed=args.seed)
+                              drop_last=True, num_workers=args.num_workers, seed=args.seed,
+                              batch_slice=process_batch_slice(batch_size) if n_proc > 1 else None)
     print(f"Loaded {len(train_dataset)} training deformation pairs")
     # every validation sample counts (the reference's drop_last=False); the
-    # last partial batch is padded and masked below
+    # last partial batch is padded and masked below, to a multiple of the
+    # world size, and every rank takes its slice
     val_batch_size = config["validation"].get("batch_size", 1)
+    val_target = -(-val_batch_size // n_proc) * n_proc
     val_loader = DataLoader(validation_dataset, batch_size=val_batch_size, shuffle=False,
                             drop_last=False, num_workers=args.num_workers)
     print(f"Loaded {len(validation_dataset)} validation deformation pairs")
@@ -173,7 +213,8 @@ def main(argv) -> Dict[str, List[float]]:
     model = init_random(build_model(config, device=device), args.seed)
     schedule, optimizer = optimizer_factory(config["training"], model.parameters())
     steps = make_steps(model, model_type, optimizer,
-                       nan_guard=config["training"].get("nan_guard", False), device=device)
+                       nan_guard=config["training"].get("nan_guard", False), device=device,
+                       group=group)
     print_num_parameters(model, model_type)
     load_weights(model, config)
 
@@ -184,13 +225,15 @@ def main(argv) -> Dict[str, List[float]]:
     epoch = load_checkpoints(model, optimizer, experiment_directory)
     if epoch is not None:
         args.continue_from_epoch = epoch
-    print(f"Training on {device}, validation batches padded to {val_batch_size}")
+    if group is not None:  # no rank starts apart
+        broadcast_module(model)
+    print(f"Training on {device}, validation batches padded to {val_target}")
 
     logger_cfg = config.get("logger", {})
     wandb_watch = bool(args.with_wandb_logger and logger_cfg.get("watch", True))
     watch_every = logger_cfg.get("log_frequency", 10)
     StatsLogger.reset()  # a logger of this run's own
-    if args.with_wandb_logger:
+    if args.with_wandb_logger and main_proc:
         # watch defaults on, as the reference's wandb.watch(model)
         WandB.instance().init(config, project=logger_cfg.get("project", "NSDP"),
                               name=experiment_name, watch=wandb_watch,
@@ -212,12 +255,14 @@ def main(argv) -> Dict[str, List[float]]:
         times["fetch"].append(time.perf_counter() - t0)
         logger.print_progress(epoch + 1, b + 1, loss)
 
-    with open(os.path.join(experiment_directory, "stats.txt"), "w") as stats:
-        logger.add_output_file(stats)
+    stats_path = os.path.join(experiment_directory, "stats.txt")
+    with (open(stats_path, "w") if main_proc else contextlib.nullcontext()) as stats:
+        if stats is not None:
+            logger.add_output_file(stats)
         for epoch in range(args.continue_from_epoch, epochs):
             lr = schedule.get_learning_rate(epoch)
             first = epoch == args.continue_from_epoch
-            with trace_steps(args.profile_dir if first else None):
+            with trace_steps(args.profile_dir if first and main_proc else None):
                 # step b's loss is read after step b + 1 is queued, so the
                 # device never waits for the host (train.py:233-251)
                 pending = None
@@ -236,12 +281,15 @@ def main(argv) -> Dict[str, List[float]]:
                     report(epoch, *pending)
 
             if wandb_watch and pending is not None and epoch % max(1, watch_every) == 0:
-                # the norms on the epoch's last batch (wandb.watch's log_freq)
+                # the norms on the epoch's last batch (wandb.watch's log_freq);
+                # a collective: every rank takes them, rank 0 logs them
                 t0 = time.perf_counter()
-                logger.log_watch(*steps["watch_stats"](batch))
+                norms = steps["watch_stats"](batch)
+                if main_proc:
+                    logger.log_watch(*norms)
                 times["watch"].append(time.perf_counter() - t0)
 
-            if epoch % save_every == 0:
+            if epoch % save_every == 0 and main_proc:
                 t0 = time.perf_counter()
                 checkpointer.save(epoch, model, optimizer, experiment_directory)
                 times["checkpoint"].append(time.perf_counter() - t0)
@@ -251,16 +299,20 @@ def main(argv) -> Dict[str, List[float]]:
                 t0 = time.perf_counter()
                 print("====> Validation Epoch ====>")
                 for b, batch in enumerate(val_loader):
-                    batch, sample_mask = pad_batch(batch, val_batch_size)
+                    batch, sample_mask = pad_batch(batch, val_target)
+                    if n_proc > 1:
+                        batch = local_slice(batch, val_target)
+                        sample_mask = sample_mask[process_batch_slice(val_target)]
                     loss = steps["validate_step_masked"](to_device(batch, device),
                                                          upload(sample_mask, device))
                     logger.print_progress(-1, b + 1, loss)
                 val_loss = logger.loss
                 times["validation"].append(time.perf_counter() - t0)
                 if val_loss < args.best_val_loss:
-                    t0 = time.perf_counter()
-                    checkpointer.save_best(epoch, model, experiment_directory, val_loss)
-                    times["checkpoint"].append(time.perf_counter() - t0)
+                    if main_proc:
+                        t0 = time.perf_counter()
+                        checkpointer.save_best(epoch, model, experiment_directory, val_loss)
+                        times["checkpoint"].append(time.perf_counter() - t0)
                     args.best_val_loss = val_loss
                 logger.clear()
                 print("====> Validation Epoch ====>")

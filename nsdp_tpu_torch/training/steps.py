@@ -1,6 +1,6 @@
-"""Train / validate / predict steps on one device, and the test entry
-points' per-batch evaluation (counterpart of
-``nsdp_tpu/training/steps.py:28-374``; reference
+"""Train / validate / predict steps on one device or data-parallel over
+the ranks of a process group, and the test entry points' per-batch
+evaluation (counterpart of ``nsdp_tpu/training/steps.py:28-374``; reference
 ``model/deformation_networks.py:63-109``, ``model/flow_arbitrary.py:30-85``).
 
 Batch dict contract (the keys the reference datasets emit; numpy arrays or
@@ -23,7 +23,8 @@ import torch
 from torch import nn
 
 from nsdp_tpu_torch import resolve_device
-from nsdp_tpu_torch.nn.blocks import BatchNorm
+from nsdp_tpu_torch.nn.blocks import BatchNorm, bn_sync
+from nsdp_tpu_torch.parallel.dist import all_reduce_flat
 from nsdp_tpu_torch.training.optim import set_learning_rate
 from nsdp_tpu_torch.utils.padding import predict_padded
 
@@ -70,7 +71,7 @@ def _double_bn_update(bns: List[BatchNorm], saved) -> None:
 
 
 def make_steps(model: nn.Module, model_type: str, optimizer: torch.optim.Optimizer,
-               nan_guard: bool = False, device=None) -> Dict[str, Callable]:
+               nan_guard: bool = False, device=None, group=None) -> Dict[str, Callable]:
     """The step functions of a model.
 
     Args:
@@ -84,6 +85,18 @@ def make_steps(model: nn.Module, model_type: str, optimizer: torch.optim.Optimiz
         they were; the loss is still returned.
       device: where batches go (``cuda`` unless told otherwise), in the
         model's dtype.
+      group: a ``torch.distributed`` process group whose ranks each hold
+        their own rows of every batch (the counterpart of ``mesh=``,
+        ``nsdp_tpu/training/steps.py:84-88,134-151,212-243``): the
+        train-mode forward runs under synced BatchNorm
+        (``nn.blocks.bn_sync``), the loss and the gradients are averaged
+        over the ranks in one all-reduce of a flat buffer a step (unreached
+        parameters' zero gradients included, so every rank reduces the same
+        list), ``nan_guard`` decides on the averaged loss, ``validate_step``
+        averages and ``validate_step_masked`` sums (numerator, count) over
+        the ranks.  Every step but ``predict`` is then a collective that
+        every rank must call.  The parameters must start equal on every
+        rank (``parallel.broadcast_module``).  None: this process alone.
 
     Returns:
       ``train_step(batch, lr, fetch=True) -> loss``,
@@ -94,7 +107,9 @@ def make_steps(model: nn.Module, model_type: str, optimizer: torch.optim.Optimiz
       ``predict(points, surface_samples_inputs, point_mask=None) -> tensor``.
       Losses are Python floats, except ``train_step(..., fetch=False)``'s
       without ``nan_guard``: a 0-d tensor on ``device``, so that the host
-      queues the step without waiting for the device.
+      queues the step without waiting for the device.  Under a group every
+      loss is the mean over the whole batch, and ``watch_stats`` reports
+      the averaged gradients.
     """
     device = resolve_device(device)
     arbitrary = model_type == "arbitrary"
@@ -121,9 +136,17 @@ def make_steps(model: nn.Module, model_type: str, optimizer: torch.optim.Optimiz
         """The train-mode loss of ``batch`` (running statistics updated in
         place; the stage-2 encoder's first update only)."""
         model.train()
-        pred = forward(batch["space_samples_src"], batch["surface_samples_inputs"],
-                       batch.get("surface_valid_mask"))
+        with bn_sync(group):
+            pred = forward(batch["space_samples_src"], batch["surface_samples_inputs"],
+                           batch.get("surface_valid_mask"))
         return compute_l2_error(pred, tensor(batch["space_samples_tgt"]))
+
+    def full_grads(grads):
+        """Every parameter's gradient: a parameter the loss does not reach
+        (the interp decoder leaves the encoder's ``fc_middle`` unused)
+        takes a zero gradient, as in the JAX package -- torch's optimizers
+        would skip it, its weight decay and its Adam step count included."""
+        return [torch.zeros_like(p) if g is None else g for p, g in zip(params, grads)]
 
     def train_step(batch: Dict[str, Any], lr: float, fetch: bool = True):
         saved_all = _snapshot(all_bns) if nan_guard else None
@@ -132,6 +155,11 @@ def make_steps(model: nn.Module, model_type: str, optimizer: torch.optim.Optimiz
         loss = train_loss(batch)
         loss.backward()
         loss = loss.detach()
+        grads = full_grads([p.grad for p in params])
+        if group is not None:
+            *grads, loss = all_reduce_flat([*grads, loss], group, average=True)
+        for p, g in zip(params, grads):
+            p.grad = g
         if nan_guard:  # the update depends on the loss: read it now
             value = float(loss)
             if not math.isfinite(value):
@@ -139,13 +167,6 @@ def make_steps(model: nn.Module, model_type: str, optimizer: torch.optim.Optimiz
                 optimizer.zero_grad(set_to_none=True)
                 return value
         _double_bn_update(cano_bns, saved_cano)
-        for p in params:
-            # a parameter the loss does not reach (the interp decoder leaves
-            # the encoder's ``fc_middle`` unused) takes a zero gradient, as
-            # in the JAX package: torch's optimizers would skip it, its
-            # weight decay and its Adam step count included
-            if p.grad is None:
-                p.grad = torch.zeros_like(p)
         set_learning_rate(optimizer, lr)
         optimizer.step()
         if nan_guard:
@@ -158,8 +179,9 @@ def make_steps(model: nn.Module, model_type: str, optimizer: torch.optim.Optimiz
         counterpart of the reference's ``wandb.watch``): ``((top-level
         module -> global L2 norm), per-parameter L2 norms)`` for the
         parameters and for the loss's gradients (no weight decay, no
-        clipping).  The top-level modules are the model's children, as the
-        JAX variables' top-level keys are.  The model is left as it was:
+        clipping; under a group the averaged gradients, and every rank
+        must call it).  The top-level modules are the model's children, as
+        the JAX variables' top-level keys are.  The model is left as it was:
         parameters, running statistics, train/eval mode, ``.grad``; the
         optimizer is not touched."""
         was_training = model.training
@@ -169,7 +191,9 @@ def make_steps(model: nn.Module, model_type: str, optimizer: torch.optim.Optimiz
         finally:
             _restore(all_bns, saved)
             model.train(was_training)
-        grads = [torch.zeros_like(p) if g is None else g for p, g in zip(params, grads)]
+        grads = full_grads(grads)
+        if group is not None:
+            grads = all_reduce_flat(grads, group, average=True)
         with torch.no_grad():
             p_leaves = torch.stack([torch.linalg.vector_norm(p) for p in params])
             g_leaves = torch.stack([torch.linalg.vector_norm(g) for g in grads])
@@ -186,7 +210,10 @@ def make_steps(model: nn.Module, model_type: str, optimizer: torch.optim.Optimiz
         model.eval()
         pred = forward(batch["space_samples_src"], batch["surface_samples_inputs"],
                        batch.get("surface_valid_mask"))
-        return float(compute_l2_error(pred, tensor(batch["space_samples_tgt"])))
+        loss = compute_l2_error(pred, tensor(batch["space_samples_tgt"]))
+        if group is not None:
+            (loss,) = all_reduce_flat([loss], group, average=True)
+        return float(loss)
 
     @torch.no_grad()
     def validate_step_masked(batch: Dict[str, Any], sample_mask) -> float:
@@ -198,7 +225,10 @@ def make_steps(model: nn.Module, model_type: str, optimizer: torch.optim.Optimiz
         delta = pred - tensor(batch["space_samples_tgt"])
         per_sample = torch.mean(0.5 * torch.sum(delta * delta, dim=-1), dim=-1)
         sample_mask = tensor(sample_mask)
-        return float(torch.sum(per_sample * sample_mask) / torch.clamp(sample_mask.sum(), min=1.0))
+        num, den = torch.sum(per_sample * sample_mask), sample_mask.sum()
+        if group is not None:
+            num, den = all_reduce_flat([num, den], group)
+        return float(num / torch.clamp(den, min=1.0))
 
     @torch.no_grad()
     def predict(points, surface_samples_inputs, point_mask: Optional[Any] = None) -> torch.Tensor:

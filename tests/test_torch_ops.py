@@ -107,6 +107,8 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
     assert {REPO / "nsdp_tpu_torch" / f"{m}.py" for m in ("test", "run", "train")} <= set(sources)
     assert {REPO / "nsdp_tpu_torch" / m for m in ("training/async_ckpt.py",
                                                   "utils/profiling.py")} <= set(sources)
+    assert {REPO / "nsdp_tpu_torch" / "parallel" / f"{m}.py"
+            for m in ("__init__", "dist", "multihost")} <= set(sources)
     offenders = [
         f"{p.relative_to(REPO)}: {mod}"
         for p in sources
