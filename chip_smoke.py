@@ -14,9 +14,12 @@ Phases (any failure exits non-zero and prints no result line):
    version at every shape the main path gives it -- fused kNN attention
    (K1) within rtol 1e-4 / atol 1e-5 and bit for bit against the output
    digests of ``K1_DIGESTS`` (below), furthest-point sampling (K3) index
-   for index (also on a 14,497- and a 50,000-point cloud, above the
-   shared-memory variant's size), K4 (kNN) index for index and distance
-   for distance, the row gather (P1/P2) bit for bit -- and timed beside it
+   for index (also on clouds of 14,497, 50,000 and 40,962 points, above
+   the shared-memory variant's size, and 120,000, above the cluster
+   variant's; each row names its variant and cluster size), K4 (kNN)
+   index for index and distance for distance (each row names its warps a
+   query and its passes), the row gather (P1/P2) bit for bit -- and timed
+   beside it
    (CUDA events, median; K4 and the gather, whose calls are shorter than
    their host dispatch, by the device time ``torch.profiler`` records);
    the gather also beside ``torch.gather``, one PyTorch call that computes
@@ -91,7 +94,8 @@ Phases (any failure exits non-zero and prints no result line):
    shipped ``arbitrary.yaml`` (3 pairs) and ``python -m nsdp_tpu_torch.run``
    on ``configs/tosca/head.yaml`` for each mesh, in process: 34 K1 and 8 K3
    launches per pair (two full evaluations), 4 of them by
-   ``fps_global_kernel`` on the 40,962-vertex mesh, the written meshes and
+   ``fps_cluster_kernel`` on the 40,962-vertex mesh (none on 10,242
+   vertices) and none by ``fps_global_kernel``, the written meshes and
    point clouds finite; wall time per pair split into data, test_on_batch,
    metrics and writers; one pair of ``test`` and of ``run`` on 10,242
    vertices against the CPU by halves (phase 4's rule); then K1's begin
@@ -492,15 +496,16 @@ def check_fps(torch, surf, fps_500):
 
     # the path's clouds, then clouds above the shared-memory variant's size
     # (a mesh's vertices: a surface with 1% of its points at the origin),
-    # from their own RandomState so K1's and later phases' inputs stay put
+    # the last above the cluster variant's, from their own RandomState so
+    # K1's and later phases' inputs stay put
     rows = []
     big = np.random.RandomState(1)
-    large = [surface(big, n) for n in (14497, 50000)]
+    large = [surface(big, n) for n in (14497, 50000, 40962, 120000)]
     for cloud in large:
         cloud[big.choice(len(cloud), len(cloud) // 100, replace=False)] = 0.0
     step_ms = fps_step_ms(torch, fps)
     for per_eval, npoint, cloud in ((2, 500, surf), (2, 100, surf[fps_500]),
-                                    (0, 500, large[0]), (0, 500, large[1])):
+                                    *((0, 500, cloud) for cloud in large)):
         rows.append(check_fps_cloud(torch, cloud, npoint, per_eval, step_ms))
     return rows
 
@@ -522,7 +527,8 @@ def check_fps_cloud(torch, cloud, npoint, per_eval, step_ms, what=""):
     flops = float((npoint - 1) * n * 9 + n * 5)
     nbytes = float(n * 12 + npoint * 4)
     latency_ms = (npoint - 1) * step_ms
-    log(f"K3 fps {n}->{npoint}{what}: kernel {ms:.4f} ms  plain {plain_ms:.4f} ms"
+    kind, c = fps.variant(n)
+    log(f"K3 fps {n}->{npoint}{what} ({kind}, C={c}): kernel {ms:.4f} ms  plain {plain_ms:.4f} ms"
         f"  bound {bound(flops, nbytes)[0]:.6f} ms ({bound(flops, nbytes)[1]}),"
         f" latency bound {latency_ms:.4f} ms  indices equal")
     return dict(site=f"{n}->{npoint}{what}", per_eval=per_eval, ms=ms, plain_ms=plain_ms,
@@ -599,9 +605,10 @@ def knn_latency_ms(fixed_ms, round_ms, m, k) -> float:
 def check_knn(torch, rng, surf):
     """K4 against ``knn_plain`` on the card, index for index and distance
     for distance, timed beside it and its latency bound (phase 2)."""
-    from nsdp_tpu_torch.ops.knn import knn, knn_plain
+    from nsdp_tpu_torch.ops.knn import knn, knn_plain, split_warps, two_pass
 
     rows = []
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     fixed_ms, round_ms = knn_round_ms(torch)
     for site in knn_sites():
         name, per_eval, B, nq, m, k, masked, rd = site
@@ -632,7 +639,9 @@ def check_knn(torch, rng, surf):
         rows.append(dict(site=name, per_eval=per_eval, ms=ms, plain_ms=plain_ms, max_abs_err=0.0,
                          flops=flops, bytes=nbytes, bound_latency_ms=latency_ms))
         t_b, by = bound(flops, nbytes)
+        w = split_warps(B, nq, m, sms)
         log(f"K4 {name:<15} B={B:<2} Nq={nq:<5} M={m:<6} k={k:<3} mask={masked:d} dist={rd:d}"
+            f" W={w} {'two passes' if two_pass(m, w) else 'one pass'}"
             f"  device: kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  bound {t_b:.6f} ms ({by}),"
             f" latency bound {latency_ms:.4f} ms; call (events) {wall_ms:.4f} ms;"
             f" indices{' and distances' if rd else ''} equal")
@@ -883,6 +892,7 @@ def reset_counts():
     attention.fused_vector_attention.launches = 0
     attention.fused_vector_attention_backward.launches = 0
     fps.furthest_point_sample.launches = 0
+    fps.furthest_point_sample.cluster_launches = 0
     fps.furthest_point_sample.global_launches = 0
     knn.knn.launches = 0
     gather.gather_rows.launches = 0
@@ -982,9 +992,10 @@ def serve(torch, rng, surf, config, label):
     return svc, launches
 
 
-# the CUDA kernels of one K1 call (csrc/attention.cu)
+# the CUDA kernels of one K1 call (csrc/attention.cu); K3's variants (csrc/fps.cu)
 K1_KERNELS = ("knn_kernel", "attn_kernel", "attn_bcast_kernel", "glob_logits_kernel",
               "weights_in_out_kernel")
+K3_KERNELS = ("fps_kernel", "fps_cluster_kernel", "fps_global_kernel")
 
 
 def busy_us(spans) -> float:
@@ -1020,12 +1031,12 @@ def trace(torch, run, wall_ms, what):
     kinds = {"K1": 0.0, "K2": 0.0, "frags": 0.0, "K3": 0.0, "K4": 0.0, "gather": 0.0,
              "cuBLAS": 0.0, "copies": 0.0, "other": 0.0}
     for e in events:
-        kind = ("K4" if "knn_points_kernel" in e.name
+        kind = ("K4" if "knn_split_kernel" in e.name
                 else "gather" if "gather_rows_kernel" in e.name
                 else "frags" if "weight_frags_kernel" in e.name
                 else "K1" if any(s in e.name for s in K1_KERNELS)
                 else "K2" if "bwd_rows_kernel" in e.name or "wgrad" in e.name
-                else "K3" if "fps_kernel" in e.name or "fps_global_kernel" in e.name
+                else "K3" if any(s in e.name for s in K3_KERNELS)
                 else "cuBLAS" if "gemm" in e.name
                 else "copies" if "Memcpy" in e.name or "Memset" in e.name
                 else "other")
@@ -1551,21 +1562,24 @@ def entry_points(torch, rows, card):
             uh["experiment"]["out_dir"] = os.path.join(root, f"run{n}")
             uh["data"].update(dataset_dir=meshes[n]["dataset_dir"], split_dir=meshes[n]["split_dir"])
             path = write_config(uh, os.path.join(root, f"run{n}.yaml"))
-            before, global_before = counts(), fps.furthest_point_sample.global_launches
+            f = fps.furthest_point_sample
+            before, variants_before = counts(), (f.cluster_launches, f.global_launches)
             t0 = time.perf_counter()
             times = port_run.main([path, *argv])
             wall = time.perf_counter() - t0
             expect_launches(before, PAIR_LAUNCHES, f"run on {n} vertices")
-            n_global = fps.furthest_point_sample.global_launches - global_before
-            want_global = 4 if n > fps.SMEM_POINTS else 0  # 2 encoders x 2 evaluations
-            if n_global != want_global:
-                fail(f"run on {n} vertices: {n_global} launches of fps_global_kernel, expected"
-                     f" {want_global}")
+            n_cluster, n_global = (f.cluster_launches - variants_before[0],
+                                   f.global_launches - variants_before[1])
+            want = (4 if n > fps.SMEM_POINTS else 0, 0)  # 2 encoders x 2 evaluations
+            if (n_cluster, n_global) != want:
+                fail(f"run on {n} vertices: {n_cluster} launches of fps_cluster_kernel and"
+                     f" {n_global} of fps_global_kernel, expected {want[0]} and {want[1]}")
             read_outputs(os.path.join(uh["experiment"]["out_dir"], uh["experiment"]["name"],
                                       define_userhandle_folder_name(uh), "meshes"),
                          (n, 3), 1, f"run mesh ({n} vertices)")
-            report_entry(f"run, tosca head.yaml on {n} vertices ({n_global} of the 8 FPS launches"
-                         f" by fps_global_kernel)", times, wall, card)
+            kind, c = fps.variant(n)
+            report_entry(f"run, tosca head.yaml on {n} vertices ({n_cluster} of the 8 FPS launches"
+                         f" by fps_cluster_kernel; FPS variant {kind}, C={c})", times, wall, card)
         # ---- end of the main path (its launches checked run by run)
 
         check_pair_reference(torch, model, cfg, first_pair(cfg), "test pair (40962 vertices)")

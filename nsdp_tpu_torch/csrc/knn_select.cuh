@@ -1,5 +1,6 @@
-// Exact k-nearest-neighbour selection, shared by the fused attention's
-// selection kernel (attention.cu, K1) and the standalone kNN (knn.cu, K4).
+// Exact k-nearest-neighbour selection of the fused attention's selection
+// kernel (attention.cu, K1).  Its order, knn_less, is also the standalone
+// kNN's (knn.cu, K4), which splits a query's cloud over several warps.
 //
 // For a query q and kv points p_j (j ascending):
 //   d2_j = penalty_j + (q_x - p_x)^2 + (q_y - p_y)^2 + (q_z - p_z)^2,

@@ -8,10 +8,13 @@ the finite penalty of :func:`mask_penalty`; k > M raises.  The squared
 distances returned with ``return_dist`` include the penalty, as the TPU
 kernel returns them.
 
-The kernel (``csrc/knn.cu``, K4) replaces the TPU kernel ``_knn_kernel``; it
-shares its selection with K1's (``csrc/knn_select.cuh``), and the same
-selection is the neighbourhood of the fused attention's plain version
-(``ops/attention.py``), so one function, :func:`select`, defines it.
+The kernel (``csrc/knn.cu``, K4) replaces the TPU kernel ``_knn_kernel``:
+:func:`split_warps` chooses how many warps share one query's cloud, each
+selecting among a part of it, and :func:`two_pass` whether a first pass
+bounds the k-th nearest distance before the lists are fed; the parts'
+lists merge by (d2, index).  The same selection is the neighbourhood of the
+fused attention's plain version (``ops/attention.py``), so one function,
+:func:`select`, defines it.
 """
 
 import ctypes
@@ -22,8 +25,39 @@ import torch
 from nsdp_tpu_torch.ops import _build
 
 KMAX = 32  # largest k the kernel takes
-_SIGNATURES = {"nsdp_knn": (ctypes.c_int, [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4
+MAX_SPLIT = 8  # warps of a block, the most that share one query's cloud
+SPLIT_BELOW = 4  # queries an SM below which a query's cloud is split
+PART_POINTS = 64  # the fewest points a part keeps: 2 a lane
+RESIDENT_WARPS = 8  # warps an SM takes before more parts stop paying (H100)
+TWO_PASS_POINTS = 32  # points a lane from which the bound pass pays
+_SIGNATURES = {"nsdp_knn": (ctypes.c_int, [ctypes.c_void_p] * 3 + [ctypes.c_int] * 6
                             + [ctypes.c_void_p] * 2 + [ctypes.c_int, ctypes.c_void_p])}
+
+
+def split_warps(B: int, Nq: int, M: int, sms: int = 132) -> int:
+    """Warps that share one query's cloud (1, 2, 4 or 8): 1 where the B *
+    Nq queries number ``SPLIT_BELOW`` an SM of the card's ``sms`` or more;
+    else the most that leave every part at least ``PART_POINTS`` points and
+    the queries' warps within ``RESIDENT_WARPS`` an SM.  On an H100 (132
+    SMs): 1 at the 32-point probe and at every B = 8 site, 2 at the set
+    abstraction's 500 x 5000 and 4 at its 100 x 500 at B = 1 (the fastest
+    W at each site measured)."""
+    if B * Nq >= SPLIT_BELOW * sms:
+        return 1
+    w = 1
+    while (2 * w <= MAX_SPLIT and 2 * w * PART_POINTS <= M
+           and B * Nq * 2 * w <= sms * RESIDENT_WARPS):
+        w *= 2
+    return w
+
+
+def two_pass(M: int, w: int) -> bool:
+    """Whether K4 first bounds the k-th nearest distance, so that its
+    second pass feeds its candidate lists only with points below the
+    bound: where each lane of the w warps scans ``TWO_PASS_POINTS`` or
+    more of the M points (a shorter scan costs more than the insertions it
+    saves)."""
+    return M >= 32 * w * TWO_PASS_POINTS
 
 
 def mask_penalty(kv_mask: torch.Tensor) -> torch.Tensor:
@@ -83,7 +117,9 @@ def knn_plain(query: torch.Tensor, points: torch.Tensor, k: int, return_dist: bo
     return (idx, d2) if return_dist else idx
 
 
-def _launch(query, points, k, return_dist, kv_mask):
+def _launch(query, points, k, return_dist, kv_mask, warps=None):
+    """K4 on the card; ``warps`` overrides :func:`split_warps` (the tests'
+    parts of fewer than k points)."""
     for name, t in (("query", query), ("points", points), ("kv_mask", kv_mask)):
         if t is None:
             continue
@@ -106,12 +142,15 @@ def _launch(query, points, k, return_dist, kv_mask):
     if Nq > 0:
         query, points = query.contiguous(), points.contiguous()
         penalty = None if kv_mask is None else mask_penalty(kv_mask).contiguous()
+        sms = torch.cuda.get_device_properties(query.device).multi_processor_count
+        w = split_warps(B, Nq, M, sms) if warps is None else warps
         lib = _build.load("knn", _SIGNATURES)
         err = lib.nsdp_knn(query.data_ptr(), points.data_ptr(),
-                           None if penalty is None else penalty.data_ptr(), B, Nq, M, k,
-                           idx.data_ptr(), None if dist is None else dist.data_ptr(),
+                           None if penalty is None else penalty.data_ptr(), B, Nq, M, k, w,
+                           int(two_pass(M, w)), idx.data_ptr(),
+                           None if dist is None else dist.data_ptr(),
                            query.device.index or 0, _build.stream_of(query))
-        _build.check(lib, err, f"knn kernel (B={B}, Nq={Nq}, M={M}, k={k})")
+        _build.check(lib, err, f"knn kernel (B={B}, Nq={Nq}, M={M}, k={k}, W={w})")
         knn.launches += 1
     return (idx, dist) if return_dist else idx
 
@@ -131,7 +170,8 @@ def knn(query: torch.Tensor, points: torch.Tensor, k: int, return_dist: bool = F
       (B, Nq, k) int32 indices, ordered by increasing distance (and the
       squared distances with ``return_dist``).  A CPU input runs
       :func:`knn_plain`; a CUDA input launches the kernel of
-      ``csrc/knn.cu`` (counted in ``knn.launches``) or raises.  No
+      ``csrc/knn.cu`` with :func:`split_warps` warps a query and
+      :func:`two_pass` (counted in ``knn.launches``) or raises.  No
       gradient flows through a selection.
     """
     if query.device.type == "cpu":

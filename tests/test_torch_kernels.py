@@ -135,22 +135,52 @@ def test_fps_kernel_matches_plain(case, cuda, rng):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("n", [14496, 14497, 50000, 60000])
+@pytest.mark.parametrize("n", [14496, 14497, 40962, port_fps.CLUSTER_POINTS,
+                               port_fps.CLUSTER_POINTS + 1, 50000, 60000])
 def test_fps_kernel_takes_any_cloud_size(n, cuda, rng):
-    """Both sides of the shared-memory variant's size (14,496 points) and
-    clouds of 50,000 and 60,000 points, one launch each: a cloud with points
-    at the origin and an all-invalid one (|p|^2 <= 1e-3 everywhere), index
-    for index."""
+    """Both sides of the shared-memory variant's size (14,496 points), a
+    40,962-vertex mesh's size, both sides of the cluster variant's
+    capacity, and clouds of 50,000 and 60,000 points, one launch each of
+    the variant ``variant`` names (B = 2): a cloud with points at the origin
+    and an all-invalid one (|p|^2 <= 1e-3 everywhere), index for index."""
     xyz = rng.randn(2, n, 3).astype(np.float32)
     xyz[0, 7:n:5] = 0.0
     xyz[1] = 1e-2
     x = torch.from_numpy(xyz).to(cuda)
-    before = port_fps.furthest_point_sample.launches
-    got = port_fps.furthest_point_sample(x, 500)
+    f = port_fps.furthest_point_sample
+    kind = port_fps.variant(n)[0]
+    before = (f.launches, f.cluster_launches, f.global_launches)
+    got = f(x, 500)
     torch.cuda.synchronize()
-    assert port_fps.furthest_point_sample.launches == before + 1
+    assert (f.launches, f.cluster_launches, f.global_launches) == (
+        before[0] + 1, before[1] + (kind == "cluster"), before[2] + (kind == "global"))
     assert torch.equal(got, port_fps.furthest_point_sample_plain(x, 500))
     assert not got[1].any()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", [14497, 40000, 60000])
+def test_fps_cluster_ties_go_to_the_lowest_index(n, cuda, rng):
+    """Ties between the blocks of a cluster: a cloud of two exact copies of
+    one half (each pick ties with its copy, which lies in another block),
+    and one far point copied on both sides of every range boundary; the
+    lowest index wins, as in the plain version."""
+    kind, c = port_fps.variant(n)
+    assert kind == "cluster"
+    half = rng.randn(1, n // 2, 3).astype(np.float32)
+    tiled = np.concatenate([half, half, half[:, : n - 2 * (n // 2)]], 1)
+    bounds = rng.randn(1, n, 3).astype(np.float32)
+    per = -(-n // c)
+    for r in range(1, c):
+        bounds[0, r * per - 1] = bounds[0, r * per] = np.float32([40.0 + r, -30.0, 20.0 * r])
+    x = torch.from_numpy(np.concatenate([tiled, bounds])).to(cuda)
+    got = port_fps.furthest_point_sample(x, 500)
+    torch.cuda.synchronize()
+    assert torch.equal(got, port_fps.furthest_point_sample_plain(x, 500))
+    assert (got[0] < n // 2).all()
+    picked = set(got[1].tolist())
+    for r in range(1, c):  # the lower copy of each boundary pair, never the upper
+        assert r * per - 1 in picked and r * per not in picked
 
 
 @pytest.mark.gpu
@@ -338,6 +368,47 @@ def test_knn_kernel_ties_go_to_the_lowest_index(cuda, rng):
     assert torch.equal(got, port_knn.knn_plain(x, x, 16))
     assert torch.equal(got[0, :50, :3], torch.arange(50, device=cuda)[:, None] + torch.tensor(
         [0, 50, 100], device=cuda, dtype=torch.int32))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["tiled", "k32", "masked_part"])
+def test_knn_kernel_split_over_warps(case, cuda, rng):
+    """K4 with several warps a query (500 queries of a 5000-point cloud,
+    as at the set abstraction's first level), bit for bit: a cloud of 100
+    tiled copies of 50 points, whose ties cross every part; k = 32; a mask
+    over every point of part 0."""
+    w = port_knn.split_warps(1, 500, 5000, torch.cuda.get_device_properties(0).multi_processor_count)
+    assert w > 1
+    kv = rng.randn(1, 5000, 3).astype(np.float32)
+    if case == "tiled":
+        kv = np.tile(kv[:, :50], (1, 100, 1))
+    q = np.concatenate([kv[:, :250], rng.randn(1, 250, 3).astype(np.float32)], 1)
+    mask = None
+    if case == "masked_part":
+        mask = ((np.arange(5000) // 32) % w != 0).astype(np.float32)[None]
+    k = 32 if case in ("tiled", "k32") else 16
+    t = lambda a: None if a is None else torch.from_numpy(np.ascontiguousarray(a)).to(cuda)
+    idx, d2 = port_knn.knn(t(q), t(kv), k, return_dist=True, kv_mask=t(mask))
+    torch.cuda.synchronize()
+    ref_idx, ref_d2 = port_knn.knn_plain(t(q), t(kv), k, return_dist=True, kv_mask=t(mask))
+    assert torch.equal(idx, ref_idx) and torch.equal(d2, ref_d2)
+    if case == "tiled":
+        assert torch.equal(idx[0, :50], torch.arange(50, device=cuda)[:, None].int()
+                           + 50 * torch.arange(32, device=cuda).int())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("w", [2, 4, 8])
+def test_knn_kernel_parts_of_fewer_than_k_points(w, cuda, rng):
+    """W forced past the wrapper's choice on a 40-point cloud: part 1 holds
+    8 points and the others none or 32, fewer than k = 16 in all but part
+    0; their padding never wins, bit for bit against the plain version."""
+    q = torch.from_numpy(rng.randn(2, 30, 3).astype(np.float32)).to(cuda)
+    kv = torch.from_numpy(rng.randn(2, 40, 3).astype(np.float32)).to(cuda)
+    idx, d2 = port_knn._launch(q, kv, 16, True, None, warps=w)
+    torch.cuda.synchronize()
+    ref_idx, ref_d2 = port_knn.knn_plain(q, kv, 16, return_dist=True)
+    assert torch.equal(idx, ref_idx) and torch.equal(d2, ref_d2)
 
 
 @pytest.mark.gpu
