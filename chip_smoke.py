@@ -24,7 +24,12 @@ Phases (any failure exits non-zero and prints no result line):
    their host dispatch, by the device time ``torch.profiler`` records);
    the gather also beside ``torch.gather``, one PyTorch call that computes
    it (the port never calls it); K1's device time split by CUDA kernel
-   (``torch.profiler``); K3's latency bound, its dependent steps at the
+   (``torch.profiler``); K1's narrow-operand mode (``compute_dtype``) on
+   the same arguments at every site in bfloat16, and at ``decoder_surface``
+   in float16: its relative L2 gap to its plain version at most
+   ``K1_NARROW_SHARE`` (1/4) of the plain version's gap to the plain float32
+   version, timed beside it with the float32 mode's bound; K3's
+   latency bound, its dependent steps at the
    measured cost of one step of a 1024-point cloud; K4's latency bound at
    each site, the function's dependent chain: its k warp arg-min rounds
    and a fan-in-32 reduction of the M points spread one a lane over warps
@@ -98,7 +103,10 @@ Phases (any failure exits non-zero and prints no result line):
    vertices) and none by ``fps_global_kernel``, the written meshes and
    point clouds finite; wall time per pair split into data, test_on_batch,
    metrics and writers; one pair of ``test`` and of ``run`` on 10,242
-   vertices against the CPU by halves (phase 4's rule); then K1's begin
+   vertices against the CPU by halves (phase 4's rule); ``test`` once more
+   from the same weights written in the JAX package's model file layout
+   (flax msgpack, ``write_flax_model_file``): its meshes and point clouds
+   byte for byte the first run's; then K1's begin
    blocks and first set abstraction at M = 40,962 and K3 on the mesh and on
    its canonicalised surface (40,962 -> 500) against their plain versions;
 6. the training entry point: ``python -m nsdp_tpu_torch.train``, in
@@ -141,12 +149,38 @@ Phases (any failure exits non-zero and prints no result line):
    ``main`` runs: the files written once, by rank 0, ``stats.txt`` holding
    rank 0's progress lines, both ranks printing the same losses; each
    rank's step interval and peak memory (two ranks sharing one card: not a
-   scaling figure).
+   scaling figure);
+8. ``model.compute_dtype: bfloat16`` and ``model.remat``: (a) the shipped
+   ``forward`` (B = 16) and ``arbitrary`` (B = 8) configs with
+   ``compute_dtype: bfloat16`` trained as phase 3b trains them (its launches,
+   finite losses, parameters moved and still float32), step time and peak
+   memory beside phase 3b's float32 ones; (b) 40 stage-1 Adam steps at
+   B = 8 on one batch from one seeded init in float32 and in bfloat16
+   (``scripts/check_precision_convergence.py``'s run), both trajectories
+   printed, the bfloat16 one finite and ending below its start; (c) one
+   stage-2 step (B = 8) with ``remat: true`` against two without from the
+   same state: the loss and every BatchNorm buffer bit for bit, every
+   gradient and parameter bit for bit or, where K2's float64 atomics
+   reorder, within phase 4b's rule of the first step without remat (4 times
+   the two steps' own gap, floor 1e-4); 34 / 17 / 8 K1 / K2 / K3 launches a
+   step under remat (each encoder and decoder forward runs again in the
+   backward); step time and peak memory of both; (d) one evaluation of the
+   shipped model at Q = 65,536 through ``FlowArbitrary.predict(
+   compute_dtype=torch.bfloat16)``: 17 K1 launches, all in the narrow mode
+   (``fused_vector_attention.narrow_launches``), each held against the plain
+   narrow version on the CPU on the arguments it got (phase 2's rule); its
+   relative L2 gap to the float32 evaluation printed and taken apart (each
+   half on the same inputs, the float32 deform moved by the narrow
+   canonical pose, the deforming encoder's FPS picks that differ).
 
 The second-to-last lines are the card (``nvidia-smi``) and a ``kernels``
 JSON object (K1's and K2's entries also carry ``bound_tc_ms``, their bound
 were their D x D products all on the tensor cores in 3xTF32; K3's and
-K4's ``bound_latency_ms``); the last line is ``{"ok": true, "device": {...}}``.
+K4's ``bound_latency_ms``; K1's ``bf16``, its narrow mode's entry per
+evaluation with phase 8d's launches, bounded with its D x D products on the
+bf16 tensor cores (``bound_narrow``; ``bound_f32_ops_ms``: the float32
+mode's bound), and ``f16_decoder_surface``); the
+last line is ``{"ok": true, "device": {...}}``.
 
 K1's digests: ``K1_DIGESTS`` holds the SHA-256 of K1's output bytes at each
 phase-2 site, recorded from the kernel as it was before the decoder's
@@ -173,12 +207,17 @@ import numpy as np
 REPO = os.path.dirname(os.path.abspath(__file__))
 CONFIG = os.path.join(REPO, "configs", "deform4d", "arbitrary.yaml")
 # H100 SXM data sheet: f32 outside the tensor cores, HBM3 rate (700 W part);
-# 3xTF32 on the tensor cores: three TF32 products (495 TFLOP/s dense) per one
+# 3xTF32 on the tensor cores: three TF32 products (495 TFLOP/s dense) per one;
+# bf16 and f16 operands on the tensor cores, f32 accumulation (dense)
 PEAK_F32_FLOPS = 67e12
 PEAK_BYTES = 3.35e12
 PEAK_3XTF32_FLOPS = 495e12 / 3
+PEAK_BF16_FLOPS = 989e12
 K1_TOL = dict(rtol=1e-4, atol=1e-5)
 E2E_TOL = dict(rtol=1e-3, atol=2e-4)
+# K1's narrow mode against its plain version: the relative L2 gap at most
+# this share of the plain narrow version's gap to the plain float32 one
+K1_NARROW_SHARE = 0.25
 
 
 def fail(msg: str) -> None:
@@ -268,6 +307,18 @@ def bound_tc(row) -> float:
     mm = row["mm_flops"]
     t_ops = (mm / PEAK_3XTF32_FLOPS + (row["flops"] - mm) / PEAK_F32_FLOPS) * 1e3
     return max(t_ops, row["bytes"] / PEAK_BYTES * 1e3)
+
+
+def bound_narrow(row):
+    """(least time in ms, what bounds it) of K1's narrow mode at a site:
+    its D x D products (``mm_flops``) on the tensor cores with bf16/f16
+    operands (989 TFLOP/s), the rest of its operations in f32 (67 TFLOP/s,
+    the 3-wide first ``fc_delta`` layer among them); its bytes
+    (``k1_narrow_bytes``)."""
+    mm = row["mm_flops"]
+    t_ops = (mm / PEAK_BF16_FLOPS + (row["flops"] - mm) / PEAK_F32_FLOPS) * 1e3
+    t_bytes = row["bytes"] / PEAK_BYTES * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
 def surface(rng, n: int) -> np.ndarray:
@@ -434,6 +485,15 @@ def k1_work(site):
     return float(nq * per_query + (4 * d * d + 4 * d if glob else 0)), float(4 * floats)
 
 
+def k1_narrow_bytes(site):
+    """The bytes of ``k1_work`` with the operands the narrow mode rounds
+    before the launch read at 2 bytes: the MLP weights (3 x D and three
+    D x D) and V."""
+    _, _, nq, m, k, d, mode, masked = site
+    rounded = 3 * d + 3 * d * d + (m * d if mode != "pos_only" else 0)
+    return k1_work(site)[1] - 2.0 * rounded
+
+
 def check_kernels(torch, rng, surf):
     from nsdp_tpu_torch.ops import fps
 
@@ -442,9 +502,15 @@ def check_kernels(torch, rng, surf):
     fps_100 = fps.furthest_point_sample(
         torch.as_tensor(surf[fps_500][None], device="cuda"), 100)[0].cpu().numpy()
 
-    rows = {"fps": (fps_500, fps_100)}
-    rows["k1"] = [check_k1_site(torch, k1_inputs(torch, rng, surf, fps_500, fps_100, site), site)
-                  for site in k1_sites()]
+    rows = {"fps": (fps_500, fps_100), "k1": [], "k1_bf16": [], "k1_f16": []}
+    for site in k1_sites():
+        a = k1_inputs(torch, rng, surf, fps_500, fps_100, site)
+        rows["k1"].append(check_k1_site(torch, a, site))
+        # the narrow-operand mode on the same arguments (no draw of its own)
+        rows["k1_bf16"].append(check_k1_narrow(torch, a, site, torch.bfloat16))
+        if site[0] == "decoder_surface":
+            rows["k1_f16"].append(check_k1_narrow(torch, a, site, torch.float16))
+        del a
     rows["k3"] = check_fps(torch, surf, fps_500)
     return rows
 
@@ -486,6 +552,49 @@ def check_k1_site(torch, a, site, digest=True):
         f"  max_abs_err {err:.3g}")
     log(f"   device by kernel (ms): {format_split(split)}; output sha256 {sha}"
         f" ({'recorded' if digest else 'not recorded'})")
+    return row
+
+
+def check_k1_narrow(torch, a, site, dtype):
+    """K1's narrow-operand mode (``compute_dtype``) at ``site`` on phase 2's
+    arguments ``a``: its relative L2 gap to the plain narrow version on the
+    card at most ``K1_NARROW_SHARE`` of that version's gap to the plain
+    float32 version; timed beside it -> the site's row (the float32 mode's
+    operations, bounded by ``bound_narrow``; ``bound_f32_ops_ms``: the float32
+    mode's bound on the same work, for reference)."""
+    from nsdp_tpu_torch.ops import attention
+
+    kw = {key: a[key] for key in ("k_glob", "v_glob", "kv_mask") if key in a}
+    pos = (a["xyz_q"], a["kv_xyz"], a["q_feats"], a["K_a"], a["V_a"], *a["weights"])
+    penalty = attention.mask_penalty(a["kv_mask"]) if "kv_mask" in a else None
+    run = lambda: attention.fused_vector_attention(*pos, k=a["k"], compute_dtype=dtype, **kw)
+    plain = lambda cd: attention.fused_vector_attention_plain(
+        *pos, a["k"], a.get("k_glob"), a.get("v_glob"), penalty, compute_dtype=cd)
+    with torch.inference_mode():
+        before = attention.fused_vector_attention.narrow_launches
+        got = run()
+        if attention.fused_vector_attention.narrow_launches != before + 1:
+            fail(f"K1 {dtype} at {site[0]}: the narrow mode's kernel was not launched")
+        ref, ref_f32 = plain(dtype), plain(None)
+        gap, err = rel_err(ref, ref_f32), rel_err(got, ref)
+        max_err = float((got - ref).abs().max())
+        if not (gap > 0 and err <= K1_NARROW_SHARE * gap):
+            fail(f"K1 {dtype} at {site[0]}: relative L2 gap {err:.3g} to its plain version,"
+                 f" beyond {K1_NARROW_SHARE} x the plain version's gap {gap:.3g} to float32")
+        del got, ref, ref_f32
+        ms = time_ms(torch, run, 5)
+        plain_ms = time_ms(torch, lambda: plain(dtype), 3)
+    flops, f32_bytes = k1_work(site)
+    row = dict(site=site[0], per_eval=site[1], ms=ms, plain_ms=plain_ms, max_abs_err=max_err,
+               rel_l2=err, gap=gap, flops=flops, bytes=k1_narrow_bytes(site),
+               mm_flops=k1_mm_flops(site), narrow=True,
+               bound_f32_ops_ms=bound(flops, f32_bytes)[0])
+    name = str(dtype).replace("torch.", "")
+    log(f"K1 {name} {site[0]:<26} kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  bound"
+        f" {bound_narrow(row)[0]:.4f} ms ({bound_narrow(row)[1]}; float32's"
+        f" {row['bound_f32_ops_ms']:.4f} ms); relative L2 gap to its plain version {err:.3g}"
+        f" ({err / gap:.3f} of the plain version's {gap:.3g} to float32), max_abs_err"
+        f" {max_err:.3g}")
     return row
 
 
@@ -701,11 +810,16 @@ def kernel_entry(name, source, replaces, rows, launches):
     """One kernel's entry of the ``kernels`` line: times and bounds summed
     over the launches of one pass of its path (a full evaluation for K1 and
     K3, a stage-2 train step for K2, a full evaluation of configuration A
-    for K4 and the row gather)."""
+    for K4 and the row gather).  K1's narrow-mode rows are bounded by
+    ``bound_narrow``, with the float32 mode's bound beside it."""
     per_pass = lambda key: sum(r[key] * r["per_eval"] for r in rows)
-    t_ops = per_pass("flops") / PEAK_F32_FLOPS * 1e3
+    narrow = rows[0].get("narrow", False)
+    site_bound = bound_narrow if narrow else lambda r: bound(r["flops"], r["bytes"])
+    op_ms = lambda r: (bound_narrow(dict(r, bytes=0.0))[0] if narrow
+                       else r["flops"] / PEAK_F32_FLOPS * 1e3)
+    t_ops = sum(op_ms(r) * r["per_eval"] for r in rows)
     t_bytes = per_pass("bytes") / PEAK_BYTES * 1e3
-    bound_ms = sum(bound(r["flops"], r["bytes"])[0] * r["per_eval"] for r in rows)
+    bound_ms = sum(site_bound(r)[0] * r["per_eval"] for r in rows)
     entry = {
         "name": name, "route": "cuda", "source": source, "replaces": replaces,
         "launches": launches, "max_abs_err": max(r["max_abs_err"] for r in rows),
@@ -713,7 +827,9 @@ def kernel_entry(name, source, replaces, rows, launches):
         "bound_by": "operations" if t_ops >= t_bytes else "bytes",
         "library_ms": per_pass("library_ms") if "library_ms" in rows[0] else None,
     }
-    if "mm_flops" in rows[0]:  # K1, K2: the bound with the products on the tensor cores
+    if narrow:
+        entry["bound_f32_ops_ms"] = per_pass("bound_f32_ops_ms")
+    elif "mm_flops" in rows[0]:  # K1, K2: the bound with the products on the tensor cores
         entry["bound_tc_ms"] = sum(bound_tc(r) * r["per_eval"] for r in rows)
     if "bound_latency_ms" in rows[0]:  # K3, K4: their dependent steps at their measured cost
         entry["bound_latency_ms"] = per_pass("bound_latency_ms")
@@ -890,6 +1006,7 @@ def reset_counts():
     from nsdp_tpu_torch.ops import attention, fps, gather, knn
 
     attention.fused_vector_attention.launches = 0
+    attention.fused_vector_attention.narrow_launches = 0
     attention.fused_vector_attention_backward.launches = 0
     fps.furthest_point_sample.launches = 0
     fps.furthest_point_sample.cluster_launches = 0
@@ -1124,13 +1241,16 @@ def check_resume(torch, rng, model, opt, steps, B, lr, cfg):
 
 
 def train(torch, rng, runs):
-    """Full-width training steps on the card (phases 3b and 3d) -> per-run
-    stats and the launches of the whole phase.  The stage-2 runs and B are
-    also traced; the shipped stage-2 run is resumed from a checkpoint."""
+    """Full-width training steps on the card (phases 3b, 3d and 8a) -> per-run
+    stats and the launches of the whole phase.  A run is (label, model type,
+    configuration: None for the shipped one, an ablation's name or a config
+    dict); its launches are those of the label's first word.  The stage-2
+    runs and B are also traced; the shipped stage-2 run is resumed from a
+    checkpoint."""
     stats = {}
     reset_counts()  # ---- the main path of training
     for label, model_type, ablation in runs:
-        cfg = None if ablation is None else ablation_config(ablation)
+        cfg = ablation_config(ablation) if isinstance(ablation, str) else ablation
         cfg, model, schedule, opt, steps = train_setup(torch, model_type, seed=0, cfg=cfg)
         B = cfg["training"]["batch_size"]
         lr = schedule.get_learning_rate(0)
@@ -1150,7 +1270,7 @@ def train(torch, rng, runs):
             losses.append(steps["train_step"](batch, lr))
             torch.cuda.synchronize()
             step_ms.append((time.perf_counter() - t0) * 1e3)
-            expect_launches(before, TRAIN_LAUNCHES[label], f"{label} train step")
+            expect_launches(before, TRAIN_LAUNCHES[label.split()[0]], f"{label} train step")
         peak_gb = torch.cuda.max_memory_allocated() / 1e9
         if not np.isfinite(losses).all():
             fail(f"{label}: non-finite training loss {losses}")
@@ -1158,6 +1278,8 @@ def train(torch, rng, runs):
                     for p, q in zip(model.parameters(), before_params))
         if not moved > 0:
             fail(f"{label}: the parameters did not move")
+        if any(p.dtype != torch.float32 for p in model.parameters()):
+            fail(f"{label}: a parameter is no longer float32")
         med = float(np.median(step_ms))
         stats[label] = dict(B=B, step_ms=med, peak_gb=peak_gb, losses=losses)
         log(f"train {label:<9} B={B:<3} step {med:.2f} ms (median of {TRAIN_STEPS},"
@@ -1414,6 +1536,67 @@ def seeded_weight_file(torch, cfg, directory):
     return os.path.join(directory, "model_00000"), model
 
 
+def msgpack_bytes(obj) -> bytes:
+    """msgpack of maps with string keys, lists, ints, bytes and numpy
+    arrays, these as flax's ndarray extension (type 1: the msgpack of
+    ``(shape, dtype name, C-order bytes)``) -- the layout of the JAX
+    package's model files, written here without ``msgpack`` or ``flax``."""
+    import struct
+
+    if isinstance(obj, dict):
+        head = b"\xdf" + struct.pack(">I", len(obj))
+        return head + b"".join(msgpack_bytes(k) + msgpack_bytes(v) for k, v in obj.items())
+    if isinstance(obj, (list, tuple)):
+        return b"\xdd" + struct.pack(">I", len(obj)) + b"".join(map(msgpack_bytes, obj))
+    if isinstance(obj, str):
+        return b"\xdb" + struct.pack(">I", len(obj.encode())) + obj.encode()
+    if isinstance(obj, int):
+        return b"\xd3" + struct.pack(">q", obj)
+    if isinstance(obj, bytes):
+        return b"\xc6" + struct.pack(">I", len(obj)) + obj
+    payload = msgpack_bytes([list(obj.shape), obj.dtype.name, np.ascontiguousarray(obj).tobytes()])
+    return b"\xc9" + struct.pack(">Ib", len(payload), 1) + payload
+
+
+def write_flax_model_file(state, path):
+    """A model's ``state_dict`` as the JAX package's model file: flax
+    msgpack of ``{"params", "batch_stats"}`` under the JAX module names --
+    the inverse of ``utils/convert.py::from_jax_variables``' key rules."""
+    from nsdp_tpu_torch.utils.convert import _MODULE_LISTS, _SEQ_INDEX, _SEQ_MLPS
+
+    seq = {v: k for k, v in _SEQ_INDEX.items()}
+    bns = {k.rsplit(".", 1)[0] for k in state if k.endswith(".running_mean")}
+    leaves = {"weight": "scale", "bias": "bias", "running_mean": "mean", "running_var": "var"}
+    tree = {"params": {}, "batch_stats": {}}
+    for key, value in state.items():
+        *mods, leaf = key.split(".")
+        if leaf == "num_batches_tracked":
+            continue
+        names = []
+        for i, tok in enumerate(mods):
+            if tok.isdigit() and mods[i - 1] in _MODULE_LISTS:
+                names[-1] = f"{names[-1]}_{tok}"
+            elif tok in seq and mods[i - 1] in _SEQ_MLPS:
+                names.append(seq[tok])
+            else:
+                names.append(tok)
+        value = value.detach().cpu().numpy()
+        if ".".join(mods) in bns:
+            col = "batch_stats" if leaf.startswith("running") else "params"
+            names += ["bn", leaves[leaf]]
+        else:
+            col = "params"
+            names.append("kernel" if leaf == "weight" else "bias")
+            value = value.T if leaf == "weight" else value
+        node = tree[col]
+        for tok in names[:-1]:
+            node = node.setdefault(tok, {})
+        node[names[-1]] = value
+    with open(path, "wb") as f:
+        f.write(msgpack_bytes(tree))
+    return path
+
+
 def first_pair(cfg):
     """The first pair of ``cfg``'s test split as a batch of 1, the global
     ``np.random`` seeded."""
@@ -1504,6 +1687,43 @@ def report_entry(what, times, wall, card):
         f" by batch {by_batch} ms ({card})")
 
 
+def jax_file_test(torch, port_test, cfg, model, root, argv, data_stream, out):
+    """``test`` once more, on the same weights in the JAX package's model
+    file layout (``write_flax_model_file``), from the same data stream: its
+    meshes and point clouds byte for byte those of the torch-format run
+    written to ``out``."""
+    from nsdp_tpu_torch.training import read_state_dict
+
+    jax_file = write_flax_model_file(model.state_dict(), os.path.join(root, "jax_model_00000"))
+    read = read_state_dict(jax_file)
+    for key, value in model.state_dict().items():
+        if not torch.equal(read[key], value.cpu()):
+            fail(f"the JAX-layout model file reads {key} back otherwise")
+    cfg = dict(cfg, test=dict(cfg["test"], weight_file=jax_file),
+               experiment=dict(cfg["experiment"], out_dir=os.path.join(root, "test_jax_file")))
+    np.random.set_state(data_stream)
+    port_test.main([write_config(cfg, os.path.join(root, "test_jax_file.yaml")), *argv])
+    other = os.path.join(cfg["experiment"]["out_dir"], cfg["experiment"]["name"],
+                         cfg["test"]["motion_split"])
+    def files(root):
+        return sorted(os.path.relpath(os.path.join(d, f), root)
+                      for d, _, names in os.walk(root) for f in names)
+
+    compared = 0
+    for folder in ("meshes", "pointclouds"):
+        names = files(os.path.join(out, folder))
+        if not names or names != files(os.path.join(other, folder)):
+            fail(f"test from the JAX-layout model file wrote other {folder}")
+        for name in names:
+            with open(os.path.join(out, folder, name), "rb") as a, \
+                    open(os.path.join(other, folder, name), "rb") as b:
+                if a.read() != b.read():
+                    fail(f"test from the JAX-layout model file: {folder}/{name} differs")
+            compared += 1
+    log(f"entry points: test from the same weights in the JAX package's model file layout wrote"
+        f" its {compared} meshes and point clouds byte for byte")
+
+
 def entry_points(torch, rows, card):
     """Phase 5: the test and run entry points on the card at full width
     (the launches of their main path checked), the card against the CPU on
@@ -1541,6 +1761,7 @@ def entry_points(torch, rows, card):
         cfg["data"].update(dataset_dir=fx["dataset_dir"], split_dir=fx["split_dir"], interval=1)
         cfg["test"]["weight_file"] = weight_file
         path = write_config(cfg, os.path.join(root, "test.yaml"))
+        data_stream = np.random.get_state()  # the datasets draw from np.random
         reset_counts()  # ---- the main path: test, then run on each mesh
         t0 = time.perf_counter()
         times = port_test.main([path, *argv])
@@ -1582,6 +1803,7 @@ def entry_points(torch, rows, card):
                          f" by fps_cluster_kernel; FPS variant {kind}, C={c})", times, wall, card)
         # ---- end of the main path (its launches checked run by run)
 
+        jax_file_test(torch, port_test, cfg, model, root, argv, data_stream, out)
         check_pair_reference(torch, model, cfg, first_pair(cfg), "test pair (40962 vertices)")
         check_pair_reference(torch, model, uh, first_pair(uh), "run pair (10242 vertices)")
 
@@ -1947,6 +2169,274 @@ def train_cli(torch, card):
         port_train.make_steps, port_train.StepTimer = make_steps, timer
     torch.cuda.empty_cache()
     log(f"train CLI: phase 6 took {time.perf_counter() - t_phase:.1f} s")
+
+
+# ---------------------------------------------------------------- phase 8
+
+# scripts/check_precision_convergence.py's defaults: Adam at 5e-4, 40 steps,
+# batch 8, one batch, stage 1 (forward.yaml), the loss every 5 steps
+CONVERGENCE = dict(steps=40, B=8, lr=5e-4, every=5)
+# launches (K1, K2, K3, K4, gather) of a stage-2 step under remat: every
+# encoder and decoder forward runs again in the backward (its K1s and FPS)
+REMAT_LAUNCHES = (34, 17, 8, 0, 0)
+REMAT_RULE = dict(factor=4.0, floor=1e-4)  # phase 4b's
+
+
+def shipped_config(model_type, **model):
+    """A shipped ``configs/deform4d`` config with ``model`` keys set."""
+    from nsdp_tpu_torch.utils.config import load_config
+
+    cfg = load_config(os.path.join(REPO, "configs", "deform4d", f"{model_type}.yaml"))
+    cfg["model"].update(model)
+    return cfg
+
+
+def narrow_training(torch, rng, f32_stats):
+    """Phase 8a: the shipped stage-1 ``forward`` (B = 16) and stage-2
+    ``arbitrary`` (B = 8) models with ``compute_dtype: bfloat16``, trained
+    as phase 3b trains them (its launches, finite losses, parameters moved
+    and float32), beside phase 3b's float32 numbers."""
+    runs = [(f"{t} bf16", t, shipped_config(t, compute_dtype="bfloat16"))
+            for t in ("forward", "arbitrary")]
+    stats, _ = train(torch, rng, runs)
+    for label, s in stats.items():
+        f32 = f32_stats[label.split()[0]]
+        log(f"bf16 train {label:<15} step {s['step_ms']:.2f} ms against float32's"
+            f" {f32['step_ms']:.2f} ms ({s['step_ms'] / f32['step_ms']:.3f}x), peak memory"
+            f" {s['peak_gb']:.2f} GB against {f32['peak_gb']:.2f} GB")
+
+
+def convergence(torch):
+    """Phase 8b: the card's counterpart of ``scripts/check_precision_convergence.py
+    --compute-dtype bfloat16``: 40 stage-1 steps at B = 8 on one batch from
+    one seeded init, in float32 and in bfloat16; every loss finite and the
+    bfloat16 trajectory ending below its start."""
+    from nsdp_tpu_torch.models import build_model, init_random
+    from nsdp_tpu_torch.training import make_steps, optimizer_factory
+
+    c = CONVERGENCE
+    batch = train_batch(np.random.RandomState(3), c["B"], 5000, 5000)
+    for dtype in ("float32", "bfloat16"):
+        model = init_random(build_model(shipped_config("forward", compute_dtype=dtype)), 0,
+                            out_scale=0.01)
+        _, opt = optimizer_factory({"optimizer": "Adam", "lr": c["lr"]}, model.parameters())
+        steps = make_steps(model, "forward", opt)
+        t0 = time.perf_counter()
+        losses = [steps["train_step"](batch, c["lr"]) for _ in range(c["steps"])]
+        wall = time.perf_counter() - t0
+        if not np.isfinite(losses).all():
+            fail(f"convergence {dtype}: non-finite loss in {losses}")
+        shown = [(i, round(x, 6)) for i, x in enumerate(losses)
+                 if i % c["every"] == 0 or i == c["steps"] - 1]
+        log(f"convergence {dtype}: {json.dumps(shown)} ({c['steps']} steps in {wall:.1f} s)")
+        if dtype == "bfloat16" and not losses[-1] < losses[0]:
+            fail(f"convergence bfloat16: the loss ends at {losses[-1]:.6g}, not below its start"
+                 f" {losses[0]:.6g}")
+        del model, opt, steps
+        torch.cuda.empty_cache()
+
+
+def remat_step(torch):
+    """Phase 8c: one stage-2 step (B = 8) with ``remat: true`` against two
+    without, from the same state on one batch.  The loss and every
+    BatchNorm buffer bit for bit; every gradient and parameter after the
+    step bit for bit, or, where K2's float64 atomics reorder (the two steps
+    without remat differ there too), within phase 4b's rule: its relative L2
+    gap to the first step without remat at most 4 times the second's, floor
+    1e-4.  Then 3 more steps of each, timed, with their peak memory."""
+    batch = train_batch(np.random.RandomState(11), 8, 5000, 5000)
+    runs = {}
+    for name, remat in (("plain", False), ("again", False), ("remat", True)):
+        _, model, schedule, opt, steps = train_setup(
+            torch, "arbitrary", seed=0, cfg=shipped_config("arbitrary", remat=remat))
+        lr = schedule.get_learning_rate(0)
+        before = counts()
+        loss = steps["train_step"](batch, lr)
+        torch.cuda.synchronize()
+        launches = tuple(a - b for a, b in zip(counts(), before))
+        want = REMAT_LAUNCHES if remat else TRAIN_LAUNCHES["arbitrary"]
+        if launches != want:
+            fail(f"stage-2 step, remat {remat}: {launches} K1 / K2 / K3 / K4 / gather launches,"
+                 f" expected {want}")
+        state = dict(loss=loss, buffers=[b.clone() for b in model.buffers()],
+                     grads=[p.grad.clone() for p in model.parameters()],
+                     params=[p.detach().clone() for p in model.parameters()])
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        step_ms = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            steps["train_step"](batch, lr)
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+        state.update(step_ms=float(np.median(step_ms)),
+                     peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+        runs[name] = state
+        del model, opt, steps
+        torch.cuda.empty_cache()
+    plain, again, remat = runs["plain"], runs["again"], runs["remat"]
+    if remat["loss"] != plain["loss"]:
+        fail(f"remat: loss {remat['loss']!r} differs from {plain['loss']!r}")
+    if not all(torch.equal(a, b) for a, b in zip(remat["buffers"], plain["buffers"])):
+        fail("remat: a BatchNorm buffer differs from the step without remat")
+    worst, reordered = 0.0, 0
+    for what in ("grads", "params"):
+        for i, (r, p, q) in enumerate(zip(remat[what], plain[what], again[what])):
+            if torch.equal(r, p):
+                continue
+            reordered += 1
+            err, noise = rel_err(r, p), rel_err(q, p)
+            limit = max(REMAT_RULE["factor"] * noise, REMAT_RULE["floor"])
+            worst = max(worst, err / limit)
+            if err > limit:
+                fail(f"remat: {what} {i}: relative L2 gap {err:.3g} beyond {limit:.3g}"
+                     f" (the steps without remat differ by {noise:.3g})")
+    n = len(plain["grads"])
+    log(f"remat: stage-2 step (B=8) loss {remat['loss']:.6g} and every BatchNorm buffer bit for"
+        f" bit; {2 * n - reordered} of {2 * n} gradients and parameters bit for bit, the other"
+        f" {reordered} (K2's float64 atomics) within phase 4b's rule, largest ratio {worst:.3g};"
+        f" launches per step {' / '.join(map(str, REMAT_LAUNCHES))}")
+    log(f"remat: step {remat['step_ms']:.2f} ms against {plain['step_ms']:.2f} ms without"
+        f" (medians of 3), peak memory {remat['peak_gb']:.2f} GB against {plain['peak_gb']:.2f} GB"
+        f" ({plain['peak_gb'] - remat['peak_gb']:.2f} GB saved)")
+
+
+def record_attention(torch, calls):
+    """A context in which every attention call of the model's blocks is
+    also appended to ``calls`` as (positional arguments, keyword arguments,
+    the call's narrow dtype, its output); the launches are the model's."""
+    import nsdp_tpu_torch.nn.blocks as blocks
+    from nsdp_tpu_torch.ops import attention
+
+    real = blocks.fused_vector_attention
+
+    def recording(*args, **kwargs):
+        out = real(*args, **kwargs)
+        calls.append((args, kwargs, attention.context_dtype(), out))
+        return out
+
+    @contextlib.contextmanager
+    def patched():
+        blocks.fused_vector_attention = recording
+        try:
+            yield
+        finally:
+            blocks.fused_vector_attention = real
+
+    return patched()
+
+
+def hold_narrow_calls(torch, calls):
+    """Each recorded attention call of a narrow evaluation against the plain
+    narrow version on the CPU, on the call's own arguments (its
+    projection-mode keywords included): a relative L2 gap at most
+    ``K1_NARROW_SHARE`` of the plain narrow version's gap to the plain
+    float32 one, phase 2's rule -> the largest share."""
+    from nsdp_tpu_torch.ops import attention
+
+    cpu = lambda t: t.cpu() if isinstance(t, torch.Tensor) else t
+    worst = 0.0
+    for i, (args, kwargs, dtype, out) in enumerate(calls):
+        if dtype is None:
+            fail(f"bf16 evaluation: attention call {i} ran outside the narrow mode")
+        args, kwargs = [cpu(a) for a in args], {key: cpu(v) for key, v in kwargs.items()}
+        ref = attention.fused_vector_attention(*args, **kwargs, compute_dtype=dtype)
+        gap = rel_err(ref, attention.fused_vector_attention(*args, **kwargs))
+        err = rel_err(out.cpu(), ref)
+        if not (gap > 0 and err <= K1_NARROW_SHARE * gap):
+            fail(f"bf16 evaluation: attention call {i} (Nq={args[0].shape[1]},"
+                 f" M={args[1].shape[1]}, D={out.shape[-1]}, projection mode"
+                 f" {'kv_feats' in kwargs}): relative L2 gap {err:.3g} to its plain narrow"
+                 f" version, beyond {K1_NARROW_SHARE} x that version's gap {gap:.3g} to float32")
+        worst = max(worst, err / gap)
+    return worst
+
+
+def narrow_evaluation(torch, rng, surf):
+    """Phase 8d: one evaluation of the shipped model at Q = 65,536 through
+    ``FlowArbitrary.predict(compute_dtype=torch.bfloat16)``: 17 K1
+    launches, every one in the narrow mode, and 4 K3.  Each of its 17
+    attention calls is held against the plain narrow version on the CPU on
+    the arguments it got (``hold_narrow_calls``), so every site of the
+    composed evaluation, the projection-mode switch of ``keys_values``
+    included, is checked on the card; the modules around them are the CPU
+    path's, which the tests hold against the JAX package's
+    ``make_fast_predict(compute_dtype=)``.  Its relative L2 gap to the
+    float32 evaluation is taken apart: the gap of each half on the same
+    inputs (canonicalize; deform from the float32 canonical pose), the
+    float32 deform's gap from the narrow canonical pose to the float32 one,
+    and how many of the deforming encoder's first FPS picks differ between
+    the two poses.  Both evaluations timed -> its K1 launches."""
+    from nsdp_tpu_torch.models import build_model, init_random
+    from nsdp_tpu_torch.ops import attention, fps
+
+    cfg = shipped_config("arbitrary")
+    model = init_random(build_model(cfg), 0)
+    handle = (surf[:, 2] > 0.8).astype(np.float32)[:, None]
+    inputs = np.concatenate([surf, (surf + np.float32(0.25)) * handle, handle], -1)
+    t = lambda a: torch.as_tensor(np.asarray(a, np.float32)[None], device="cuda")
+    pts, inp = t(rng.uniform(-1.3, 1.3, (65536, 3))), t(inputs)
+    narrow = lambda: attention.attention_dtype(torch.bfloat16)
+    calls = []
+    with torch.inference_mode():
+        ref = model.predict(pts, inp)
+        reset_counts()  # ---- the main path of the narrow mode
+        with record_attention(torch, calls):
+            out = model.predict(pts, inp, compute_dtype=torch.bfloat16)
+        torch.cuda.synchronize()
+        launches, n_narrow = counts(), attention.fused_vector_attention.narrow_launches
+        # ---- end of the main path of the narrow mode
+        expect_launches((0,) * 5, SERVE_LAUNCHES["shipped"]["deform"], "bf16 evaluation")
+        if n_narrow != launches[0] or len(calls) != launches[0]:
+            fail(f"bf16 evaluation: {n_narrow} of {launches[0]} K1 launches in the narrow mode,"
+                 f" {len(calls)} attention calls recorded")
+        check_output(out[0].cpu().numpy(), (65536, 3), "bf16 evaluation")
+        gap = rel_err(out, ref)
+        t0 = time.perf_counter()
+        worst = hold_narrow_calls(torch, calls)
+        hold_s = time.perf_counter() - t0
+        del calls
+
+        src, tgt, mask = inp[:, :, 0:3], inp[:, :, 3:6], inp[:, :, 6:7]
+        cano = model.canonicalize(pts, src)
+        with narrow():
+            cano_n = model.canonicalize(pts, src)
+            deform_n = model.deform(*cano, tgt, mask)
+        deform_f = model.deform(*cano, tgt, mask)
+        moved = model.deform(*cano_n, tgt, mask)
+        npoint = cfg["model"]["encoder_kwargs"]["npoints_per_layer"][1]
+        picks = [fps.furthest_point_sample(c[1], npoint)[0] for c in (cano, cano_n)]
+        first = torch.nonzero(picks[0] != picks[1])
+        split = dict(space_cano=rel_err(cano_n[0], cano[0]), surf_cano=rel_err(cano_n[1], cano[1]),
+                     deform=rel_err(deform_n, deform_f), moved=rel_err(moved, deform_f),
+                     end_to_end=rel_err(deform_f, ref))
+        picks_differ = int((picks[0] != picks[1]).sum())
+        ms = time_ms(torch, lambda: model.predict(pts, inp, compute_dtype=torch.bfloat16), 5)
+        ms_f32 = time_ms(torch, lambda: model.predict(pts, inp), 5)
+    log(f"bf16 evaluation at Q=65536: {n_narrow} K1 launches in the narrow mode, each within"
+        f" {worst:.3f} of its plain narrow version's gap to float32 on its own arguments"
+        f" (largest; limit {K1_NARROW_SHARE}; held on the CPU in {hold_s:.1f} s); relative L2"
+        f" gap to the float32 evaluation {gap:.3g}; {ms:.2f} ms against float32's"
+        f" {ms_f32:.2f} ms (CUDA events, medians of 5)")
+    log(f"bf16 evaluation, its gap taken apart: canonicalize {split['space_cano']:.3g} (space),"
+        f" {split['surf_cano']:.3g} (surface); deform from the float32 canonical pose"
+        f" {split['deform']:.3g}; the float32 deform from the bf16 canonical pose against the"
+        f" float32 one {split['moved']:.3g}; the deforming encoder's first FPS ({npoint} picks)"
+        f" differs in {picks_differ} picks, the first at pick"
+        f" {int(first[0, 0]) if len(first) else -1}; canonicalize then deform against"
+        f" predict, both float32: {split['end_to_end']:.3g}")
+    return n_narrow
+
+
+def narrow_and_remat(torch, rng, surf, f32_stats):
+    """Phase 8 -> the narrow mode's K1 launches on its main path (8d)."""
+    t_phase = time.perf_counter()
+    narrow_training(torch, rng, f32_stats)
+    convergence(torch)
+    remat_step(torch)
+    narrow = narrow_evaluation(torch, rng, surf)
+    log(f"bf16 and remat: phase 8 took {time.perf_counter() - t_phase:.1f} s")
+    return narrow
 
 
 # ---------------------------------------------------------------- phase 7
@@ -2566,7 +3056,7 @@ def main() -> None:
     check_reference(torch, svc, rng, surf, "shipped")
     del svc
     torch.cuda.empty_cache()
-    _, train_launches = train(torch, rng, SHIPPED_RUNS)
+    f32_stats, train_launches = train(torch, rng, SHIPPED_RUNS)
     check_training_reference(torch, "shipped")
     svc, ablation_launches = serve(torch, rng, surf, ablation_config("A"), "A")
     check_reference(torch, svc, rng, surf, "A")
@@ -2578,10 +3068,22 @@ def main() -> None:
     entry_points(torch, rows, card)
     train_cli(torch, card)
     multi_process(torch, card)
+    narrow_launches = narrow_and_remat(torch, rng, surf, f32_stats)
 
+    k1 = kernel_entry("fused_knn_vector_attention", "nsdp_tpu_torch/csrc/attention.cu",
+                      "nsdp_tpu/ops/attention_pallas.py:134", rows["k1"], launches[0])
+    # the narrow-operand mode (compute_dtype), per evaluation of phase 8d
+    k1["bf16"] = kernel_entry("fused_knn_vector_attention, compute_dtype=bfloat16",
+                              "nsdp_tpu_torch/csrc/attention.cu",
+                              "nsdp_tpu/ops/attention_pallas.py:134 (compute_dtype)",
+                              rows["k1_bf16"], narrow_launches)
+    k1["bf16"]["max_rel_l2_share"] = max(r["rel_l2"] / r["gap"] for r in rows["k1_bf16"])
+    k1["f16_decoder_surface"] = {key: rows["k1_f16"][0][key] for key in
+                                 ("ms", "plain_ms", "max_abs_err", "rel_l2", "gap")}
+    if narrow_launches == 0:
+        fail("the narrow mode of K1 was never launched on its main path")
     kernels = [
-        kernel_entry("fused_knn_vector_attention", "nsdp_tpu_torch/csrc/attention.cu",
-                     "nsdp_tpu/ops/attention_pallas.py:134", rows["k1"], launches[0]),
+        k1,
         kernel_entry("fused_knn_vector_attention_backward", "nsdp_tpu_torch/csrc/attention_bwd.cu",
                      "nsdp_tpu/ops/attention_pallas.py:292", rows["k2"], train_launches[1]),
         kernel_entry("furthest_point_sample", "nsdp_tpu_torch/csrc/fps.cu",

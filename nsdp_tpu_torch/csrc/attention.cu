@@ -55,7 +55,21 @@
 // Both compute every output with the same chains -- an fmaf per input, in
 // ascending order, from 0, then + bias; the slot softmax in slot order, the
 // global slot last -- so both give the same bits.
+//
+// The narrow-operand mode (template argument NW: 1 bfloat16, 2 float16;
+// 0 is the float32 kernel, whose code the identity rounding leaves as it
+// was) is the TPU kernel's compute_dtype (attention_pallas.py:113-119,
+// 757-814): every MLP layer's input is rounded to the narrow type in
+// registers, to nearest even, and widened back -- dx before fc_delta, its
+// hidden activations, fc_gamma's inputs (q - K[n] + pos, q - k_glob) and
+// hidden activations -- while the wrapper rounds the weights and V once
+// before the launch.  Products still accumulate in f32 on the CUDA cores,
+// with f32 biases; coordinates, K, the global slot's k/v and the softmax
+// stay f32, so the mode costs the f32 kernel's operations plus a rounding
+// per MLP input.
 
+#include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -69,6 +83,15 @@ using namespace rows;
 
 constexpr int kKMax = knnsel::kKMax;  // largest k
 constexpr int kDMax = 256;            // largest channel width
+
+// An MLP input in the narrow mode NW (0: f32, unchanged; 1: bfloat16;
+// 2: float16), rounded to nearest even and widened back to f32.
+template <int NW>
+__device__ __forceinline__ float narrow(float x) {
+  if constexpr (NW == 1) return __bfloat162float(__float2bfloat16_rn(x));
+  else if constexpr (NW == 2) return __half2float(__float2half_rn(x));
+  else return x;
+}
 
 struct Params {
   const float* xyz_q;    // (B, Nq, 3)
@@ -102,7 +125,7 @@ __global__ void __launch_bounds__(knnsel::kThreads) knn_kernel(
 
 // ---- attention over the selected slots --------------------------------------
 
-template <int CJ>
+template <int CJ, int NW>
 __global__ void __launch_bounds__(kThreads, 2) attn_kernel(const Params p) {
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
@@ -129,7 +152,8 @@ __global__ void __launch_bounds__(kThreads, 2) attn_kernel(const Params p) {
     nbr[r] = j;
     const float* xq = p.xyz_q + ((size_t)b * p.Nq + (nb ? n : 0)) * 3;
 #pragma unroll
-    for (int c = 0; c < 3; ++c) dxs[r * 4 + c] = nb ? __fsub_rn(xq[c], kv[3 * j + c]) : 0.0f;
+    for (int c = 0; c < 3; ++c)
+      dxs[r * 4 + c] = narrow<NW>(nb ? __fsub_rn(xq[c], kv[3 * j + c]) : 0.0f);
   }
   __syncthreads();
 
@@ -143,7 +167,7 @@ __global__ void __launch_bounds__(kThreads, 2) attn_kernel(const Params p) {
 #pragma unroll
     for (int i = 0; i < kRT; ++i) {
       const float* dx = dxs + (ty * kRT + i) * 4;
-      h[i] = fmaxf(fmaf(dx[0], w0, fmaf(dx[1], w1, fmaf(dx[2], w2, b0))), 0.0f);
+      h[i] = narrow<NW>(fmaxf(fmaf(dx[0], w0, fmaf(dx[1], w1, fmaf(dx[2], w2, b0))), 0.0f));
     }
     store_rows(ht, d, h);
   }
@@ -177,6 +201,8 @@ __global__ void __launch_bounds__(kThreads, 2) attn_kernel(const Params p) {
         }
       }
     }
+#pragma unroll
+    for (int i = 0; i < kRT; ++i) u[i] = narrow<NW>(u[i]);
     store_rows(ut, d, u);
     store_rows(vt, d, v);
   }
@@ -190,7 +216,7 @@ __global__ void __launch_bounds__(kThreads, 2) attn_kernel(const Params p) {
     const float b0 = p.gb0[d];
     float h[kRT];
 #pragma unroll
-    for (int i = 0; i < kRT; ++i) h[i] = fmaxf(acc[i][j] + b0, 0.0f);
+    for (int i = 0; i < kRT; ++i) h[i] = narrow<NW>(fmaxf(acc[i][j] + b0, 0.0f));
     store_rows(ht, d, h);
   }
   rows_gemm<CJ>(ht, p.gw1, D, ws, acc);
@@ -229,21 +255,22 @@ size_t smem_bytes(int D) {
          kRows * sizeof(int);
 }
 
-template <int CJ>
+template <int CJ, int NW>
 cudaError_t launch_attention(const Params& p, int device, cudaStream_t stream) {
   // Opt in, once per device, to the shared memory of this instantiation's
   // widest D (more than the default 48 KB).
   static bool opted_in[kMaxDevices];
   if (!opted_in[device]) {
     const cudaError_t err = cudaFuncSetAttribute(
-        attn_kernel<CJ>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem_bytes(CJ * kNX));
+        attn_kernel<CJ, NW>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem_bytes(CJ * kNX));
     if (err != cudaSuccess) return failed(err);
     opted_in[device] = true;
   }
   const size_t smem = smem_bytes(p.D);
   const int tq = kRows / (p.k + (p.k_glob ? 1 : 0));
   const dim3 grid((p.Nq + tq - 1) / tq, p.B);
-  attn_kernel<CJ><<<grid, kThreads, smem, stream>>>(p);
+  attn_kernel<CJ, NW><<<grid, kThreads, smem, stream>>>(p);
   return cudaGetLastError();
 }
 
@@ -260,16 +287,17 @@ constexpr int kMaxSmem = 232448; // opt-in shared memory of an sm_90 block
 // The global slot's logits, fc_gamma(q - k_glob), once per batch item: the
 // chains of rows_gemm (an fmaf per input, ascending, from 0, then + bias),
 // so they carry the bits attn_kernel's own global row would give.
+template <int NW>
 __global__ void __launch_bounds__(kThreads) glob_logits_kernel(const Params p) {
   __shared__ float u[kDMax], h[kDMax];
   const int b = blockIdx.x, D = p.D;
   for (int d = threadIdx.x; d < D; d += kThreads)
-    u[d] = p.q[b * p.q_sb + d] - p.k_glob[(size_t)b * D + d];
+    u[d] = narrow<NW>(p.q[b * p.q_sb + d] - p.k_glob[(size_t)b * D + d]);
   __syncthreads();
   for (int d = threadIdx.x; d < D; d += kThreads) {
     float acc = 0.0f;
     for (int kk = 0; kk < D; ++kk) acc = fmaf(u[kk], p.gw0[d * D + kk], acc);
-    h[d] = fmaxf(acc + p.gb0[d], 0.0f);
+    h[d] = narrow<NW>(fmaxf(acc + p.gb0[d], 0.0f));
   }
   __syncthreads();
   for (int d = threadIdx.x; d < D; d += kThreads) {
@@ -341,7 +369,7 @@ size_t bcast_smem_bytes(int nx, int ny) {
 
 // Thread (tx, ty) owns query blockIdx.x * ny + ty of batch item blockIdx.y:
 // its rows 0 .. k-1 (RT >= k; rows k .. RT-1 idle) by channels 4 tx .. 4 tx + 3.
-template <int RT>
+template <int RT, int NW>
 __global__ void __launch_bounds__(kBcastThreads, 1) attn_bcast_kernel(const Params p) {
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
@@ -367,7 +395,8 @@ __global__ void __launch_bounds__(kBcastThreads, 1) attn_bcast_kernel(const Para
     nbr[e] = j;
     const float* xq = p.xyz_q + ((size_t)b * p.Nq + (nb ? q : 0)) * 3;
 #pragma unroll
-    for (int c = 0; c < 3; ++c) dxs[e * 4 + c] = nb ? __fsub_rn(xq[c], kv[3 * j + c]) : 0.0f;
+    for (int c = 0; c < 3; ++c)
+      dxs[e * 4 + c] = narrow<NW>(nb ? __fsub_rn(xq[c], kv[3 * j + c]) : 0.0f);
   }
   __syncthreads();
 
@@ -381,7 +410,7 @@ __global__ void __launch_bounds__(kBcastThreads, 1) attn_bcast_kernel(const Para
 #pragma unroll
     for (int i = 0; i < RT; ++i) {
       const float* dx = dxs + (ty * kRT + i) * 4;
-      h[i] = fmaxf(fmaf(dx[0], w0, fmaf(dx[1], w1, fmaf(dx[2], w2, b0))), 0.0f);
+      h[i] = narrow<NW>(fmaxf(fmaf(dx[0], w0, fmaf(dx[1], w1, fmaf(dx[2], w2, b0))), 0.0f));
     }
     store8(xa + d * P + ty * kRT, h);
   }
@@ -421,14 +450,14 @@ __global__ void __launch_bounds__(kBcastThreads, 1) attn_bcast_kernel(const Para
         for (int i = 0; i < RT; ++i) {
           const float pos = acc[i][j] + b1;
           const size_t row = ((size_t)b * M + nbr[ty * kRT + i]) * D + d;
-          x[i] = (qv - p.K[row]) + pos;
+          x[i] = narrow<NW>((qv - p.K[row]) + pos);
           val[i][j] = p.V[row] + pos;
         }
         store8(xb + d * P + ty * kRT, x);
       } else {       // fc_gamma's hidden layer into xa
         const float b0 = p.gb0[d];
 #pragma unroll
-        for (int i = 0; i < RT; ++i) x[i] = fmaxf(acc[i][j] + b0, 0.0f);
+        for (int i = 0; i < RT; ++i) x[i] = narrow<NW>(fmaxf(acc[i][j] + b0, 0.0f));
         store8(xa + d * P + ty * kRT, x);
       }
     }
@@ -464,20 +493,33 @@ __global__ void __launch_bounds__(kBcastThreads, 1) attn_bcast_kernel(const Para
   }
 }
 
-template <int RT>
+template <int RT, int NW>
 cudaError_t launch_bcast(const Params& p, int device, cudaStream_t stream) {
   static bool opted_in[kMaxDevices];
   if (!opted_in[device]) {
     const cudaError_t err = cudaFuncSetAttribute(
-        attn_bcast_kernel<RT>, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
+        attn_bcast_kernel<RT, NW>, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
     if (err != cudaSuccess) return failed(err);
     opted_in[device] = true;
   }
   weights_in_out_kernel<<<264, 256, 0, stream>>>(p, 4 * p.nx, const_cast<float*>(p.wt));
-  glob_logits_kernel<<<p.B, kThreads, 0, stream>>>(p);
+  glob_logits_kernel<NW><<<p.B, kThreads, 0, stream>>>(p);
   const dim3 grid((p.Nq + p.ny - 1) / p.ny, p.B);
-  attn_bcast_kernel<RT><<<grid, p.nx * p.ny, bcast_smem_bytes(p.nx, p.ny), stream>>>(p);
+  attn_bcast_kernel<RT, NW><<<grid, p.nx * p.ny, bcast_smem_bytes(p.nx, p.ny), stream>>>(p);
   return cudaGetLastError();
+}
+
+// The attention kernels of one narrow mode: the broadcast path or the row
+// path by D.
+template <int NW>
+cudaError_t launch_mode(const Params& p, bool bcast, int device, cudaStream_t s) {
+  if (bcast) return p.k == 7 ? launch_bcast<7, NW>(p, device, s) : launch_bcast<8, NW>(p, device, s);
+  switch ((p.D + kNX - 1) / kNX) {
+    case 1: return launch_attention<1, NW>(p, device, s);
+    case 2: return launch_attention<2, NW>(p, device, s);
+    case 3: return launch_attention<3, NW>(p, device, s);
+    default: return launch_attention<4, NW>(p, device, s);
+  }
 }
 
 cudaError_t launch_knn(const float* xyz_q, const float* kv_xyz, const float* penalty, int B,
@@ -508,7 +550,9 @@ int nsdp_attention_bcast(int has_glob, long long q_sn, int k) {
 // dw0, dw1, gw0, gw1: (out, in) weights, contiguous.  Where the query is
 // broadcast (q_sn == 0) with a global slot and k <= 8 (the broadcast path,
 // nsdp_attention_bcast), glog is (B, D) and wt (3, D, 4 ceil(D / 4)) float32
-// scratch on the device; else both are null.
+// scratch on the device; else both are null.  mode: 0 float32, 1
+// bfloat16, 2 float16 operands of the MLPs (narrow<mode>; the weights and V
+// already rounded by the caller).
 int nsdp_fused_attention(
     const float* xyz_q, const float* kv_xyz, const float* penalty,
     const float* q, long long q_sb, long long q_sn,
@@ -516,9 +560,10 @@ int nsdp_fused_attention(
     const float* dw0, const float* db0, const float* dw1, const float* db1,
     const float* gw0, const float* gb0, const float* gw1, const float* gb1,
     int* idx, float* out, float* glog, float* wt, int B, int Nq, int M, int D, int k,
-    int device, void* stream) {
+    int mode, int device, void* stream) {
   if (B < 1 || Nq < 1 || M < 1 || D < 1 || D > kDMax || k < 1 || k > kKMax || k > M ||
-      k + (k_glob ? 1 : 0) > kRows || device < 0 || device >= kMaxDevices)
+      k + (k_glob ? 1 : 0) > kRows || mode < 0 || mode > 2 || device < 0 ||
+      device >= kMaxDevices)
     return (int)cudaErrorInvalidValue;
   if ((q == nullptr) != (K == nullptr) || (K == nullptr) != (V == nullptr) ||
       (k_glob == nullptr) != (v_glob == nullptr) || (k_glob != nullptr && q == nullptr))
@@ -535,13 +580,9 @@ int nsdp_fused_attention(
   while (ny > 1 && bcast_smem_bytes(nx, ny) > (size_t)kMaxSmem) --ny;
   const Params p{xyz_q, kv_xyz, idx, q, q_sb, q_sn, K, V, k_glob, v_glob,
                  dw0, db0, dw1, db1, gw0, gb0, gw1, gb1, out, glog, wt, B, Nq, M, D, k, nx, ny};
-  if (bcast) return (int)(k == 7 ? launch_bcast<7>(p, device, s) : launch_bcast<8>(p, device, s));
-  switch ((D + kNX - 1) / kNX) {
-    case 1: return (int)launch_attention<1>(p, device, s);
-    case 2: return (int)launch_attention<2>(p, device, s);
-    case 3: return (int)launch_attention<3>(p, device, s);
-    default: return (int)launch_attention<4>(p, device, s);
-  }
+  if (mode == 1) return (int)launch_mode<1>(p, bcast, device, s);
+  if (mode == 2) return (int)launch_mode<2>(p, bcast, device, s);
+  return (int)launch_mode<0>(p, bcast, device, s);
 }
 
 }  // extern "C"

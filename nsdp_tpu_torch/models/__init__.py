@@ -10,14 +10,23 @@ reference (``model/__init__.py:43-118``):
 The encoder is ``pointransformer`` (shipped) or ``pointnet++`` (ablation),
 the decoder ``crossatten`` (shipped) or ``interp`` (ablation), by
 ``encoder_dict`` / ``decoder_dict`` as in ``nsdp_tpu/models/__init__.py:79-100``.
-The port has one path (every kNN attention through the fused kernel), so
-``fused_attention`` is not read.  It runs in float32 and keeps every
-activation for the backward: ``build_model`` refuses ``compute_dtype`` other
-than ``float32`` and ``remat: true`` rather than ignore them.
+The port has one path (every kNN attention through the fused kernel, the
+semantics of the JAX package's ``fused_attention: true``), so
+``fused_attention`` is not read.
+
+``model.compute_dtype`` (``nsdp_tpu/models/__init__.py:110-122``) is the
+activation dtype: ``float32`` or absent computes as before, ``bfloat16``,
+``float16`` or another float name computes every layer the JAX package
+builds with ``dtype=`` in that type, while parameters and BatchNorm
+statistics stay float32 (``nn/blocks.py`` says where).  ``model.remat:
+true`` recomputes each encoder and decoder call in the backward
+(``torch.utils.checkpoint``, as ``nn.remat`` wraps them,
+``nsdp_tpu/models/__init__.py:77-84``); see ``models/deformation.py``.
 """
 
-from typing import Any, Dict
+from typing import Any, Dict, Optional
 
+import numpy as np
 import torch
 from torch import nn
 
@@ -38,6 +47,8 @@ from nsdp_tpu_torch.nn.blocks import BatchNorm
 __all__ = [
     "build_model",
     "build_deformation_network",
+    "compute_dtype",
+    "evaluation_config",
     "init_random",
     "CrossTransformerDecoder",
     "DeformationNetwork",
@@ -58,30 +69,58 @@ def _feature_dims(model_cfg: Dict[str, Any], no_input_corr: bool):
     return True, (7 if use_normals else 4)
 
 
+def compute_dtype(name: Optional[str]) -> Optional[torch.dtype]:
+    """``model.compute_dtype`` as a torch dtype, None for float32 (no cast
+    anywhere: the float32 path is the one without the key).  Names are
+    read as ``jnp.dtype`` reads them: an unknown name raises ``TypeError``;
+    a name that is not a floating type raises ``ValueError``."""
+    if name is None or name == "float32":
+        return None
+    if name != "bfloat16":
+        name = np.dtype(name).name  # TypeError on a name numpy does not know
+    dtype = getattr(torch, name, None)
+    if not isinstance(dtype, torch.dtype) or not dtype.is_floating_point:
+        raise ValueError(f"model.compute_dtype: {name!r} is not a floating type")
+    return None if dtype == torch.float32 else dtype
+
+
 def build_deformation_network(config: Dict[str, Any], no_input_corr: bool = False,
                               device=None) -> DeformationNetwork:
     """One encoder + decoder on ``device`` (``cuda`` unless told otherwise)."""
     device = resolve_device(device)
     model_cfg = config["model"]
+    dtype = compute_dtype(model_cfg.get("compute_dtype"))
     has_features, inp_feat_dim = _feature_dims(model_cfg, no_input_corr)
     encoder = encoder_dict[model_cfg["encoder"]](
         **model_cfg["encoder_kwargs"], has_features=has_features,
-        inp_feat_dim=inp_feat_dim, device=device,
+        inp_feat_dim=inp_feat_dim, device=device, dtype=dtype,
     )
-    decoder = decoder_dict[model_cfg["decoder"]](**model_cfg["decoder_kwargs"], device=device)
+    decoder = decoder_dict[model_cfg["decoder"]](**model_cfg["decoder_kwargs"], device=device,
+                                                 dtype=dtype)
     return DeformationNetwork(encoder, decoder, no_input_corr=no_input_corr,
-                              use_normals=model_cfg.get("use_normals", False))
+                              use_normals=model_cfg.get("use_normals", False),
+                              remat=bool(model_cfg.get("remat", False)))
 
 
-def _refuse_unported(model_cfg: Dict[str, Any]) -> None:
-    """Raise on the JAX package's keys that the port does not honour
-    (``nsdp_tpu/models/__init__.py``: bfloat16 activations, ``nn.remat``)."""
-    dtype = model_cfg.get("compute_dtype")
-    if dtype is not None and dtype != "float32":
-        raise NotImplementedError(
-            f"model.compute_dtype: {dtype!r} is not supported by the port (float32 only)")
-    if model_cfg.get("remat", False):
-        raise NotImplementedError("model.remat: true is not supported by the port")
+def evaluation_config(config: Dict[str, Any]) -> Dict[str, Any]:
+    """The config the evaluation entry points (``DeformationService``,
+    ``test``, ``run``) build their model from.
+
+    For the shipped pair (``pointransformer`` + ``crossatten``) the JAX
+    package evaluates through ``make_fast_predict`` without a
+    ``compute_dtype`` (``nsdp_tpu/serving.py:87``, ``test.py:95``,
+    ``run.py:100``), which reads the raw parameters and runs float32
+    whatever ``model.compute_dtype`` says: that pair's config loses the
+    key here, so a bfloat16-trained model evaluates bit for bit as a
+    float32 one.  The ablation pairs evaluate through the flax modules
+    (``fast_predict_enabled``, ``nsdp_tpu/models/fast_predict.py:35-55``), in
+    the config's dtype, and keep it.
+    """
+    model_cfg = config["model"]
+    shipped = model_cfg["encoder"] == "pointransformer" and model_cfg["decoder"] == "crossatten"
+    if not shipped or "compute_dtype" not in model_cfg:
+        return config
+    return {**config, "model": {k: v for k, v in model_cfg.items() if k != "compute_dtype"}}
 
 
 def build_model(config: Dict[str, Any], device=None) -> nn.Module:
@@ -90,7 +129,6 @@ def build_model(config: Dict[str, Any], device=None) -> nn.Module:
     ``model.train()`` selects train mode (batch statistics in every
     BatchNorm), as the training steps do."""
     device = resolve_device(device)
-    _refuse_unported(config["model"])
     model_type = config["model"]["type"]
     if model_type == "forward":
         net = build_deformation_network(config, False, device)

@@ -11,7 +11,7 @@ Both output the deformed *absolute* position of every query point.
 import torch
 from torch import nn
 
-from nsdp_tpu_torch.nn.blocks import CrossTransformerBlock, ResnetBlockFC
+from nsdp_tpu_torch.nn.blocks import CrossTransformerBlock, Dense, ResnetBlockFC
 from nsdp_tpu_torch.ops.knn import square_distance
 
 
@@ -22,17 +22,17 @@ class CrossTransformerDecoder(nn.Module):
 
     def __init__(self, dim_inp: int, dim: int, nneigh: int = 7,
                  hidden_dim: int = 64, n_blocks: int = 5, out_dim: int = 1,
-                 device=None):
+                 device=None, dtype=None):
         super().__init__()
-        self.ct1 = CrossTransformerBlock(dim_inp, dim, nneigh, device)
-        self.init_enc = nn.Linear(dim, hidden_dim, device=device)
+        self.ct1 = CrossTransformerBlock(dim_inp, dim, nneigh, device, dtype)
+        self.init_enc = Dense(dim, hidden_dim, device=device, dtype=dtype)
         self.blocks = nn.ModuleList(
-            ResnetBlockFC(hidden_dim, device=device) for _ in range(n_blocks)
+            ResnetBlockFC(hidden_dim, device=device, dtype=dtype) for _ in range(n_blocks)
         )
         self.fc_c = nn.ModuleList(
-            nn.Linear(dim, hidden_dim, device=device) for _ in range(n_blocks)
+            Dense(dim, hidden_dim, device=device, dtype=dtype) for _ in range(n_blocks)
         )
-        self.fc_out = nn.Linear(hidden_dim, out_dim, device=device)
+        self.fc_out = Dense(hidden_dim, out_dim, device=device, dtype=dtype)
 
     def forward(self, xyz_q, encoding):
         lat = self.ct1(xyz_q, encoding["z"], encoding["anchors"],
@@ -55,25 +55,27 @@ class PointInterpDecoder(nn.Module):
     """
 
     def __init__(self, dim_inp: int, dim: int, out_dim: int = 3, hidden_dim: int = 50,
-                 n_blocks: int = 5, var: float = 0.2 ** 2, device=None):
+                 n_blocks: int = 5, var: float = 0.2 ** 2, device=None, dtype=None):
         super().__init__()
         self.var = var
-        self.fc0 = nn.Linear(dim_inp, dim, device=device)
-        self.fc1 = nn.Linear(dim, hidden_dim, device=device)
+        self.fc0 = Dense(dim_inp, dim, device=device, dtype=dtype)
+        self.fc1 = Dense(dim, hidden_dim, device=device, dtype=dtype)
         self.blocks = nn.ModuleList(
-            ResnetBlockFC(hidden_dim, device=device) for _ in range(n_blocks)
+            ResnetBlockFC(hidden_dim, device=device, dtype=dtype) for _ in range(n_blocks)
         )
         self.fc_c = nn.ModuleList(
-            nn.Linear(dim, hidden_dim, device=device) for _ in range(n_blocks)
+            Dense(dim, hidden_dim, device=device, dtype=dtype) for _ in range(n_blocks)
         )
-        self.fc_out = nn.Linear(hidden_dim, out_dim, device=device)
+        self.fc_out = Dense(hidden_dim, out_dim, device=device, dtype=dtype)
 
     def forward(self, xyz_q, encoding):
         # the reference adds 1e-5 to the norm before squaring; reproduced
         dist = torch.sqrt(torch.clamp(square_distance(xyz_q, encoding["anchors"]), min=1e-12))
         weight = torch.exp(-((dist + 1e-5) ** 2) / self.var)
         weight = weight / torch.sum(weight, dim=2, keepdim=True)
-        lat = self.fc0(torch.matmul(weight, encoding["anchor_feats"]))
+        # a narrow anchor_feats is promoted to the weights' float32, as
+        # jnp.einsum promotes it
+        lat = self.fc0(torch.matmul(weight, encoding["anchor_feats"].to(weight.dtype)))
         net = self.fc1(torch.relu(lat))
         for blk, fc in zip(self.blocks, self.fc_c):
             net = blk(net + fc(lat))

@@ -6,40 +6,78 @@ Input contract (as the reference's): ``surface_samples_inputs`` is
 "backward" net (``no_input_corr``) conditions on the source xyz only; the
 "forward" net on all 7 channels.  ``points`` (B, Q, 3) are query positions;
 the output is their deformed absolute position.
+
+``predict`` takes ``compute_dtype`` (``torch.bfloat16`` or
+``torch.float16``), the counterpart of ``make_fast_predict(compute_dtype=)``
+(``nsdp_tpu/models/fast_predict.py:87-235``): every kNN attention of the
+call (K1) runs its narrow-operand mode (``ops/attention.py``), every other
+layer computes as the model's own dtype says.  Inference only: with grad
+mode on the attention raises.  A caller of ``canonicalize`` or ``deform``
+alone enters ``ops.attention.attention_dtype(...)`` around the call.
 """
+
+import contextlib
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
+
+from nsdp_tpu_torch.nn.blocks import checkpoint_contexts
+from nsdp_tpu_torch.ops.attention import attention_dtype
+
+
+def _narrow(compute_dtype):
+    """The attention's narrow-operand mode for a call, or nothing."""
+    return contextlib.nullcontext() if compute_dtype is None else attention_dtype(compute_dtype)
 
 
 class DeformationNetwork(nn.Module):
     """One encoder + one decoder.  ``encode`` and ``decode`` are separate so
     a caller can encode a conditioning cloud once and decode many query
-    sets."""
+    sets.
+
+    ``remat``: in train mode with grad on, each encoder and decoder call
+    runs under ``torch.utils.checkpoint`` (non-reentrant), keeping only its
+    inputs and recomputing its activations in the backward, as ``nn.remat``
+    does (``nsdp_tpu/models/__init__.py:77-84``).  The recompute normalises
+    with the same batch statistics but updates no BatchNorm running
+    statistic (``nn.blocks.checkpoint_contexts``), and under ``bn_sync`` it
+    all-reduces them again, on every rank alike.  Eval mode and
+    ``torch.no_grad`` call the modules directly."""
 
     def __init__(self, encoder: nn.Module, decoder: nn.Module,
-                 no_input_corr: bool = False, use_normals: bool = False):
+                 no_input_corr: bool = False, use_normals: bool = False,
+                 remat: bool = False):
         super().__init__()
         self.encoder = encoder
         self.decoder = decoder
         self.no_input_corr = no_input_corr
         self.use_normals = use_normals
+        self.remat = remat
+
+    def _call(self, module, *args):
+        if self.remat and self.training and torch.is_grad_enabled():
+            return checkpoint(module, *args, use_reentrant=False,
+                              context_fn=checkpoint_contexts)
+        return module(*args)
 
     def encode(self, surface_samples_inputs, point_mask=None):
         if self.no_input_corr:
             end = 6 if self.use_normals else 3
             surface_samples_inputs = surface_samples_inputs[:, :, 0:end]
-        return self.encoder(surface_samples_inputs, point_mask)
+        return self._call(self.encoder, surface_samples_inputs, point_mask)
 
     def decode(self, points, encoding):
-        return self.decoder(points, encoding)
+        return self._call(self.decoder, points, encoding)
 
     def forward(self, points, surface_samples_inputs, point_mask=None):
         return self.decode(points, self.encode(surface_samples_inputs, point_mask))
 
-    def predict(self, points, surface_samples_inputs, point_mask=None):
-        """The serving convention, the same call as :meth:`forward`."""
-        return self(points, surface_samples_inputs, point_mask)
+    def predict(self, points, surface_samples_inputs, point_mask=None, compute_dtype=None):
+        """The serving convention, the same call as :meth:`forward`;
+        ``compute_dtype``: K1's narrow mode (module docstring)."""
+        with _narrow(compute_dtype):
+            return self(points, surface_samples_inputs, point_mask)
 
 
 class FlowArbitrary(nn.Module):
@@ -71,6 +109,8 @@ class FlowArbitrary(nn.Module):
         return space_cano, surf_cano
 
     def deform(self, space_cano, surf_cano, surf_tgt, mask, point_mask=None):
+        # a narrow canonical pose is promoted beside the float32 target, as
+        # jnp.concatenate promotes it
         conditioning = torch.cat([surf_cano, surf_tgt, mask], dim=-1)
         return self.model_deform(space_cano, conditioning, point_mask)
 
@@ -82,9 +122,11 @@ class FlowArbitrary(nn.Module):
         return self.deform(space_cano, surf_cano, surface_samples_tgt,
                            cano_handle_sample_mask, point_mask)
 
-    def predict(self, points, surface_samples_inputs, point_mask=None):
+    def predict(self, points, surface_samples_inputs, point_mask=None, compute_dtype=None):
         """The serving convention: ``surface_samples_inputs`` packs
-        [source xyz | masked target xyz | handle mask] (B, N, 7)."""
-        return self(points, surface_samples_inputs[:, :, 0:3],
-                    surface_samples_inputs[:, :, 3:6],
-                    surface_samples_inputs[:, :, 6:7], point_mask)
+        [source xyz | masked target xyz | handle mask] (B, N, 7);
+        ``compute_dtype``: K1's narrow mode (module docstring)."""
+        with _narrow(compute_dtype):
+            return self(points, surface_samples_inputs[:, :, 0:3],
+                        surface_samples_inputs[:, :, 3:6],
+                        surface_samples_inputs[:, :, 6:7], point_mask)

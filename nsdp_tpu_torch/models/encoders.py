@@ -10,6 +10,7 @@ from typing import Sequence
 from torch import nn
 
 from nsdp_tpu_torch.nn.blocks import (
+    Dense,
     ElementwiseMLP,
     TransformerBlock,
     TransitionDown,
@@ -32,21 +33,23 @@ class PointTransformerEncoder(nn.Module):
 
     ``point_mask`` (B, N), nonzero = real point: padded rows sit at the
     origin (never an FPS pick) and are removed from the kNN neighbourhoods
-    of the full-resolution stages.
+    of the full-resolution stages.  ``dtype``: the compute dtype
+    (``nn/blocks.py``).
     """
 
     def __init__(self, npoints_per_layer: Sequence[int], nneighbor: int,
                  nneighbor_reduced: int, nfinal_transformers: int,
                  d_transformer: int, d_reduced: int, full_SA: bool = False,
                  has_features: bool = False, inp_feat_dim: int = 1,
-                 device=None):
+                 device=None, dtype=None):
         super().__init__()
         self.has_features = has_features
         self.project = d_reduced != d_transformer
         if has_features:
-            self.enc_sdf = nn.Linear(inp_feat_dim, d_reduced, device=device)
+            self.enc_sdf = Dense(inp_feat_dim, d_reduced, device=device, dtype=dtype)
         self.transformer_begin = TransformerBlock(
-            d_reduced, nneighbor_reduced, pos_only=not has_features, device=device
+            d_reduced, nneighbor_reduced, pos_only=not has_features, device=device,
+            dtype=dtype,
         )
         self.transition_downs = nn.ModuleList()
         self.elementwise_extras = nn.ModuleList()
@@ -56,24 +59,24 @@ class PointTransformerEncoder(nn.Module):
             old_n, new_n = npoints_per_layer[i], npoints_per_layer[i + 1]
             dim = d_reduced if i == 0 else d_transformer
             self.transition_downs.append(
-                TransitionDown(new_n, min(nneighbor, old_n), dim, device=device)
+                TransitionDown(new_n, min(nneighbor, old_n), dim, device=device, dtype=dtype)
             )
-            self.elementwise_extras.append(ElementwiseMLP(dim, device))
+            self.elementwise_extras.append(ElementwiseMLP(dim, device, dtype))
             self.transformer_downs.append(
-                TransformerBlock(dim, min(nneighbor, new_n), device=device)
+                TransformerBlock(dim, min(nneighbor, new_n), device=device, dtype=dtype)
             )
-            self.elementwise.append(ElementwiseMLP(d_transformer, device))
+            self.elementwise.append(ElementwiseMLP(d_transformer, device, dtype))
         if self.project:
-            self.fc1 = nn.Linear(d_reduced, d_transformer, device=device)
+            self.fc1 = Dense(d_reduced, d_transformer, device=device, dtype=dtype)
         self.final_transformers = nn.ModuleList(
             TransformerBlock(d_transformer, 2 * nneighbor, group_all=full_SA,
-                             device=device)
+                             device=device, dtype=dtype)
             for _ in range(nfinal_transformers)
         )
         self.final_elementwise = nn.ModuleList(
-            ElementwiseMLP(d_transformer, device) for _ in range(nfinal_transformers)
+            ElementwiseMLP(d_transformer, device, dtype) for _ in range(nfinal_transformers)
         )
-        self.fc_middle = TwoLayerMLP(d_transformer, d_transformer, device)
+        self.fc_middle = TwoLayerMLP(d_transformer, d_transformer, device, dtype)
 
     def forward(self, xyz, point_mask=None):
         if self.has_features:
@@ -112,27 +115,29 @@ class PointNetPlusPlusEncoder(nn.Module):
 
     def __init__(self, npoints_per_layer: Sequence[int], nneighbor: int,
                  d_transformer: int, nfinal_transformers: int,
-                 has_features: bool = False, inp_feat_dim: int = 1, device=None):
+                 has_features: bool = False, inp_feat_dim: int = 1, device=None,
+                 dtype=None):
         super().__init__()
         self.has_features = has_features
         d = d_transformer
-        self.fc_begin = TwoLayerMLP(inp_feat_dim if has_features else 3, d, device)
+        self.fc_begin = TwoLayerMLP(inp_feat_dim if has_features else 3, d, device, dtype)
         self.transition_downs = nn.ModuleList()
         self.elementwise = nn.ModuleList()
         for i in range(len(npoints_per_layer) - 1):
             old_n, new_n = npoints_per_layer[i], npoints_per_layer[i + 1]
             self.transition_downs.append(
-                TransitionDown(new_n, min(nneighbor, old_n), d, sa_type="maxpool", device=device)
+                TransitionDown(new_n, min(nneighbor, old_n), d, sa_type="maxpool",
+                               device=device, dtype=dtype)
             )
-            self.elementwise.append(ElementwiseMLP(d, device))
+            self.elementwise.append(ElementwiseMLP(d, device, dtype))
         self.final_transformers = nn.ModuleList(
-            TransformerBlock(d, -1, group_all=True, device=device)
+            TransformerBlock(d, -1, group_all=True, device=device, dtype=dtype)
             for _ in range(nfinal_transformers)
         )
         self.final_elementwise = nn.ModuleList(
-            ElementwiseMLP(d, device) for _ in range(nfinal_transformers)
+            ElementwiseMLP(d, device, dtype) for _ in range(nfinal_transformers)
         )
-        self.fc_middle = TwoLayerMLP(d, d, device)
+        self.fc_middle = TwoLayerMLP(d, d, device, dtype)
 
     def forward(self, xyz, point_mask=None):
         if self.has_features:

@@ -2,9 +2,9 @@
 
 Counterpart of ``nsdp_tpu/ops/attention_pallas.py::fused_vector_attention``
 (forward only), with the same arguments except the TPU-only ones (``tile``,
-``interpret``, ``exact_self``, ``compute_dtype``, ``return_idx``,
-``save_residuals``).  Weights are (in, out) matrices, the JAX package's
-``kernel`` layout, so the same arrays feed both packages.  The kernel reads
+``interpret``, ``exact_self``, ``return_idx``, ``save_residuals``).  Weights
+are (in, out) matrices, the JAX package's ``kernel`` layout, so the same
+arrays feed both packages.  The kernel reads
 them in ``nn.Linear``'s (out, in) layout: the transposed views of
 ``nn.Linear`` weights that the modules pass are read in place, and only an
 (in, out) array laid out row by row is copied.
@@ -39,9 +39,28 @@ replacing ``_attn_bwd_kernel``) on the card, or
 :func:`fused_vector_attention_bwd_plain` on the CPU.  The selection is a
 constant of the backward: no gradient flows through the kNN, and
 ``kv_mask`` receives none.
+
+Operands of a narrow type (a model of ``compute_dtype: bfloat16``) are
+widened to float32 before the kernels, and each gradient goes back to its
+operand's type (``attention_pallas.py:1236-1244``); the output is float32.
+
+``compute_dtype`` (``torch.bfloat16`` / ``torch.float16``; or the
+:func:`attention_dtype` context) is the TPU kernel's narrow-operand mode
+(``attention_pallas.py:113-119,757-814``), which changes the numbers: each
+MLP layer's input is rounded to the narrow type -- ``dx`` before
+``fc_delta``, the hidden activations, ``fc_gamma``'s inputs (``q - k_n +
+pos``, ``q - k_glob``) -- and so are the MLP weights, ``V_a`` and, in
+projection mode, ``kv_feats``, ``wk`` and ``wv``; products accumulate in
+float32 with float32 biases, and coordinates, distances, ``K_a``, the
+global slot's ``k_glob``/``v_glob`` and the softmax stay float32.  The JAX
+decoder (``exact_self=False``) rounds its split delta ``[x_q - hi | -lo]``
+(``_split_w0``); the port rounds ``dx`` itself, so there the two agree to
+tolerance, not bit for bit.  Forward only, as in JAX.
 """
 
+import contextlib
 import ctypes
+from contextvars import ContextVar
 from typing import Optional
 
 import torch
@@ -53,36 +72,94 @@ from nsdp_tpu_torch.ops.knn import mask_penalty, select
 
 KMAX = 32  # most softmax slots (neighbours + global token) the kernel takes
 DMAX = 256  # widest channel count the kernel takes
+NARROW = {torch.bfloat16: 1, torch.float16: 2}  # the kernel's codes of the narrow modes
+
+# The narrow-operand mode of every attention in a context (None: float32),
+# entered by ``models.deformation``'s ``predict(compute_dtype=...)`` so that
+# it reaches each K1 site of the encoders and decoders, as
+# ``make_fast_predict(compute_dtype=)`` reaches them in the JAX package.
+_ATTENTION_DTYPE: ContextVar = ContextVar("nsdp_attention_dtype", default=None)
 
 
-def _mlp2(x, w0, b0, w1, b1):
-    return torch.relu(x @ w0 + b0) @ w1 + b1
+@contextlib.contextmanager
+def attention_dtype(dtype):
+    """Within this context :func:`fused_vector_attention` runs its
+    narrow-operand mode in ``dtype`` (``torch.bfloat16``/``torch.float16``)
+    unless a call names its own ``compute_dtype``."""
+    if dtype is not None and dtype not in NARROW:
+        raise ValueError(f"attention compute_dtype must be bfloat16 or float16, got {dtype}")
+    token = _ATTENTION_DTYPE.set(dtype)
+    try:
+        yield
+    finally:
+        _ATTENTION_DTYPE.reset(token)
+
+
+def _rounding(compute_dtype):
+    """The narrow mode's rounding of an operand (kept in float32), or the
+    identity."""
+    if compute_dtype is None:
+        return lambda t: t
+    return lambda t: None if t is None else t.to(compute_dtype).float()
+
+
+def kv_proj_profitable(m: int, f: int, d: int) -> bool:
+    """Whether the JAX package projects a featured site's K/V inside its
+    kernel (``attention_pallas.py:1251-1262``; its call sites,
+    ``nsdp_tpu/nn/blocks.py:305-306,444-446``).  The port projects outside the
+    kernel either way, but under a narrow compute dtype the choice decides
+    the numbers (the in-kernel projection is float32, a ``Dense`` of the
+    compute dtype is not), so the same rule is kept."""
+    round_up = lambda x: -(-x // 128) * 128
+    saved = round_up(8 + d) + round_up(d) - round_up(8 + f)
+    return round_up(m) * saved >= 4 * f * d
+
+
+def context_dtype() -> Optional[torch.dtype]:
+    """The narrow-operand dtype of the enclosing :func:`attention_dtype`
+    context, or None."""
+    return _ATTENTION_DTYPE.get()
+
+
+def _mlp2(x, w0, b0, w1, b1, rnd=lambda t: t):
+    """Two-layer ReLU MLP; ``rnd`` rounds each layer's input (the narrow
+    mode) or is the identity."""
+    return rnd(torch.relu(rnd(x) @ w0 + b0)) @ w1 + b1
 
 
 def fused_vector_attention_plain(
     xyz_q, kv_xyz, q_feats, K_a, V_a,
     delta_w0, delta_b0, delta_w1, delta_b1,
     gamma_w0, gamma_b0, gamma_w1, gamma_b1,
-    k: int, k_glob=None, v_glob=None, penalty=None, idx=None,
+    k: int, k_glob=None, v_glob=None, penalty=None, idx=None, compute_dtype=None,
+    round_values=True,
 ):
     """The attention in plain tensor ops; the (B, Nq, k, D) neighbourhood
     tensors are materialised.  ``k`` is already clamped to M.  The
     neighbours are K4's plain selection (``ops/knn.py::select``), which the
     kernel's ``knn_kernel`` computes too; a given ``idx`` (B, Nq, k)
-    replaces it (``k`` and ``penalty`` are then unused)."""
+    replaces it (``k`` and ``penalty`` are then unused).
+    ``compute_dtype``: the narrow-operand mode (module docstring), each
+    rounding a ``tensor.to(compute_dtype).float()``; ``round_values=False``
+    leaves ``V_a`` as given (projection mode, where it is a float32 product
+    of rounded operands)."""
     if idx is None:
         idx = select(xyz_q, kv_xyz, k, penalty)[0]
+    rnd = _rounding(compute_dtype)
+    delta_w0, delta_w1, gamma_w0, gamma_w1 = map(rnd, (delta_w0, delta_w1, gamma_w0, gamma_w1))
+    if round_values:
+        V_a = rnd(V_a)
     dx = xyz_q[:, :, None, :] - index_points(kv_xyz, idx)
-    pos = _mlp2(dx, delta_w0, delta_b0, delta_w1, delta_b1)
+    pos = _mlp2(dx, delta_w0, delta_b0, delta_w1, delta_b1, rnd)
     if q_feats is None:
-        logits = _mlp2(pos, gamma_w0, gamma_b0, gamma_w1, gamma_b1)
+        logits = _mlp2(pos, gamma_w0, gamma_b0, gamma_w1, gamma_b1, rnd)
         value = pos
     else:
         u = q_feats[:, :, None, :] - index_points(K_a, idx) + pos
-        logits = _mlp2(u, gamma_w0, gamma_b0, gamma_w1, gamma_b1)
+        logits = _mlp2(u, gamma_w0, gamma_b0, gamma_w1, gamma_b1, rnd)
         value = index_points(V_a, idx) + pos
     if k_glob is not None:
-        lg = _mlp2(q_feats - k_glob[:, None, :], gamma_w0, gamma_b0, gamma_w1, gamma_b1)
+        lg = _mlp2(q_feats - k_glob[:, None, :], gamma_w0, gamma_b0, gamma_w1, gamma_b1, rnd)
         logits = torch.cat([logits, lg[:, :, None, :]], dim=2)
         vg = v_glob[:, None, None, :].expand(-1, xyz_q.shape[1], 1, -1)
         value = torch.cat([value, vg], dim=2)
@@ -94,7 +171,7 @@ def fused_vector_attention_plain(
 _SIGNATURES = {
     "nsdp_fused_attention": (ctypes.c_int, (
         [ctypes.c_void_p] * 4 + [ctypes.c_longlong] * 2 + [ctypes.c_void_p] * 16
-        + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+        + [ctypes.c_int] * 7 + [ctypes.c_void_p]
     )),
     "nsdp_attention_bcast": (ctypes.c_int, [ctypes.c_int, ctypes.c_longlong, ctypes.c_int]),
 }
@@ -233,11 +310,19 @@ class _Pointers:
 
 def _launch(xyz_q, kv_xyz, q_feats, K_a, V_a, delta_w0, delta_b0, delta_w1,
             delta_b1, gamma_w0, gamma_b0, gamma_w1, gamma_b1, k, k_glob,
-            v_glob, penalty):
-    """K1 on the card -> (out (B, Nq, D), idx (B, Nq, k) int32)."""
+            v_glob, penalty, compute_dtype=None, round_values=True):
+    """K1 on the card -> (out (B, Nq, D), idx (B, Nq, k) int32).  In the
+    narrow mode the MLP weights and ``V_a`` are rounded here, once, on the
+    device; the kernel rounds each MLP input in registers."""
     weights = (delta_w0, delta_b0, delta_w1, delta_b1, gamma_w0, gamma_b0, gamma_w1, gamma_b1)
     B, Nq, M, D = _check_operands(xyz_q, kv_xyz, q_feats, K_a, V_a, weights, k,
                                   k_glob, v_glob, penalty)
+    if compute_dtype is not None:
+        rnd = _rounding(compute_dtype)
+        delta_w0, delta_w1, gamma_w0, gamma_w1 = map(
+            rnd, (delta_w0, delta_w1, gamma_w0, gamma_w1))
+        if round_values:
+            V_a = rnd(V_a)
     out = torch.empty((B, Nq, D), dtype=torch.float32, device=xyz_q.device)
     idx = torch.empty((B, Nq, k), dtype=torch.int32, device=xyz_q.device)
     if Nq == 0:
@@ -257,10 +342,12 @@ def _launch(xyz_q, kv_xyz, q_feats, K_a, V_a, delta_w0, delta_b0, delta_w1,
         ptr.linear(delta_w0), ptr(delta_b0), ptr.linear(delta_w1), ptr(delta_b1),
         ptr.linear(gamma_w0), ptr(gamma_b0), ptr.linear(gamma_w1), ptr(gamma_b1),
         idx.data_ptr(), out.data_ptr(), ptr(glog), ptr(wt), B, Nq, M, D, k,
-        xyz_q.device.index or 0, _build.stream_of(xyz_q),
+        NARROW.get(compute_dtype, 0), xyz_q.device.index or 0, _build.stream_of(xyz_q),
     )
     _build.check(lib, err, f"attention kernel (B={B}, Nq={Nq}, M={M}, D={D}, k={k})")
     fused_vector_attention.launches += 1
+    if compute_dtype is not None:
+        fused_vector_attention.narrow_launches += 1
     return out, idx
 
 
@@ -420,6 +507,7 @@ def fused_vector_attention(
     kv_feats: Optional[torch.Tensor] = None,
     wk: Optional[torch.Tensor] = None,
     wv: Optional[torch.Tensor] = None,
+    compute_dtype: Optional[torch.dtype] = None,
 ) -> torch.Tensor:
     """Fused kNN vector attention (pre-residual, pre-norm).
 
@@ -439,14 +527,33 @@ def fused_vector_attention(
       kv_feats / wk / wv: projection mode, ``K_a = kv_feats @ wk`` and
         ``V_a = kv_feats @ wv`` (replaces K_a/V_a; excludes the global
         token).
+      compute_dtype: ``torch.bfloat16`` or ``torch.float16`` for the
+        narrow-operand mode (module docstring); None takes the
+        :func:`attention_dtype` context's, float32 without one.  Raises
+        with grad mode on: the mode has no backward.
 
     Returns:
-      (B, Nq, D) float32.  A CPU input runs the plain version; a CUDA input
-      launches the kernel of ``csrc/attention.cu`` (counted in
-      ``fused_vector_attention.launches``) or raises.  With grad mode on and
-      an operand that requires grad, the result is differentiable (module
-      docstring); otherwise nothing is saved.
+      (B, Nq, D) float32 (narrow operands are widened first).  A CPU input
+      runs the plain version; a CUDA input launches the kernel of
+      ``csrc/attention.cu`` (counted in ``fused_vector_attention.launches``,
+      and a narrow mode's launch also in ``.narrow_launches``) or raises.
+      With grad mode on and an operand that requires grad, the result is
+      differentiable (module docstring); otherwise nothing is saved.
     """
+    if compute_dtype is None:
+        compute_dtype = _ATTENTION_DTYPE.get()
+    if compute_dtype is not None:
+        if compute_dtype not in NARROW:
+            raise ValueError(
+                f"attention compute_dtype must be bfloat16 or float16, got {compute_dtype}")
+        if torch.is_grad_enabled():
+            raise RuntimeError("the attention's narrow compute_dtype is inference only: "
+                               "run it under torch.no_grad() or torch.inference_mode()")
+    # a narrow model's activations, widened (autograd takes each gradient
+    # back to its operand's type); the weights are float32 parameters
+    xyz_q, kv_xyz, q_feats, K_a, V_a, k_glob, v_glob, kv_feats = [
+        t.float() if t is not None and t.dtype in NARROW else t
+        for t in (xyz_q, kv_xyz, q_feats, K_a, V_a, k_glob, v_glob, kv_feats)]
     pos_only = q_feats is None
     if k_glob is not None and pos_only:
         raise ValueError("global token requires query features")
@@ -459,7 +566,8 @@ def fused_vector_attention(
             raise ValueError(
                 "projection mode replaces K_a/V_a and excludes the global token"
             )
-        K_a, V_a = kv_feats @ wk, kv_feats @ wv
+        rnd = _rounding(compute_dtype)
+        K_a, V_a = rnd(kv_feats) @ rnd(wk), rnd(kv_feats) @ rnd(wv)
     elif not pos_only and (K_a is None or V_a is None):
         raise ValueError("featured attention needs K_a and V_a (or kv_feats)")
     k = min(k, kv_xyz.shape[1])
@@ -472,9 +580,11 @@ def fused_vector_attention(
     operands = [t for t in args if isinstance(t, torch.Tensor)]
     if torch.is_grad_enabled() and any(t.requires_grad for t in operands):
         return _FusedAttention.apply(*args[:13], k_glob, v_glob, penalty, k)
+    narrow = dict(compute_dtype=compute_dtype, round_values=kv_feats is None)
     if xyz_q.device.type == "cpu":
-        return fused_vector_attention_plain(*args)
-    return _launch(*args)[0]
+        return fused_vector_attention_plain(*args, **narrow)
+    return _launch(*args, **narrow)[0]
 
 
 fused_vector_attention.launches = 0
+fused_vector_attention.narrow_launches = 0

@@ -110,9 +110,13 @@ def gather_rows(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     A CPU input runs :func:`gather_rows_plain`; a CUDA input launches the
     kernel of ``csrc/gather.cu`` (float32 table, int32 indices in [0, M);
     counted in ``gather_rows.launches``) or raises.  Differentiable in
-    ``table`` when grad mode is on."""
+    ``table`` when grad mode is on.  A bfloat16 or float16 table (a narrow
+    compute dtype) is widened to float32 around the gather, which is exact,
+    and its rows come back in its own type."""
     if table.device.type not in ("cpu", "cuda"):
         raise RuntimeError(f"no gather kernel for device {table.device}")
+    if table.dtype in (torch.bfloat16, torch.float16):
+        return gather_rows(table.float(), idx).to(table.dtype)
     if torch.is_grad_enabled() and table.requires_grad:
         return _GatherRows.apply(table, idx)
     if table.device.type == "cpu":

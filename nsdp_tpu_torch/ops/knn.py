@@ -76,7 +76,10 @@ def square_distance(src: torch.Tensor, dst: torch.Tensor) -> torch.Tensor:
     JAX package's form ``|a|^2 + |b|^2 - 2 a.b`` clamped at 0
     (``nsdp_tpu/ops/knn.py:33-47``)."""
     d2 = (src * src).sum(-1)[..., :, None] + (dst * dst).sum(-1)[..., None, :]
-    d2 = d2 - 2.0 * torch.einsum("bnc,bmc->bnm", src, dst)
+    # mixed types promote, as in jnp.einsum (a bfloat16 query set against
+    # float32 anchors under a narrow compute dtype)
+    both = torch.promote_types(src.dtype, dst.dtype)
+    d2 = d2 - 2.0 * torch.einsum("bnc,bmc->bnm", src.to(both), dst.to(both))
     return torch.clamp(d2, min=0.0)
 
 

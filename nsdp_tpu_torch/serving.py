@@ -26,9 +26,11 @@ import numpy as np
 import torch
 
 from nsdp_tpu_torch import resolve_device
-from nsdp_tpu_torch.models import build_model, init_random
+from nsdp_tpu_torch.models import build_model, evaluation_config, init_random
 from nsdp_tpu_torch.training.checkpoints import read_state_dict
 from nsdp_tpu_torch.utils.padding import pad_queries
+
+WARM_SURFACE_POINTS = 256  # the surface size the JAX service warms at
 
 
 class DeformationService:
@@ -49,12 +51,19 @@ class DeformationService:
       devices: several devices to split every request's queries over, one
         replica of the model each (``self.model`` is the first); instead of
         ``device``.
+      warm: run :meth:`warmup` at construction, at 256 surface points (the
+        JAX service's warm size, ``nsdp_tpu/serving.py:55,108-109``).
+
+    The model is built from ``models.evaluation_config(config)``: the
+    shipped pair evaluates in float32 under any ``model.compute_dtype``, as
+    the JAX service's fused path does; an ablation pair in the config's
+    dtype.  Results are float32 numpy either way.
     """
 
     def __init__(self, config: Dict, state_dict: Optional[Dict] = None,
                  buckets: Sequence[int] = (4096, 16384, 65536), device=None,
                  seed: int = 0, weight_file: Optional[str] = None,
-                 devices: Optional[Sequence] = None):
+                 devices: Optional[Sequence] = None, warm: bool = False):
         if state_dict is not None and weight_file is not None:
             raise ValueError("pass state_dict or weight_file, not both")
         if devices is not None and device is not None:
@@ -66,13 +75,15 @@ class DeformationService:
         self.config = config
         self.buckets = sorted(buckets)
         self.model_type = config["model"]["type"]
-        self.model = build_model(config, device=self.device)
+        self.model = build_model(evaluation_config(config), device=self.device)
         if state_dict is None:
             init_random(self.model, seed)
         else:
             self.model.load_state_dict(state_dict, strict=True)
         self.replicas = [self.model] + [copy.deepcopy(self.model).to(d)
                                         for d in self.devices[1:]]
+        if warm:
+            self.warmup(WARM_SURFACE_POINTS)
 
     @classmethod
     def from_config(cls, config_path: str, **kwargs) -> "DeformationService":
@@ -150,7 +161,7 @@ class DeformationService:
             outs = [model.predict(self._tensor(share, d), self._tensor(surface_samples_inputs, d),
                                   None if point_mask is None else self._tensor(point_mask, d))
                     for model, d, share in zip(self.replicas, self.devices, self._shares(padded))]
-            out = self._joined(outs)[:, :q].cpu().numpy()
+            out = self._joined(outs)[:, :q].float().cpu().numpy()
         return out[0] if squeeze else out
 
     def edit_session(self, points: np.ndarray, surface_samples_src: np.ndarray,
@@ -214,4 +225,4 @@ class EditSession:
                                  svc._tensor(mask, d)[None], pm)
                     for model, d, (space_cano, surf_cano, pm)
                     in zip(svc.replicas, svc.devices, self._shares)]
-            return svc._joined(outs)[0, : self._q].cpu().numpy()
+            return svc._joined(outs)[0, : self._q].float().cpu().numpy()

@@ -12,9 +12,12 @@ and ``<out_dir>/<name>/<motion_split>/<mesh_folder|pointcloud_folder>/``.
 
 The model runs on ``cuda`` (every kNN attention and FPS a hand-written
 kernel) unless ``--device cpu`` asks for the plain PyTorch path.  Weights
-come from ``test.weight_file`` (a model file of ``training/checkpoints.py``
-or the reference's torch format), or are seeded random
-(``models.init_random``, seed 0) when the key is absent.
+come from ``test.weight_file`` (a model file of ``training/checkpoints.py``,
+the reference's torch format, or a JAX package ``model_*`` file), or are
+seeded random (``models.init_random``, seed 0) when the key is absent.
+The model is built from ``models.evaluation_config(config)``: under
+``model.compute_dtype: bfloat16`` the shipped pair evaluates in float32, as
+``test.py`` does on its accelerator, and an ablation pair in bfloat16.
 """
 
 import argparse
@@ -28,7 +31,7 @@ import torch
 
 from nsdp_tpu_torch import resolve_device
 from nsdp_tpu_torch.data import DataLoader, dataset_dict, split_batch
-from nsdp_tpu_torch.models import build_model, init_random
+from nsdp_tpu_torch.models import build_model, evaluation_config, init_random
 from nsdp_tpu_torch.training import make_steps, optimizer_factory, read_state_dict
 from nsdp_tpu_torch.training.steps import test_on_batch
 from nsdp_tpu_torch.utils.config import load_config
@@ -84,7 +87,7 @@ def prepare(args, what: str):
     # as test.py's for the same global seed
     dataset[0]
 
-    model = build_model(config, device=device)
+    model = build_model(evaluation_config(config), device=device)
     weight_file = tcfg.get("weight_file")
     if weight_file:
         print(f"Loading weight file from {weight_file}")

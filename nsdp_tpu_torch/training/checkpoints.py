@@ -11,6 +11,12 @@ names, so the JAX package's ``load_model_variables`` reads them and the
 port reads the published ``forward.pt`` / ``backward.pt`` / ``arbitrary.pt``
 (raw state dicts are accepted too).  Optimizer files hold
 ``{"epoch", "optimizer_state_dict"}``.
+
+:func:`read_state_dict` also reads the JAX package's model files (flax
+msgpack of ``{"params", "batch_stats"}``,
+``nsdp_tpu/training/checkpoints.py:29-42``), so every path that loads
+weights takes a model trained by either package.  The JAX package's
+optimizer files (optax state) are not read.
 """
 
 import os
@@ -20,13 +26,26 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 from torch import nn
 
+from nsdp_tpu_torch.utils.convert import from_jax_variables
+from nsdp_tpu_torch.utils.msgpack_reader import is_msgpack_map, read_flax_variables
+
 _MODEL_RE = re.compile(r"^model_(\d{5})$")
 _BEST_RE = re.compile(r"^modelbest_(\d{5})_([\d.]+)$")
 
 
 def read_state_dict(path: str) -> Dict[str, torch.Tensor]:
-    """The state dict of a model file, raw or ``{"model_state_dict": ...}``,
-    on the CPU."""
+    """The state dict of a model file, on the CPU.
+
+    The format is decided by the file's first byte: a non-empty msgpack
+    map is a JAX package model file, mapped through
+    :func:`nsdp_tpu_torch.utils.convert.from_jax_variables`; anything else
+    goes to ``torch.load`` (a zip, ``PK``, or a legacy pickle, ``0x80 0x02``),
+    a raw state dict or ``{"model_state_dict": ...}``.
+    """
+    with open(path, "rb") as f:
+        head = f.read(1)
+    if is_msgpack_map(head):
+        return from_jax_variables(*read_flax_variables(path))
     obj = torch.load(path, map_location="cpu", weights_only=True)
     if isinstance(obj, dict) and "model_state_dict" in obj:
         obj = obj["model_state_dict"]

@@ -232,9 +232,10 @@ def make_steps(model: nn.Module, model_type: str, optimizer: torch.optim.Optimiz
 
     @torch.no_grad()
     def predict(points, surface_samples_inputs, point_mask: Optional[Any] = None) -> torch.Tensor:
-        """The deformation field at ``points`` (eval mode)."""
+        """The deformation field at ``points`` (eval mode), in float32 (a
+        model of a narrow ``compute_dtype`` returns its values widened)."""
         model.eval()
-        return forward(points, surface_samples_inputs, point_mask)
+        return forward(points, surface_samples_inputs, point_mask).float()
 
     return {
         "train_step": train_step,

@@ -53,12 +53,20 @@ _BN_LEAVES = {"scale": "weight", "bias": "bias", "mean": "running_mean",
               "var": "running_var"}
 
 
-def _leaves(tree, prefix=()) -> Iterator[Tuple[tuple, np.ndarray]]:
+def _leaves(tree, prefix=()) -> Iterator[Tuple[tuple, torch.Tensor]]:
     for key, value in tree.items():
         if isinstance(value, Mapping):
             yield from _leaves(value, prefix + (key,))
         else:
-            yield prefix + (key,), np.asarray(value)
+            yield prefix + (key,), _float32(value)
+
+
+def _float32(value) -> torch.Tensor:
+    """A leaf (numpy array, or a tensor from the msgpack reader, which
+    keeps a ``bfloat16`` leaf's type) as a float32 CPU tensor."""
+    if isinstance(value, torch.Tensor):
+        return value.detach().to("cpu", torch.float32)
+    return torch.tensor(np.asarray(value), dtype=torch.float32)
 
 
 def _module_name(tokens) -> str:
@@ -75,22 +83,21 @@ def _module_name(tokens) -> str:
 
 
 def from_jax_variables(params, batch_stats) -> Dict[str, torch.Tensor]:
-    """JAX ``params``/``batch_stats`` trees -> the port's ``state_dict``
-    (float32 CPU tensors; load with ``strict=True``)."""
+    """JAX ``params``/``batch_stats`` trees (numpy arrays, or tensors as
+    :mod:`nsdp_tpu_torch.utils.msgpack_reader` reads them) -> the port's
+    ``state_dict`` (float32 CPU tensors; load with ``strict=True``)."""
     state: Dict[str, torch.Tensor] = {}
     for path, value in list(_leaves(params)) + list(_leaves(batch_stats)):
         *mods, leaf = path
         wrapped = len(mods) >= 2 and mods[-1] == "bn" and mods[-2] in _BN_NAMES
         if wrapped or leaf in ("scale", "mean", "var"):
             name = _module_name(mods[:-1] if wrapped else mods)
-            state[f"{name}.{_BN_LEAVES[leaf]}"] = torch.tensor(value, dtype=torch.float32)
+            state[f"{name}.{_BN_LEAVES[leaf]}"] = value
             state[f"{name}.num_batches_tracked"] = torch.tensor(0, dtype=torch.long)
         elif leaf == "kernel":
-            state[f"{_module_name(mods)}.weight"] = torch.tensor(
-                np.ascontiguousarray(value.T), dtype=torch.float32
-            )
+            state[f"{_module_name(mods)}.weight"] = value.t().contiguous()
         elif leaf == "bias":
-            state[f"{_module_name(mods)}.bias"] = torch.tensor(value, dtype=torch.float32)
+            state[f"{_module_name(mods)}.bias"] = value
         else:
             raise ValueError(f"unexpected variable {'/'.join(path)}")
     return state

@@ -197,6 +197,42 @@ def test_attention_kernel_matches_plain(mode, masked, cuda, rng):
     np.testing.assert_allclose(got.cpu().numpy(), ref.numpy(), rtol=1e-4, atol=1e-5)
 
 
+def _rel(a, b):
+    a, b = a.double().cpu(), b.double().cpu()
+    return float((a - b).norm() / b.norm())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("mode", ["pos_only", "table", "proj", "global", "broadcast"])
+def test_attention_kernel_narrow_mode_matches_plain(mode, dtype, cuda, rng):
+    """K1's narrow-operand mode (``compute_dtype``) against its plain
+    version on the card: a relative L2 gap at most 1/4 of the plain narrow
+    version's gap to float32 (the kernel's f32 sums meet the roundings in
+    another order); the broadcast query takes ``attn_bcast_kernel``."""
+    a, w = _attention_case(rng, "global" if mode == "broadcast" else mode, True,
+                           B=2, M=120, D=40, k=7, nq=90)
+    if mode == "broadcast":
+        a["q_feats"] = np.broadcast_to(a["q_feats"][:, :1], a["q_feats"].shape)
+    t = lambda x: None if x is None else torch.as_tensor(np.ascontiguousarray(x), device=cuda)
+    named = ("xyz_q", "kv_xyz", "q_feats", "K_a", "V_a")
+    args = [t(a[key]) for key in named] + [t(x) for x in w]
+    if mode == "broadcast":
+        args[2] = args[2][:, :1].expand(-1, a["xyz_q"].shape[1], -1)
+    kw = {key: t(v) for key, v in a.items() if key not in named + ("k",)}
+    f = port_attention.fused_vector_attention
+    with torch.inference_mode():
+        before = (f.launches, f.narrow_launches)
+        got = f(*args, k=a["k"], compute_dtype=dtype, **kw)
+        torch.cuda.synchronize()
+        assert (f.launches, f.narrow_launches) == (before[0] + 1, before[1] + 1)
+        cpu = lambda x: x.cpu() if isinstance(x, torch.Tensor) else x
+        ref = f(*map(cpu, args), k=a["k"], compute_dtype=dtype, **{k: cpu(v) for k, v in kw.items()})
+        ref_f32 = f(*map(cpu, args), k=a["k"], **{k: cpu(v) for k, v in kw.items()})
+    gap = _rel(ref, ref_f32)
+    assert gap > 0 and _rel(got, ref) <= 0.25 * gap, (_rel(got, ref), gap)
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("mode,D,k", [("pos_only", 120, 10), ("table", 256, 16),
                                       ("global", 200, 7), ("table", 64, 32)])

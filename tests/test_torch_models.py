@@ -115,15 +115,21 @@ def test_weight_round_trip(rng):
 
 
 @pytest.mark.parametrize("key,value,builds", [
-    ("compute_dtype", "bfloat16", False), ("remat", True, False),
     ("compute_dtype", "float32", True), ("remat", False, True),
+    ("compute_dtype", "not_a_dtype", TypeError), ("compute_dtype", "int32", ValueError),
 ])
 def test_build_model_refuses_keys_it_cannot_honour(key, value, builds):
-    """``compute_dtype`` other than float32 and ``remat: true`` raise,
-    naming the key; their float32 / false values build as without them."""
+    """A ``compute_dtype`` name that is no dtype raises ``TypeError``, as
+    ``jnp.dtype`` does in the JAX package's ``build_model``, and one that is
+    no floating type ``ValueError``; float32 and ``remat: false`` build as
+    without the keys.  (bfloat16, float16 and ``remat: true`` build and are
+    held against the JAX package in ``tests/test_torch_dtype.py``.)"""
     cfg = {"model": dict(CFG["model"], **{key: value})}
-    if builds:
+    if builds is True:
         assert isinstance(build_model(cfg, device="cpu"), torch.nn.Module)
     else:
-        with pytest.raises(NotImplementedError, match=f"model.{key}"):
+        with pytest.raises(builds):
             build_model(cfg, device="cpu")
+        if builds is TypeError:
+            with pytest.raises(TypeError):
+                jnp.dtype(value)

@@ -109,6 +109,7 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
                                                   "utils/profiling.py")} <= set(sources)
     assert {REPO / "nsdp_tpu_torch" / "parallel" / f"{m}.py"
             for m in ("__init__", "dist", "multihost")} <= set(sources)
+    assert REPO / "nsdp_tpu_torch" / "utils" / "msgpack_reader.py" in set(sources)
     offenders = [
         f"{p.relative_to(REPO)}: {mod}"
         for p in sources
