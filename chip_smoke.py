@@ -6,7 +6,8 @@
 Phases (any failure exits non-zero and prints no result line):
 
 1. setup: TF32 off, the card's name and power limit, the CUDA kernels built
-   from ``nsdp_tpu_torch/csrc`` (one ``nvcc`` per source, in parallel); per
+   from ``nsdp_tpu_torch/csrc`` (one ``nvcc`` per source, in parallel) and
+   the host library from ``nsdp_tpu_torch/native`` (``c++``); per
    kernel ptxas's registers, shared memory and spills, and the count of
    tensor-core (``HMMA``) instructions in its SASS -- none in K2's
    ``bwd_rows_kernel`` or ``wgrad_kernel`` fails;
@@ -102,7 +103,10 @@ Phases (any failure exits non-zero and prints no result line):
    ``fps_cluster_kernel`` on the 40,962-vertex mesh (none on 10,242
    vertices) and none by ``fps_global_kernel``, the written meshes and
    point clouds finite; wall time per pair split into data, test_on_batch,
-   metrics and writers; one pair of ``test`` and of ``run`` on 10,242
+   metrics (the native float32 KD-tree of ``nsdp_tpu_torch/native``, the
+   JAX package's search; the first pair's two searches timed again by it
+   and by scipy's ``KDTree`` in turns) and writers; one pair of ``test`` and
+   of ``run`` on 10,242
    vertices against the CPU by halves (phase 4's rule); ``test`` once more
    from the same weights written in the JAX package's model file layout
    (flax msgpack, ``write_flax_model_file``): its meshes and point clouds
@@ -122,6 +126,14 @@ Phases (any failure exits non-zero and prints no result line):
    and one ``modelbest_*``, finite losses, moved parameters; stage 2's
    branches hold the stage-1 files bit for bit before its first step, the
    resume starts at epoch 2 from ``model_00001``/``opt_00001`` bit for bit;
+   then the same three files rewritten in the JAX package's layout (flax
+   msgpack, ``write_flax_model_file`` / ``write_flax_opt_file``: Adam's
+   state as optax keeps it) in a fresh directory, and stage 2 resumed from
+   there: the model (but its BatchNorm counters, which flax does not keep)
+   and the optimizer before the first step, K2's inputs at every call and
+   the resumed epoch's losses bit for bit those of the resume from the
+   torch files (both resumes at ``--num_workers 0``, so both draw the same
+   items; the second replays K2's outputs of the first, ``K2Tape``);
    ``watch_stats`` on the card launches as a train step and leaves the model,
    its ``.grad`` and the optimizer bit for bit as they were.  Logged per run:
    StepTimer's step intervals, the wall time of the loop's parts
@@ -171,7 +183,22 @@ Phases (any failure exits non-zero and prints no result line):
    narrow version on the CPU on the arguments it got (phase 2's rule); its
    relative L2 gap to the float32 evaluation printed and taken apart (each
    half on the same inputs, the float32 deform moved by the narrow
-   canonical pose, the deforming encoder's FPS picks that differ).
+   canonical pose, the deforming encoder's FPS picks that differ);
+9. the host tools, on the card machine's host (phase 1 also builds
+   ``nsdp_tpu_torch/native`` with ``c++``, timed): the native KD-tree's
+   ``nearest_neighbor_distances`` on 30,000 x 30,000 points against
+   scipy's ``KDTree`` (the same indices; distances within 4 float32 ulps of
+   scipy's float64 ones rounded to float32, the share equal printed), both
+   timed; ``meshing.marching_cubes`` on a 128^3 sphere SDF (closed,
+   welded, every vertex within one voxel of the radius), timed;
+   ``python -m nsdp_tpu_torch.preprocess`` as subprocesses on 2
+   identities x 7 frames of a 40,962-vertex mesh (``.anime`` files) at the
+   default sample counts: ``anime``, ``deform4d --seed 0`` (read back by
+   ``Deform4DFlowDataset``), ``nocorr``, and ``deform4d --make_watertight``
+   by ``sdf`` and by ``poisson`` on each sequence's first frame (``--interval
+   7``: at the default spacing one frame's SDF takes about a minute; each
+   watertight frame closed), each command timed.  Every timing is printed beside the card's name and
+   power limit.
 
 The second-to-last lines are the card (``nvidia-smi``) and a ``kernels``
 JSON object (K1's and K2's entries also carry ``bound_tc_ms``, their bound
@@ -1558,14 +1585,17 @@ def msgpack_bytes(obj) -> bytes:
     return b"\xc9" + struct.pack(">Ib", len(payload), 1) + payload
 
 
-def write_flax_model_file(state, path):
-    """A model's ``state_dict`` as the JAX package's model file: flax
-    msgpack of ``{"params", "batch_stats"}`` under the JAX module names --
-    the inverse of ``utils/convert.py::from_jax_variables``' key rules."""
+def flax_variables(state, bns=None):
+    """A ``state_dict`` (or a map of parameter names to tensors, then with
+    ``bns``, the names of its BatchNorm modules) as the JAX package's
+    variables, ``{"params", "batch_stats"}`` of numpy arrays under the JAX
+    module names -- the inverse of ``utils/convert.py::from_jax_variables``'
+    key rules."""
     from nsdp_tpu_torch.utils.convert import _MODULE_LISTS, _SEQ_INDEX, _SEQ_MLPS
 
     seq = {v: k for k, v in _SEQ_INDEX.items()}
-    bns = {k.rsplit(".", 1)[0] for k in state if k.endswith(".running_mean")}
+    if bns is None:
+        bns = {k.rsplit(".", 1)[0] for k in state if k.endswith(".running_mean")}
     leaves = {"weight": "scale", "bias": "bias", "running_mean": "mean", "running_var": "var"}
     tree = {"params": {}, "batch_stats": {}}
     for key, value in state.items():
@@ -1592,6 +1622,36 @@ def write_flax_model_file(state, path):
         for tok in names[:-1]:
             node = node.setdefault(tok, {})
         node[names[-1]] = value
+    return tree
+
+
+def write_flax_model_file(state, path):
+    """A model's ``state_dict`` as the JAX package's model file: flax
+    msgpack of ``{"params", "batch_stats"}`` (:func:`flax_variables`)."""
+    with open(path, "wb") as f:
+        f.write(msgpack_bytes(flax_variables(state)))
+    return path
+
+
+def write_flax_opt_file(opt_state, names, bns, training, path):
+    """A torch Adam ``state_dict`` as the JAX package's optimizer file: flax
+    msgpack of ``{"opt_state", "step"}`` with the optax chain of
+    ``nsdp_tpu/training/optim.py::optimizer_factory`` for ``training`` (an
+    empty map for a ``clip`` and an ``add_decayed_weights`` stage, then
+    ``{"count", "mu", "nu"}`` on the params tree).  ``names`` are the
+    parameter names in the optimizer's order, ``bns`` the BatchNorm
+    modules."""
+    state = opt_state["state"]
+    steps = {float(s["step"]) for s in state.values()}
+    if len(steps) != 1 or len(state) != len(names):
+        fail(f"the optimizer state holds {len(state)} of {len(names)} parameters, steps {steps}")
+    count = np.asarray(int(steps.pop()), np.int32)
+    moments = {key: flax_variables({n: state[i][field] for i, n in enumerate(names)},
+                                   bns)["params"]
+               for key, field in (("mu", "exp_avg"), ("nu", "exp_avg_sq"))}
+    stages = [{} for key in ("clip_grad", "weight_decay") if training.get(key)]
+    stages.append({"count": count, **moments})
+    tree = {"opt_state": {str(i): st for i, st in enumerate(stages)}, "step": count}
     with open(path, "wb") as f:
         f.write(msgpack_bytes(tree))
     return path
@@ -1724,6 +1784,35 @@ def jax_file_test(torch, port_test, cfg, model, root, argv, data_stream, out):
         f" its {compared} meshes and point clouds byte for byte")
 
 
+def compare_nn_searches(searches, card):
+    """The first ``test`` pair's two Chamfer searches (predicted samples
+    against ground-truth ones and back), as ``utils/metrics.py`` made them,
+    timed again by the native KD-tree and by scipy's, in turns (median of
+    3), with the clouds' extents: where a search's time goes."""
+    from scipy.spatial import KDTree
+
+    from nsdp_tpu_torch.native import nearest_neighbor_distances
+
+    if len(searches) != 2:
+        fail(f"test's metrics made {len(searches)} nearest-neighbour searches, expected 2")
+    rows = []
+    for query, points in searches:
+        native_s, scipy_s = [], []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            nearest_neighbor_distances(query, points)
+            native_s.append(time.perf_counter() - t0)
+            t0 = time.perf_counter()
+            KDTree(points).query(query)
+            scipy_s.append(time.perf_counter() - t0)
+        extent = lambda a: float(np.ptp(a, axis=0).max())
+        rows.append(f"{len(query)} queries to {len(points)} points (extents {extent(query):.3g}"
+                    f" and {extent(points):.3g}): native {1e3 * float(np.median(native_s)):.1f} ms,"
+                    f" scipy {1e3 * float(np.median(scipy_s)):.1f} ms")
+    log(f"entry points: the first pair's two Chamfer searches timed again in turns (medians of"
+        f" 3): {'; '.join(rows)} ({card})")
+
+
 def entry_points(torch, rows, card):
     """Phase 5: the test and run entry points on the card at full width
     (the launches of their main path checked), the card against the CPU on
@@ -1731,8 +1820,10 @@ def entry_points(torch, rows, card):
     versions (their rows appended to ``rows``)."""
     import tempfile
 
+    from nsdp_tpu_torch import native
     from nsdp_tpu_torch import run as port_run
     from nsdp_tpu_torch import test as port_test
+    from nsdp_tpu_torch.utils import metrics as port_metrics
     from nsdp_tpu_torch.data.synthetic import (
         generate_synthetic_dataset,
         generate_userhandle_dataset,
@@ -1762,9 +1853,21 @@ def entry_points(torch, rows, card):
         cfg["test"]["weight_file"] = weight_file
         path = write_config(cfg, os.path.join(root, "test.yaml"))
         data_stream = np.random.get_state()  # the datasets draw from np.random
+        searches = []  # the first pair's two Chamfer searches, kept to time below
+        real_nn = port_metrics._nn_dists
+
+        def recording_nn(query, points):
+            if len(searches) < 2:
+                searches.append((np.array(query), np.array(points)))
+            return real_nn(query, points)
+
+        port_metrics._nn_dists = recording_nn
         reset_counts()  # ---- the main path: test, then run on each mesh
         t0 = time.perf_counter()
-        times = port_test.main([path, *argv])
+        try:
+            times = port_test.main([path, *argv])
+        finally:
+            port_metrics._nn_dists = real_nn
         wall = time.perf_counter() - t0
         pairs = len(times["writers"])
         expect_launches((0,) * 5, tuple(pairs * x for x in PAIR_LAUNCHES), f"test, {pairs} pairs")
@@ -1776,6 +1879,10 @@ def entry_points(torch, rows, card):
             if sum("loss:" in line for line in f) != pairs:
                 fail(f"test: {out}.txt lacks its {pairs} progress lines")
         report_entry("test, deform4d arbitrary.yaml", times, wall, card)
+        log(f"entry points: test's metrics stage (l2 / fnc / cd; cd through the native float32"
+            f" KD-tree, {native.library_path().name}) by pair"
+            f" {', '.join(f'{t:.3f}' for t in times['metrics'])} s ({card})")
+        compare_nn_searches(searches, card)
 
         uh = load_config(os.path.join(REPO, "configs", "tosca", "head.yaml"))
         uh["test"]["weight_file"] = weight_file
@@ -2089,6 +2196,67 @@ def cli_run(torch, label, path, cfg, record, ticks, argv, card):
     return directory, epoch_ms, per_epoch
 
 
+def jax_layout_copy(torch, cfg, model_file, names, root):
+    """Stage 2's ``model_00001`` / ``opt_00001`` / ``modelbest_*`` rewritten
+    in the JAX package's layout (:func:`write_flax_model_file`,
+    :func:`write_flax_opt_file`, no flax) into a fresh experiment directory
+    under ``root`` -> (the path of ``cfg`` pointed there, that config)."""
+    import copy
+
+    cfg = copy.deepcopy(cfg)
+    cfg["experiment"]["out_dir"] = os.path.join(root, "out")
+    directory = os.path.join(cfg["experiment"]["out_dir"], cfg["experiment"]["name"])
+    os.makedirs(directory)
+    source = os.path.dirname(model_file)
+    state = torch.load(model_file, map_location="cpu", weights_only=True)["model_state_dict"]
+    bns = {k.rsplit(".", 1)[0] for k in state if k.endswith(".running_mean")}
+    for name in os.listdir(source):
+        if name == "model_00001" or name.startswith("modelbest_"):
+            weights = torch.load(os.path.join(source, name), map_location="cpu",
+                                 weights_only=True)["model_state_dict"]
+            write_flax_model_file(weights, os.path.join(directory, name))
+    opt = torch.load(model_file.replace("model_", "opt_"), map_location="cpu",
+                     weights_only=True)["optimizer_state_dict"]
+    write_flax_opt_file(opt, names, bns, cfg["training"], os.path.join(directory, "opt_00001"))
+    return write_config(cfg, os.path.join(root, "arbitrary_3.yaml")), cfg
+
+
+def check_jax_layout_resume(torch, record, want, tape, directory, jax_dir, card):
+    """The resume from the JAX-layout files against the resume from the
+    torch files: the model before its first step bit for bit (but the
+    BatchNorm counters, which flax does not keep), the optimizer's whole
+    state, K2's inputs at every call, and every loss of the resumed epoch."""
+    from nsdp_tpu_torch.utils.msgpack_reader import is_msgpack_map
+
+    for name in ("model_00001", "opt_00001"):
+        with open(os.path.join(jax_dir, name), "rb") as f:
+            if not is_msgpack_map(f.read(1)):
+                fail(f"JAX-layout resume: {name} is not a msgpack map")
+    counters = [k for k in want["first"] if k.endswith("num_batches_tracked")]
+    same_state(torch, {k: v for k, v in record["first"].items() if k not in counters},
+               {k: v for k, v in want["first"].items() if k not in counters},
+               "JAX-layout resume: the model before its first step")
+    same_state(torch, record["first_opt"], want["first_opt"],
+               "JAX-layout resume: the optimizer before its first step")
+    parted = tape.check(torch, "JAX-layout resume")
+    losses = [float(x) for x in record["losses"]]
+    if losses != want["losses"]:
+        fail(f"JAX-layout resume: losses {losses} against {want['losses']}")
+    printed = [cli_losses(os.path.join(d, "stats.txt")) for d in (jax_dir, directory)]
+    if printed[0] != printed[1] or not printed[0]:
+        fail(f"JAX-layout resume: printed losses {printed[0]} against {printed[1]}")
+    if "model_00002" not in os.listdir(jax_dir):
+        fail("JAX-layout resume: no model_00002")
+    n_opt = sum(len(s) for s in want["first_opt"]["state"].values())
+    log(f"train CLI: stage 2 resumed at epoch 2 from the same files in the JAX package's layout"
+        f" (flax msgpack; Adam's mu / nu / count as optax keeps them): the model bit for bit but"
+        f" its {len(counters)} BatchNorm counters (not in a flax file), the optimizer's"
+        f" {len(want['first_opt']['state'])} parameter states ({n_opt} tensors) bit for bit, K2's"
+        f" inputs bit for bit at every call ({parted} output elements of K2's float64 atomics"
+        f" parted between the runs, replayed), the {len(losses)} losses of epoch 3 and"
+        f" {len(printed[0])} printed lines bit for bit (last loss {losses[-1]!r}); {card}")
+
+
 def train_cli(torch, card):
     """Phase 6: ``python -m nsdp_tpu_torch.train`` at full width, in
     process: stage 1 (forward, backward), stage 2 from their last files,
@@ -2147,13 +2315,26 @@ def train_cli(torch, card):
                     f" {100 * (1 - per_step / epoch_ms):.1f}% idle; {best}; {card}")
                 if label == "forward":
                     check_watch(torch, record)
+                names = [n for n, _ in record["model"].named_parameters()]
                 record.clear()
                 torch.cuda.empty_cache()
 
             path, cfg = cli_config("arbitrary", fx, root, epochs=3,
                                    weights=(last["forward"], last["backward"]))
+            # the same stage-2 files in the JAX package's layout, in a
+            # directory of their own, before the resume below writes on
+            jax_path, jax_cfg = jax_layout_copy(torch, cfg, last["arbitrary"], names,
+                                                os.path.join(root, "jax_layout"))
+            # both resumes draw their items in order (no loader threads
+            # sharing np.random), and the second replays K2's outputs of the
+            # first (its float64 atomics sum in no fixed order)
+            resume_argv = [*argv[:argv.index("--num_workers")], "--num_workers", "0",
+                           *argv[argv.index("--num_workers") + 2:]]
+            tape = K2Tape()
             port_train.make_steps = recording_steps(torch, make_steps, record, "arbitrary")
-            directory, _, _ = cli_run(torch, "arbitrary", path, cfg, record, ticks, argv, card)
+            with tape.run(replay=False):
+                directory, _, _ = cli_run(torch, "arbitrary", path, cfg, record, ticks,
+                                          resume_argv, card)
             same_state(torch, record["first"], read_state_dict(last["arbitrary"]),
                        "resume: the model before its first step")
             opt = torch.load(last["arbitrary"].replace("model_", "opt_"), map_location="cpu",
@@ -2164,6 +2345,14 @@ def train_cli(torch, card):
                 fail(f"resume: trained epochs {epochs}, expected {{3}} and model_00002")
             log("train CLI: stage 2 resumed at epoch 2 from model_00001 / opt_00001, loaded bit"
                 " for bit; stage 1's last files grafted bit for bit into stage 2's branches")
+            torch_resume = {k: record[k] for k in ("first", "first_opt")}
+            torch_resume["losses"] = [float(x) for x in record["losses"]]
+            record.clear()
+            port_train.make_steps = recording_steps(torch, make_steps, record, "arbitrary")
+            with tape.run(replay=True):
+                jax_dir, _, _ = cli_run(torch, "arbitrary", jax_path, jax_cfg, record, ticks,
+                                        resume_argv, card)
+            check_jax_layout_resume(torch, record, torch_resume, tape, directory, jax_dir, card)
             record.clear()
     finally:
         port_train.make_steps, port_train.StepTimer = make_steps, timer
@@ -2630,7 +2819,7 @@ class K2Tape:
         parted = 0
         for (args0, out0), (args1, out1) in zip(self.recorded, self.replayed):
             if not all(same(x, y) for x, y in zip(args0, args1)):
-                fail(f"{what}: K2's inputs differ from the step without a group")
+                fail(f"{what}: K2's inputs differ from the recorded run's")
             parted += sum(int((x != y).sum()) for x, y in zip(out0, out1) if x is not None)
         self.recorded, self.replayed = [], []
         return parted
@@ -2973,6 +3162,193 @@ def multi_process(torch, card):
     log(f"multi-process: phase 7 took {time.perf_counter() - t_phase:.1f} s")
 
 
+# ---------------------------------------------------------------- phase 9
+
+# the preprocessing fixture: 2 identities x 1 motion x 7 frames of a
+# 40,962-vertex icosphere posed by deform_frame, as .anime files
+PRE_FRAMES, PRE_SUBDIVISIONS = 7, 6
+NN_POINTS = 30000  # the Chamfer metric's sample count (utils/metrics.py)
+MC_GRID, MC_RADIUS = 128, 40.0
+
+
+def build_native():
+    """Phase 1: the host library (``nsdp_tpu_torch/native``) built by
+    ``c++`` -> a line on its build (or its reuse) and time."""
+    from nsdp_tpu_torch import native
+
+    cached = native.library_path().exists()
+    t0 = time.perf_counter()
+    native.load()
+    what = (f"native library {'reused from an earlier build' if cached else 'built'} in"
+            f" {time.perf_counter() - t0:.1f} s ({native.CXX} {' '.join(native.CXXFLAGS)})")
+    log(what)
+    return what
+
+
+def check_nn_query(card):
+    """The native KD-tree against scipy's on 30,000 x 30,000 points: the
+    same indices, and distances within 4 float32 ulps of scipy's float64
+    ones rounded to float32 (the native search sums in float32); both
+    timed (median of 3)."""
+    from scipy.spatial import KDTree
+
+    from nsdp_tpu_torch.native import nearest_neighbor_distances
+
+    rng = np.random.RandomState(9)
+    points, queries = (surface(rng, NN_POINTS) for _ in range(2))
+    native_s, scipy_s = [], []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        dist, idx = nearest_neighbor_distances(queries, points, return_index=True)
+        native_s.append(time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        want, want_idx = KDTree(points).query(queries)
+        scipy_s.append(time.perf_counter() - t0)
+    if not np.array_equal(idx, want_idx):
+        fail(f"native NN: {int((idx != want_idx).sum())} indices differ from scipy's")
+    want = want.astype(np.float32)
+    ulps = np.abs(dist.view(np.int32).astype(np.int64) - want.view(np.int32))
+    if ulps.max() > 4:
+        fail(f"native NN: a distance {int(ulps.max())} float32 ulps from scipy's")
+    log(f"host tools: nearest_neighbor_distances on {NN_POINTS} x {NN_POINTS} points"
+        f" {1e3 * float(np.median(native_s)):.2f} ms (native, float32) against scipy KDTree"
+        f" {1e3 * float(np.median(scipy_s)):.2f} ms (build and query, float64); indices"
+        f" equal, distances equal to scipy's rounded to float32 at"
+        f" {100 * float((ulps == 0).mean()):.2f}%, at most {int(ulps.max())} ulps; {card}")
+
+
+def check_mesher(card):
+    """``meshing.marching_cubes`` on a 128^3 sphere SDF: a closed mesh (every
+    edge in two faces), welded (no vertex twice), every vertex within one
+    voxel of the radius; timed (median of 3)."""
+    from nsdp_tpu_torch import meshing
+
+    c = (MC_GRID - 1) / 2.0
+    x = np.arange(MC_GRID, dtype=np.float32) - c
+    sdf = np.sqrt(x[:, None, None] ** 2 + x[None, :, None] ** 2 + x[None, None, :] ** 2) \
+        - MC_RADIUS
+    times = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        verts, faces = meshing.marching_cubes(sdf, 0.0)
+        times.append(time.perf_counter() - t0)
+    edges = np.sort(np.concatenate([faces[:, [0, 1]], faces[:, [1, 2]], faces[:, [2, 0]]]), 1)
+    _, per_edge = np.unique(edges, axis=0, return_counts=True)
+    if len(faces) == 0 or not (per_edge == 2).all():
+        fail(f"marching_cubes: {int((per_edge != 2).sum())} edges not in exactly two faces")
+    if len(np.unique(verts, axis=0)) != len(verts):
+        fail("marching_cubes: a vertex appears twice (not welded)")
+    radii = np.linalg.norm(verts - c, axis=1)
+    off = float(np.abs(radii - MC_RADIUS).max())
+    if off >= 1.0:
+        fail(f"marching_cubes: a vertex {off:.3f} voxels off the radius")
+    log(f"host tools: meshing.marching_cubes on a {MC_GRID}^3 sphere SDF (r = {MC_RADIUS:g})"
+        f" {1e3 * float(np.median(times)):.1f} ms: {len(verts)} vertices, {len(faces)} faces,"
+        f" closed and welded, mean radius {radii.mean():.4f}, every vertex within {off:.4f} of r;"
+        f" {card}")
+
+
+def preprocess_cli(root, command, *args):
+    """``python -m nsdp_tpu_torch.preprocess COMMAND ARGS`` as a subprocess
+    of its own -> its wall time in s."""
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "nsdp_tpu_torch.preprocess", command, *args],
+                          cwd=REPO, capture_output=True, text=True, timeout=600)
+    seconds = time.perf_counter() - t0
+    if proc.returncode != 0:
+        fail(f"preprocess {command} exited {proc.returncode}:\n{proc.stdout}\n{proc.stderr}")
+    log(f"host tools: preprocess {command} {' '.join(args).replace(root, '$TMP')}"
+        f" in {seconds:.1f} s: {proc.stdout.strip().splitlines()[-1]}")
+    return seconds
+
+
+def check_preprocess(root, card):
+    """The preprocessing entry point, each command a subprocess, on 2
+    identities x 7 frames of a 40,962-vertex mesh at the default sample
+    counts: ``anime``, ``deform4d --seed 0`` (read back by
+    ``Deform4DFlowDataset``), ``nocorr``, and ``deform4d --make_watertight``
+    by ``sdf`` and by ``poisson`` on each sequence's first frame, each
+    watertight frame a closed mesh."""
+    from nsdp_tpu_torch.data.datasets import Deform4DFlowDataset
+    from nsdp_tpu_torch.data.synthetic import deform_frame, icosphere, synthetic_config
+    from nsdp_tpu_torch.preprocess.anime import anime_write
+    from nsdp_tpu_torch.utils import meshio
+
+    verts, faces = icosphere(PRE_SUBDIVISIONS)
+    seqs = []
+    for ident in range(2):
+        frames = [deform_frame(verts, t / (PRE_FRAMES - 1), ident) for t in range(PRE_FRAMES)]
+        os.makedirs(os.path.join(root, "raw", f"id{ident}"))
+        anime_write(os.path.join(root, "raw", f"id{ident}", f"id{ident}_walk.anime"), frames[0],
+                    faces, np.stack([f - frames[0] for f in frames[1:]]))
+        seqs.append(f"id{ident}_walk")
+    with open(os.path.join(root, "templates.lst"), "w") as f:
+        f.write("\n".join(seqs) + "\n")
+    p = lambda *parts: os.path.join(root, *parts)
+    times = {"anime": preprocess_cli(root, "anime", "--in_folder", p("raw"), "--mesh_folder",
+                                     p("meshes"))}
+    deform4d = ["--input_mesh_dir", p("meshes"), "--temp_lst", p("templates.lst"), "--seed", "0"]
+    times["deform4d"] = preprocess_cli(root, "deform4d", *deform4d, "--output_data_dir",
+                                       p("deform4d"))
+    times["nocorr"] = preprocess_cli(root, "nocorr", "--input_mesh_dir", p("meshes"),
+                                     "--output_data_dir", p("nocorr"), "--mesh_format", "obj")
+    for method in ("sdf", "poisson"):
+        # the first frame of each sequence only (depth cut): at the default
+        # --watertight_spacing 0.02 one frame's SDF takes about a minute
+        times[f"watertight {method}"] = preprocess_cli(
+            root, "deform4d", *deform4d, "--output_data_dir", p(f"watertight_{method}"),
+            "--make_watertight", "--watertight_method", method, "--interval", str(PRE_FRAMES))
+        n_frames = 0
+        for seq in seqs:
+            for frame in sorted(os.listdir(p(f"watertight_{method}", seq))):
+                w_faces = meshio.load_mesh(p(f"watertight_{method}", seq, frame,
+                                             "model_watertight.ply"))[1]
+                edges = np.sort(np.concatenate([w_faces[:, [0, 1]], w_faces[:, [1, 2]],
+                                                w_faces[:, [2, 0]]]), 1)
+                _, per_edge = np.unique(edges, axis=0, return_counts=True)
+                if len(w_faces) == 0 or not (per_edge == 2).all():
+                    fail(f"watertight {method}: {seq}/{frame} is not closed")
+                n_frames += 1
+        if n_frames != len(seqs):
+            fail(f"watertight {method}: {n_frames} frames written, expected {len(seqs)}")
+        log(f"host tools: watertight {method}: {n_frames} frames, each closed")
+
+    split_dir = p("splits", "deform4d")
+    os.makedirs(split_dir)
+    for split in ("identity_seen", "train_seen", "test_unseen_motions"):
+        with open(os.path.join(split_dir, f"{split}.lst"), "w") as f:
+            f.write("\n".join(seqs) + "\n")
+    cfg = synthetic_config({"dataset_dir": p("deform4d"), "split_dir": p("splits")},
+                           n_surface=5000, n_space=5000)
+    ds = Deform4DFlowDataset(cfg, "identity_seen", "test_unseen_motions", load_mesh=True,
+                             rng=np.random.RandomState(0))
+    n_per_seq = -(-PRE_FRAMES // 3)  # deform4d's default interval 3
+    if len(ds) != 2 * n_per_seq:
+        fail(f"Deform4DFlowDataset read {len(ds)} pairs, expected {2 * n_per_seq}")
+    item = ds[len(ds) - 1]
+    check_output(item["surface_samples_inputs"], (5000, 7), "preprocessed surface samples")
+    check_output(item["space_samples_src"], (5000, 3), "preprocessed space samples")
+    check_output(item["verts_src"], (len(verts), 3), "preprocessed mesh")
+    log(f"host tools: Deform4DFlowDataset read the deform4d output: {len(ds)} pairs, finite,"
+        f" of the expected shapes; commands {', '.join(f'{k} {v:.1f} s' for k, v in times.items())}"
+        f" ({os.cpu_count()} CPUs, the default --max_threads / --n_proc -1: spawn pools); {card}")
+
+
+def host_tools(card, native_build):
+    """Phase 9: the host tools on the card's machine -- the native build
+    (phase 1's time), its NN query against scipy, the mesher, and the
+    preprocessing entry point as subprocesses."""
+    import tempfile
+
+    t_phase = time.perf_counter()
+    log(f"host tools: {native_build} (phase 1); {card}")
+    check_nn_query(card)
+    check_mesher(card)
+    with tempfile.TemporaryDirectory() as root:
+        check_preprocess(root, card)
+    log(f"host tools: phase 9 took {time.perf_counter() - t_phase:.1f} s")
+
+
 def rank_main(argv) -> None:
     """A rank of phase 7: ``--rank ROLE RANK WORLD PORT ARGS...``."""
     import torch
@@ -3045,6 +3421,7 @@ def main() -> None:
     _build.build()
     log(f"kernels built in {time.perf_counter() - t0:.1f} s (nvcc, sm_90a)")
     report_build(_build)
+    native_build = build_native()
 
     rng = np.random.RandomState(0)
     surf = surface(rng, 5000)
@@ -3069,6 +3446,7 @@ def main() -> None:
     train_cli(torch, card)
     multi_process(torch, card)
     narrow_launches = narrow_and_remat(torch, rng, surf, f32_stats)
+    host_tools(card, native_build)
 
     k1 = kernel_entry("fused_knn_vector_attention", "nsdp_tpu_torch/csrc/attention.cu",
                       "nsdp_tpu/ops/attention_pallas.py:134", rows["k1"], launches[0])

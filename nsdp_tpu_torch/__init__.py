@@ -14,22 +14,26 @@ JAX package is a hand-written CUDA kernel under ``csrc/``:
 Entry points run on ``cuda`` unless the caller asks for the CPU
 (``device="cpu"``), where every kernel wrapper takes its plain PyTorch
 version; with no card and no explicit CPU request they raise.
+
+The host tools -- ``native`` (C++ KD-tree and marching tetrahedra),
+``meshing`` and ``preprocess`` (``python -m nsdp_tpu_torch.preprocess``) --
+are numpy/scipy/C++ on the host, as in the JAX package, and import no torch.
 """
 
 from typing import Optional, Union
 
-import torch
-
 __all__ = ["resolve_device"]
 
 
-def resolve_device(device: Optional[Union[str, torch.device]] = None) -> torch.device:
+def resolve_device(device: Optional[Union[str, "torch.device"]] = None) -> "torch.device":
     """The device an entry point runs on: ``cuda`` unless told otherwise.
 
     Raises ``RuntimeError`` when CUDA is requested (explicitly or by
     default) and no card is visible -- the port never carries on silently
     on the CPU.
     """
+    import torch  # here, so that the host tools (preprocess) never load torch
+
     dev = torch.device("cuda" if device is None else device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(

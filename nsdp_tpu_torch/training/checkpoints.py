@@ -15,8 +15,11 @@ port reads the published ``forward.pt`` / ``backward.pt`` / ``arbitrary.pt``
 :func:`read_state_dict` also reads the JAX package's model files (flax
 msgpack of ``{"params", "batch_stats"}``,
 ``nsdp_tpu/training/checkpoints.py:29-42``), so every path that loads
-weights takes a model trained by either package.  The JAX package's
-optimizer files (optax state) are not read.
+weights takes a model trained by either package, and
+:func:`read_optimizer_state` its optimizer files (flax msgpack of the optax
+state, ``:36-42``), so ``python -m nsdp_tpu_torch.train`` resumes a run that
+``python train.py`` started with its Adam moments or SGD momentum
+(:func:`optimizer_state_from_jax`).
 """
 
 import os
@@ -27,7 +30,11 @@ import torch
 from torch import nn
 
 from nsdp_tpu_torch.utils.convert import from_jax_variables
-from nsdp_tpu_torch.utils.msgpack_reader import is_msgpack_map, read_flax_variables
+from nsdp_tpu_torch.utils.msgpack_reader import (
+    is_msgpack_map,
+    read_flax_optimizer,
+    read_flax_variables,
+)
 
 _MODEL_RE = re.compile(r"^model_(\d{5})$")
 _BEST_RE = re.compile(r"^modelbest_(\d{5})_([\d.]+)$")
@@ -42,14 +49,68 @@ def read_state_dict(path: str) -> Dict[str, torch.Tensor]:
     goes to ``torch.load`` (a zip, ``PK``, or a legacy pickle, ``0x80 0x02``),
     a raw state dict or ``{"model_state_dict": ...}``.
     """
-    with open(path, "rb") as f:
-        head = f.read(1)
-    if is_msgpack_map(head):
+    if _is_flax_file(path):
         return from_jax_variables(*read_flax_variables(path))
     obj = torch.load(path, map_location="cpu", weights_only=True)
     if isinstance(obj, dict) and "model_state_dict" in obj:
         obj = obj["model_state_dict"]
     return obj
+
+
+def _is_flax_file(path: str) -> bool:
+    with open(path, "rb") as f:
+        return is_msgpack_map(f.read(1))
+
+
+def optimizer_state_from_jax(opt_state: dict, model: nn.Module,
+                             optimizer: torch.optim.Optimizer) -> Dict[str, Any]:
+    """The torch ``optimizer.state_dict()`` holding an optax state as the
+    JAX package's ``optimizer_factory`` builds it (``nsdp_tpu/training/
+    optim.py``: ``clip`` and ``add_decayed_weights`` stages, stateless, then
+    ``scale_by_adam`` or ``trace``).
+
+    The moments have the params tree's structure and map onto
+    ``model.named_parameters()`` by the key rules of
+    :func:`~nsdp_tpu_torch.utils.convert.from_jax_variables` (Dense kernels
+    transposed): Adam's ``mu`` -> ``exp_avg``, ``nu`` -> ``exp_avg_sq``,
+    ``count`` -> every parameter's ``step`` (float32, as torch keeps it);
+    SGD's ``trace`` -> ``momentum_buffer``.  The parameter groups are the
+    optimizer's own (the JAX package keeps the rate outside its state)."""
+    stages = [opt_state[k] for k in sorted(opt_state, key=int)]
+    stateful = [st for st in stages if st]
+    if len(stateful) != 1:
+        raise ValueError(f"optax state with {len(stateful)} stateful stages; expected one")
+    (stage,) = stateful
+    if isinstance(optimizer, torch.optim.Adam) and set(stage) == {"count", "mu", "nu"}:
+        moments = {"exp_avg": stage["mu"], "exp_avg_sq": stage["nu"]}
+        step = torch.tensor(float(stage["count"]), dtype=torch.float32)
+    elif isinstance(optimizer, torch.optim.SGD) and set(stage) == {"trace"}:
+        moments, step = {"momentum_buffer": stage["trace"]}, None
+    else:
+        raise ValueError(f"optax state {sorted(stage)} does not fit {type(optimizer).__name__}")
+    names = {id(p): name for name, p in model.named_parameters()}
+    order = [names[id(p)] for group in optimizer.param_groups for p in group["params"]]
+    mapped = {key: from_jax_variables(tree, {}) for key, tree in moments.items()}
+    for key, values in mapped.items():
+        missing = set(order) - set(values)
+        if missing:
+            raise ValueError(f"optax {key} has no moment for {sorted(missing)[:3]}")
+    state = {}
+    for i, name in enumerate(order):
+        state[i] = {key: values[name] for key, values in mapped.items()}
+        if step is not None:
+            state[i]["step"] = step.clone()
+    return {"state": state, "param_groups": optimizer.state_dict()["param_groups"]}
+
+
+def read_optimizer_state(path: str, model: nn.Module,
+                         optimizer: torch.optim.Optimizer) -> Dict[str, Any]:
+    """The optimizer state dict of an ``opt_*`` file, decided by its first
+    byte as :func:`read_state_dict` decides: a JAX package file
+    (:func:`optimizer_state_from_jax`), else the port's torch file."""
+    if _is_flax_file(path):
+        return optimizer_state_from_jax(read_flax_optimizer(path)[0], model, optimizer)
+    return torch.load(path, map_location="cpu", weights_only=True)["optimizer_state_dict"]
 
 
 def _write_model(path: str, epoch: int, state: Dict[str, torch.Tensor]) -> None:
@@ -74,8 +135,9 @@ def save_checkpoints(epoch: int, model: nn.Module, optimizer: torch.optim.Optimi
 
 def load_checkpoints(model: nn.Module, optimizer: torch.optim.Optimizer,
                      experiment_directory: str) -> Optional[int]:
-    """Resume from the latest ``model_*`` / ``opt_*`` pair, if any: loads
-    both in place and returns the epoch to continue from, else None."""
+    """Resume from the latest ``model_*`` / ``opt_*`` pair, if any, written
+    by either package: loads both in place and returns the epoch to continue
+    from, else None."""
     if not os.path.isdir(experiment_directory):
         return None
     ids = [int(m.group(1)) for f in os.listdir(experiment_directory)
@@ -90,8 +152,8 @@ def load_checkpoints(model: nn.Module, optimizer: torch.optim.Optimizer,
     print(f"Loading model checkpoint from {model_path}")
     model.load_state_dict(read_state_dict(model_path), strict=True)
     print(f"Loading optimizer checkpoint from {opt_path}")
-    opt = torch.load(opt_path, map_location="cpu", weights_only=True)
-    optimizer.load_state_dict(opt["optimizer_state_dict"])
+    # load_state_dict moves the moments onto the parameters' device
+    optimizer.load_state_dict(read_optimizer_state(opt_path, model, optimizer))
     return epoch + 1
 
 

@@ -8,21 +8,27 @@ the reference (``utils/eval_metric.py:6-61``):
 * ``cd``  — Chamfer-L1 over 30k barycentric surface samples drawn
   area-weighted from the *predicted* mesh's faces, with the same face indices
   and Dirichlet(1,1,1) barycentric weights applied to both meshes, via exact
-  nearest neighbours (scipy's KD-tree; the JAX package's native search is
-  exact too, so both give the same distances).
+  nearest neighbours.
+
+The nearest-neighbour search is the port's native float32 KD-tree
+(:mod:`nsdp_tpu_torch.native`, the same C++ as ``nsdp_tpu.native``), as the
+JAX package's ``_nn_dists`` prefers (``nsdp_tpu/utils/metrics.py:23-31``),
+so ``l2``/``fnc``/``cd`` equal the JAX package's bit for bit.  scipy's
+float64 KD-tree finds the same neighbours but not the same distances
+(float64 against float32 rounding), so it is not used; a failed native
+build raises.
 """
 
 from typing import Dict
 
 import numpy as np
-from scipy.spatial import KDTree
 
+from nsdp_tpu_torch.native import nearest_neighbor_distances
 from nsdp_tpu_torch.utils import meshio
 
 
 def _nn_dists(query: np.ndarray, points: np.ndarray) -> np.ndarray:
-    d, _ = KDTree(points).query(query)
-    return d
+    return nearest_neighbor_distances(query, points)
 
 
 def compute_dist_square(vertices: np.ndarray, vertices_gt: np.ndarray) -> float:

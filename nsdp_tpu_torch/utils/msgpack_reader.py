@@ -1,14 +1,17 @@
-"""A small msgpack decoder for the JAX package's model files.
+"""A small msgpack decoder for the JAX package's model and optimizer files.
 
 ``nsdp_tpu/training/checkpoints.py`` writes ``model_*`` / ``modelbest_*``
-files as ``flax.serialization.to_bytes({"params", "batch_stats"})``: a
+files as ``flax.serialization.to_bytes({"params", "batch_stats"})`` and
+``opt_*`` files as ``to_bytes({"opt_state", "step"})`` of the optax state: a
 msgpack map whose array leaves are flax's ndarray extension (ExtType code
 1, the payload itself msgpack of ``(shape, dtype name, C-order bytes)``,
 ``flax/serialization.py::_ndarray_to_bytes``), numpy scalars ExtType code
 3 in the same layout.  This module reads that layout with the standard
 library only, so the port needs neither ``msgpack`` nor ``flax``.
 
-It decodes maps, arrays, strings, bin, ints, floats, nil and bool.  Array
+It decodes maps (empty ones too: optax's stateless stages, ``clip`` and
+``add_decayed_weights``, serialise as ``{}``), arrays, strings, bin, ints,
+floats, nil and bool.  Array
 leaves come back as CPU ``torch.Tensor``s in their stored dtype
 (``bfloat16`` included, which numpy has no type for); a numpy scalar as a
 0-d tensor.  Any other extension code, and flax's chunked layout for leaves
@@ -141,3 +144,17 @@ def read_flax_variables(path: str) -> Tuple[dict, dict]:
     if not isinstance(tree, dict) or "params" not in tree:
         raise ValueError(f"{path}: not a flax model file (no 'params')")
     return tree["params"], tree.get("batch_stats", {})
+
+
+def read_flax_optimizer(path: str) -> Tuple[dict, int]:
+    """``(opt_state, step)`` of an optimizer file written by the JAX package
+    (``nsdp_tpu.training.checkpoints.save_checkpoints``).  ``opt_state`` is
+    the optax chain's state as flax serialises it: one map per stage, keyed
+    ``"0"``, ``"1"``, ...; Adam's ``{"count" (a 0-d int32 tensor), "mu",
+    "nu"}``, SGD's ``{"trace"}``, the moments shaped as the params tree;
+    ``step`` the train state's step count as an int."""
+    with open(path, "rb") as f:
+        tree = unpackb(f.read())
+    if not isinstance(tree, dict) or "opt_state" not in tree:
+        raise ValueError(f"{path}: not a flax optimizer file (no 'opt_state')")
+    return tree["opt_state"], int(tree.get("step", 0))

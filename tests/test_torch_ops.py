@@ -93,7 +93,7 @@ def _imported_modules(path):
 
 
 def test_port_imports_no_jax_and_nothing_of_the_jax_package():
-    banned = ("jax", "jaxlib", "flax", "optax", "nsdp_tpu")
+    banned = ("jax", "jaxlib", "flax", "optax", "joblib", "nsdp_tpu")
     sources = _port_sources()
     assert len(sources) > 10 and all(p.exists() for p in sources)
     assert {REPO / "nsdp_tpu_torch" / "training" / f"{m}.py"
@@ -110,6 +110,13 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
     assert {REPO / "nsdp_tpu_torch" / "parallel" / f"{m}.py"
             for m in ("__init__", "dist", "multihost")} <= set(sources)
     assert REPO / "nsdp_tpu_torch" / "utils" / "msgpack_reader.py" in set(sources)
+    assert {REPO / "nsdp_tpu_torch" / m
+            for m in ("native/__init__.py", "meshing.py")} <= set(sources)
+    preprocess = {REPO / "nsdp_tpu_torch" / "preprocess" / f"{m}.py"
+                  for m in ("__init__", "__main__", "anime", "normalize", "flow", "watertight",
+                            "poisson", "pipeline")}
+    assert preprocess == set((REPO / "nsdp_tpu_torch" / "preprocess").glob("*.py"))
+    assert preprocess <= set(sources)
     offenders = [
         f"{p.relative_to(REPO)}: {mod}"
         for p in sources
