@@ -27,9 +27,14 @@ Phases (any failure exits non-zero and prints no result line):
    it (the port never calls it); K1's device time split by CUDA kernel
    (``torch.profiler``); K1's narrow-operand mode (``compute_dtype``) on
    the same arguments at every site in bfloat16, and at ``decoder_surface``
-   in float16: its relative L2 gap to its plain version at most
+   and ``set_abstraction_1`` (D = 256, the largest shared memory) in
+   float16: its relative L2 gap to its plain version at most
    ``K1_NARROW_SHARE`` (1/4) of the plain version's gap to the plain float32
-   version, timed beside it with the float32 mode's bound; K3's
+   version, its device time by CUDA kernel naming the tensor-core kernels
+   (``NARROW_KERNELS``) and none of the float32 mode's own
+   (``F32_ONLY_KERNELS``), timed beside it with the float32 mode's bound,
+   and the wrapper's shared-memory sizing held against the kernel's
+   (``nsdp_attention_narrow_smem``); K3's
    latency bound, its dependent steps at the
    measured cost of one step of a 1024-point cloud; K4's latency bound at
    each site, the function's dependent chain: its k warp arg-min rounds
@@ -206,7 +211,8 @@ were their D x D products all on the tensor cores in 3xTF32; K3's and
 K4's ``bound_latency_ms``; K1's ``bf16``, its narrow mode's entry per
 evaluation with phase 8d's launches, bounded with its D x D products on the
 bf16 tensor cores (``bound_narrow``; ``bound_f32_ops_ms``: the float32
-mode's bound), and ``f16_decoder_surface``); the
+mode's bound; ``bound_share``: the bound over the kernel's time), and
+``f16_decoder_surface`` and ``f16_set_abstraction_1``); the
 last line is ``{"ok": true, "device": {...}}``.
 
 K1's digests: ``K1_DIGESTS`` holds the SHA-256 of K1's output bytes at each
@@ -245,6 +251,13 @@ E2E_TOL = dict(rtol=1e-3, atol=2e-4)
 # K1's narrow mode against its plain version: the relative L2 gap at most
 # this share of the plain narrow version's gap to the plain float32 one
 K1_NARROW_SHARE = 0.25
+# the narrow mode's kernels on the tensor cores, and the float32 mode's own,
+# which a narrow call must not launch (the selection and the broadcast
+# query's global logits, knn_kernel and glob_logits_kernel, are shared)
+NARROW_KERNELS = ("attn_mma16_kernel", "weight_frags16_kernel")
+F32_ONLY_KERNELS = ("attn_kernel", "attn_bcast_kernel", "weights_in_out_kernel")
+# sites of phase 2 where the narrow mode also runs in float16
+K1_F16_SITES = ("decoder_surface", "set_abstraction_1")
 
 
 def fail(msg: str) -> None:
@@ -535,11 +548,27 @@ def check_kernels(torch, rng, surf):
         rows["k1"].append(check_k1_site(torch, a, site))
         # the narrow-operand mode on the same arguments (no draw of its own)
         rows["k1_bf16"].append(check_k1_narrow(torch, a, site, torch.bfloat16))
-        if site[0] == "decoder_surface":
+        if site[0] in K1_F16_SITES:
             rows["k1_f16"].append(check_k1_narrow(torch, a, site, torch.float16))
         del a
+    check_narrow_sizing()
     rows["k3"] = check_fps(torch, surf, fps_500)
     return rows
+
+
+def check_narrow_sizing():
+    """The narrow kernel's shared memory against ``ops/attention.py``'s
+    mirror of it (which the CPU tests hold under the card's 227 KB), at
+    every D of phase 2."""
+    from nsdp_tpu_torch.ops import _build, attention
+
+    lib = _build.load("attention", attention._SIGNATURES)
+    for d in sorted({site[5] for site in k1_sites()} | {12, 37, 40}):
+        got, want = lib.nsdp_attention_narrow_smem(d), attention.narrow_smem_bytes(d)
+        if got != want:
+            fail(f"narrow K1 at D={d}: the kernel takes {got} bytes of shared memory, the"
+                 f" wrapper's mirror says {want}")
+    log("narrow K1: the kernel's shared memory equals the wrapper's mirror at every D")
 
 
 def check_k1_site(torch, a, site, digest=True):
@@ -611,17 +640,22 @@ def check_k1_narrow(torch, a, site, dtype):
         del got, ref, ref_f32
         ms = time_ms(torch, run, 5)
         plain_ms = time_ms(torch, lambda: plain(dtype), 3)
+        split = kernel_split(torch, run, 5)
+    name = str(dtype).replace("torch.", "")
+    if any(k not in split for k in NARROW_KERNELS) or any(k in split for k in F32_ONLY_KERNELS):
+        fail(f"K1 {name} at {site[0]}: its device time by kernel ({format_split(split)}) must"
+             f" name {', '.join(NARROW_KERNELS)} and none of {', '.join(F32_ONLY_KERNELS)}")
     flops, f32_bytes = k1_work(site)
     row = dict(site=site[0], per_eval=site[1], ms=ms, plain_ms=plain_ms, max_abs_err=max_err,
                rel_l2=err, gap=gap, flops=flops, bytes=k1_narrow_bytes(site),
-               mm_flops=k1_mm_flops(site), narrow=True,
-               bound_f32_ops_ms=bound(flops, f32_bytes)[0])
-    name = str(dtype).replace("torch.", "")
+               mm_flops=k1_mm_flops(site), narrow=True, split=split,
+               device_ms=sum(split.values()), bound_f32_ops_ms=bound(flops, f32_bytes)[0])
     log(f"K1 {name} {site[0]:<26} kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  bound"
         f" {bound_narrow(row)[0]:.4f} ms ({bound_narrow(row)[1]}; float32's"
         f" {row['bound_f32_ops_ms']:.4f} ms); relative L2 gap to its plain version {err:.3g}"
         f" ({err / gap:.3f} of the plain version's {gap:.3g} to float32), max_abs_err"
         f" {max_err:.3g}")
+    log(f"   device by kernel (ms): {format_split(split)}")
     return row
 
 
@@ -3361,13 +3395,24 @@ def rank_main(argv) -> None:
 
 
 def short_name(mangled: str) -> str:
-    """``attn_kernel<4>`` from a mangled kernel name."""
-    m = re.search(r"\d+([A-Za-z_]+?_kernel)(ILi(\d+)E)?", mangled)
-    return mangled if m is None else m.group(1) + (f"<{m.group(3)}>" if m.group(3) else "")
+    """``attn_mma16_kernel<8, 1>`` from a mangled kernel name: its
+    length-prefixed names read in turn up to the one ending in
+    ``_kernel``, then that name's integer template arguments."""
+    i = 3 if mangled.startswith("_ZN") else 2 if mangled.startswith("_Z") else 0
+    while True:
+        m = re.match(r"\d+", mangled[i:])
+        if m is None:
+            return mangled
+        i += m.end()
+        name, i = mangled[i:i + int(m.group())], i + int(m.group())
+        if name.endswith("_kernel"):
+            args = re.match(r"I((?:Li-?\d+E)+)E", mangled[i:])
+            return name + (f"<{', '.join(re.findall(r'Li(-?\d+)E', args.group(1)))}>"
+                           if args else "")
 
 
-# kernels whose products run on the tensor cores (K2)
-TENSOR_CORE_KERNELS = ("bwd_rows_kernel", "wgrad_kernel")
+# kernels whose products run on the tensor cores (K2; K1's narrow mode)
+TENSOR_CORE_KERNELS = ("bwd_rows_kernel", "wgrad_kernel", "attn_mma16_kernel")
 
 
 def report_build(build) -> None:
@@ -3456,8 +3501,13 @@ def main() -> None:
                               "nsdp_tpu/ops/attention_pallas.py:134 (compute_dtype)",
                               rows["k1_bf16"], narrow_launches)
     k1["bf16"]["max_rel_l2_share"] = max(r["rel_l2"] / r["gap"] for r in rows["k1_bf16"])
-    k1["f16_decoder_surface"] = {key: rows["k1_f16"][0][key] for key in
-                                 ("ms", "plain_ms", "max_abs_err", "rel_l2", "gap")}
+    k1["bf16"]["bound_share"] = k1["bf16"]["bound_ms"] / k1["bf16"]["ms"]
+    # the device's own time of those calls (the kernel split's sum; ms is the
+    # call's, host dispatch included where it is longer)
+    k1["bf16"]["device_ms"] = sum(r["device_ms"] * r["per_eval"] for r in rows["k1_bf16"])
+    for r in rows["k1_f16"]:
+        k1[f"f16_{r['site']}"] = {key: r[key] for key in
+                                  ("ms", "device_ms", "plain_ms", "max_abs_err", "rel_l2", "gap")}
     if narrow_launches == 0:
         fail("the narrow mode of K1 was never launched on its main path")
     kernels = [

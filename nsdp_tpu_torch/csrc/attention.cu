@@ -56,26 +56,49 @@
 // ascending order, from 0, then + bias; the slot softmax in slot order, the
 // global slot last -- so both give the same bits.
 //
-// The narrow-operand mode (template argument NW: 1 bfloat16, 2 float16;
-// 0 is the float32 kernel, whose code the identity rounding leaves as it
-// was) is the TPU kernel's compute_dtype (attention_pallas.py:113-119,
-// 757-814): every MLP layer's input is rounded to the narrow type in
-// registers, to nearest even, and widened back -- dx before fc_delta, its
-// hidden activations, fc_gamma's inputs (q - K[n] + pos, q - k_glob) and
-// hidden activations -- while the wrapper rounds the weights and V once
-// before the launch.  Products still accumulate in f32 on the CUDA cores,
-// with f32 biases; coordinates, K, the global slot's k/v and the softmax
-// stay f32, so the mode costs the f32 kernel's operations plus a rounding
-// per MLP input.
+// The narrow-operand mode (mode 1 bfloat16, 2 float16) is the TPU kernel's
+// compute_dtype (attention_pallas.py:113-119, 757-814): every MLP layer's
+// input is rounded to the narrow type to nearest even -- dx before
+// fc_delta, its hidden activations, fc_gamma's inputs (q - K[n] + pos,
+// q - k_glob) and hidden activations -- and so are the weights and V; the
+// products are exact with f32 sums, the biases f32; coordinates, K, the
+// global slot's k/v, the values V[n] + pos and the softmax stay f32.  Its
+// D x D products are what the tensor cores take natively, so it has kernels
+// of its own on them (rows_mma16.cuh):
+//   * weight_frags16_kernel lays the three D x D weights out once per call,
+//     rounded, in the fragment order mma.sync reads, into scratch the wrapper
+//     allocates;
+//   * attn_mma16_kernel takes every site (pos-only, featured, masked or
+//     not, a broadcast query or not): a block of 32 warps(D) threads owns
+//     64 (query, slot) rows of whole queries, two blocks an SM up to
+//     D = 216.  The rows' deltas and neighbours go to shared memory;
+//     fc_delta's 3-wide first layer stays an f32 FMA chain on the rounded
+//     inputs (padded to a 16-deep MMA it would waste 5/6 of it) and is
+//     stored as 16-bit rows; then the three products run on the engine, each
+//     epilogue adding the bias and storing the next product's 16-bit input
+//     in place (the narrow rounding is the store), the values V[n] + pos in
+//     f32 beside it, and the logits in f32 over the spent activations; the
+//     slot softmax is a last pass over the logits and values in shared
+//     memory, in slot order.  A global slot is a row of its query
+//     (u = q - k_glob, value v_glob), or, where the query is broadcast (row
+//     stride 0), glob_logits_kernel computes its logits once per batch item
+//     and the softmax adds it last.  Outside the products a column pair
+//     stays with its thread and its rows' gathers go out several at a time:
+//     run row by row, the gathers of K and V took nearly as long as the
+//     block's three products (PERF.md).
+// knn_kernel and glob_logits_kernel are shared with the f32 mode; the f32
+// kernels above keep their code and bits.
 
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
+#include <type_traits>
 
 #include "knn_select.cuh"
 #include "rows_gemm.cuh"
+#include "rows_mma16.cuh"
 
 namespace {
 
@@ -84,8 +107,8 @@ using namespace rows;
 constexpr int kKMax = knnsel::kKMax;  // largest k
 constexpr int kDMax = 256;            // largest channel width
 
-// An MLP input in the narrow mode NW (0: f32, unchanged; 1: bfloat16;
-// 2: float16), rounded to nearest even and widened back to f32.
+// A value in the narrow mode NW (0: f32, unchanged; 1: bfloat16; 2:
+// float16), rounded to nearest even and widened back to f32.
 template <int NW>
 __device__ __forceinline__ float narrow(float x) {
   if constexpr (NW == 1) return __bfloat162float(__float2bfloat16_rn(x));
@@ -108,10 +131,12 @@ struct Params {
   const float* gw0; const float* gb0;  // (D, D), (D)
   const float* gw1; const float* gb1;  // (D, D), (D)
   float* out;            // (B, Nq, D)
-  float* glog;           // (B, D) global-slot logits (broadcast path), or null
+  float* glog;           // (B, D) global-slot logits of a broadcast query, or null
   const float* wt;       // (3, D, 4 nx) (in, out) dw1, gw0, gw1 (broadcast path)
+  const uint2* frag;     // narrow mode: dw1, gw0, gw1 in fragment order (rows_mma16.cuh)
   int B, Nq, M, D, k;
   int nx, ny;            // broadcast path: threads across the channels, queries a block
+  int round_v;           // narrow mode: round V to the narrow type (not a projection's)
 };
 
 // ---- kNN selection (knn_select.cuh, shared with K4) -------------------------
@@ -125,7 +150,7 @@ __global__ void __launch_bounds__(knnsel::kThreads) knn_kernel(
 
 // ---- attention over the selected slots --------------------------------------
 
-template <int CJ, int NW>
+template <int CJ>
 __global__ void __launch_bounds__(kThreads, 2) attn_kernel(const Params p) {
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
@@ -153,7 +178,7 @@ __global__ void __launch_bounds__(kThreads, 2) attn_kernel(const Params p) {
     const float* xq = p.xyz_q + ((size_t)b * p.Nq + (nb ? n : 0)) * 3;
 #pragma unroll
     for (int c = 0; c < 3; ++c)
-      dxs[r * 4 + c] = narrow<NW>(nb ? __fsub_rn(xq[c], kv[3 * j + c]) : 0.0f);
+      dxs[r * 4 + c] = nb ? __fsub_rn(xq[c], kv[3 * j + c]) : 0.0f;
   }
   __syncthreads();
 
@@ -167,7 +192,7 @@ __global__ void __launch_bounds__(kThreads, 2) attn_kernel(const Params p) {
 #pragma unroll
     for (int i = 0; i < kRT; ++i) {
       const float* dx = dxs + (ty * kRT + i) * 4;
-      h[i] = narrow<NW>(fmaxf(fmaf(dx[0], w0, fmaf(dx[1], w1, fmaf(dx[2], w2, b0))), 0.0f));
+      h[i] = fmaxf(fmaf(dx[0], w0, fmaf(dx[1], w1, fmaf(dx[2], w2, b0))), 0.0f);
     }
     store_rows(ht, d, h);
   }
@@ -201,8 +226,6 @@ __global__ void __launch_bounds__(kThreads, 2) attn_kernel(const Params p) {
         }
       }
     }
-#pragma unroll
-    for (int i = 0; i < kRT; ++i) u[i] = narrow<NW>(u[i]);
     store_rows(ut, d, u);
     store_rows(vt, d, v);
   }
@@ -216,7 +239,7 @@ __global__ void __launch_bounds__(kThreads, 2) attn_kernel(const Params p) {
     const float b0 = p.gb0[d];
     float h[kRT];
 #pragma unroll
-    for (int i = 0; i < kRT; ++i) h[i] = narrow<NW>(fmaxf(acc[i][j] + b0, 0.0f));
+    for (int i = 0; i < kRT; ++i) h[i] = fmaxf(acc[i][j] + b0, 0.0f);
     store_rows(ht, d, h);
   }
   rows_gemm<CJ>(ht, p.gw1, D, ws, acc);
@@ -255,14 +278,14 @@ size_t smem_bytes(int D) {
          kRows * sizeof(int);
 }
 
-template <int CJ, int NW>
+template <int CJ>
 cudaError_t launch_attention(const Params& p, int device, cudaStream_t stream) {
   // Opt in, once per device, to the shared memory of this instantiation's
   // widest D (more than the default 48 KB).
   static bool opted_in[kMaxDevices];
   if (!opted_in[device]) {
     const cudaError_t err = cudaFuncSetAttribute(
-        attn_kernel<CJ, NW>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        attn_kernel<CJ>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         (int)smem_bytes(CJ * kNX));
     if (err != cudaSuccess) return failed(err);
     opted_in[device] = true;
@@ -270,7 +293,7 @@ cudaError_t launch_attention(const Params& p, int device, cudaStream_t stream) {
   const size_t smem = smem_bytes(p.D);
   const int tq = kRows / (p.k + (p.k_glob ? 1 : 0));
   const dim3 grid((p.Nq + tq - 1) / tq, p.B);
-  attn_kernel<CJ, NW><<<grid, kThreads, smem, stream>>>(p);
+  attn_kernel<CJ><<<grid, kThreads, smem, stream>>>(p);
   return cudaGetLastError();
 }
 
@@ -286,7 +309,9 @@ constexpr int kMaxSmem = 232448; // opt-in shared memory of an sm_90 block
 
 // The global slot's logits, fc_gamma(q - k_glob), once per batch item: the
 // chains of rows_gemm (an fmaf per input, ascending, from 0, then + bias),
-// so they carry the bits attn_kernel's own global row would give.
+// so they carry the bits attn_kernel's own global row would give.  In the
+// narrow mode NW its layers' inputs and weights are rounded as the mode
+// rounds them.
 template <int NW>
 __global__ void __launch_bounds__(kThreads) glob_logits_kernel(const Params p) {
   __shared__ float u[kDMax], h[kDMax];
@@ -296,13 +321,13 @@ __global__ void __launch_bounds__(kThreads) glob_logits_kernel(const Params p) {
   __syncthreads();
   for (int d = threadIdx.x; d < D; d += kThreads) {
     float acc = 0.0f;
-    for (int kk = 0; kk < D; ++kk) acc = fmaf(u[kk], p.gw0[d * D + kk], acc);
+    for (int kk = 0; kk < D; ++kk) acc = fmaf(u[kk], narrow<NW>(p.gw0[d * D + kk]), acc);
     h[d] = narrow<NW>(fmaxf(acc + p.gb0[d], 0.0f));
   }
   __syncthreads();
   for (int d = threadIdx.x; d < D; d += kThreads) {
     float acc = 0.0f;
-    for (int kk = 0; kk < D; ++kk) acc = fmaf(h[kk], p.gw1[d * D + kk], acc);
+    for (int kk = 0; kk < D; ++kk) acc = fmaf(h[kk], narrow<NW>(p.gw1[d * D + kk]), acc);
     p.glog[(size_t)b * D + d] = acc + p.gb1[d];
   }
 }
@@ -369,7 +394,7 @@ size_t bcast_smem_bytes(int nx, int ny) {
 
 // Thread (tx, ty) owns query blockIdx.x * ny + ty of batch item blockIdx.y:
 // its rows 0 .. k-1 (RT >= k; rows k .. RT-1 idle) by channels 4 tx .. 4 tx + 3.
-template <int RT, int NW>
+template <int RT>
 __global__ void __launch_bounds__(kBcastThreads, 1) attn_bcast_kernel(const Params p) {
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
@@ -396,7 +421,7 @@ __global__ void __launch_bounds__(kBcastThreads, 1) attn_bcast_kernel(const Para
     const float* xq = p.xyz_q + ((size_t)b * p.Nq + (nb ? q : 0)) * 3;
 #pragma unroll
     for (int c = 0; c < 3; ++c)
-      dxs[e * 4 + c] = narrow<NW>(nb ? __fsub_rn(xq[c], kv[3 * j + c]) : 0.0f);
+      dxs[e * 4 + c] = nb ? __fsub_rn(xq[c], kv[3 * j + c]) : 0.0f;
   }
   __syncthreads();
 
@@ -410,7 +435,7 @@ __global__ void __launch_bounds__(kBcastThreads, 1) attn_bcast_kernel(const Para
 #pragma unroll
     for (int i = 0; i < RT; ++i) {
       const float* dx = dxs + (ty * kRT + i) * 4;
-      h[i] = narrow<NW>(fmaxf(fmaf(dx[0], w0, fmaf(dx[1], w1, fmaf(dx[2], w2, b0))), 0.0f));
+      h[i] = fmaxf(fmaf(dx[0], w0, fmaf(dx[1], w1, fmaf(dx[2], w2, b0))), 0.0f);
     }
     store8(xa + d * P + ty * kRT, h);
   }
@@ -450,14 +475,14 @@ __global__ void __launch_bounds__(kBcastThreads, 1) attn_bcast_kernel(const Para
         for (int i = 0; i < RT; ++i) {
           const float pos = acc[i][j] + b1;
           const size_t row = ((size_t)b * M + nbr[ty * kRT + i]) * D + d;
-          x[i] = narrow<NW>((qv - p.K[row]) + pos);
+          x[i] = (qv - p.K[row]) + pos;
           val[i][j] = p.V[row] + pos;
         }
         store8(xb + d * P + ty * kRT, x);
       } else {       // fc_gamma's hidden layer into xa
         const float b0 = p.gb0[d];
 #pragma unroll
-        for (int i = 0; i < RT; ++i) x[i] = narrow<NW>(fmaxf(acc[i][j] + b0, 0.0f));
+        for (int i = 0; i < RT; ++i) x[i] = fmaxf(acc[i][j] + b0, 0.0f);
         store8(xa + d * P + ty * kRT, x);
       }
     }
@@ -493,33 +518,288 @@ __global__ void __launch_bounds__(kBcastThreads, 1) attn_bcast_kernel(const Para
   }
 }
 
-template <int RT, int NW>
+template <int RT>
 cudaError_t launch_bcast(const Params& p, int device, cudaStream_t stream) {
   static bool opted_in[kMaxDevices];
   if (!opted_in[device]) {
     const cudaError_t err = cudaFuncSetAttribute(
-        attn_bcast_kernel<RT, NW>, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
+        attn_bcast_kernel<RT>, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
     if (err != cudaSuccess) return failed(err);
     opted_in[device] = true;
   }
   weights_in_out_kernel<<<264, 256, 0, stream>>>(p, 4 * p.nx, const_cast<float*>(p.wt));
-  glob_logits_kernel<NW><<<p.B, kThreads, 0, stream>>>(p);
+  glob_logits_kernel<0><<<p.B, kThreads, 0, stream>>>(p);
   const dim3 grid((p.Nq + p.ny - 1) / p.ny, p.B);
-  attn_bcast_kernel<RT, NW><<<grid, p.nx * p.ny, bcast_smem_bytes(p.nx, p.ny), stream>>>(p);
+  attn_bcast_kernel<RT><<<grid, p.nx * p.ny, bcast_smem_bytes(p.nx, p.ny), stream>>>(p);
   return cudaGetLastError();
 }
 
-// The attention kernels of one narrow mode: the broadcast path or the row
-// path by D.
-template <int NW>
-cudaError_t launch_mode(const Params& p, bool bcast, int device, cudaStream_t s) {
-  if (bcast) return p.k == 7 ? launch_bcast<7, NW>(p, device, s) : launch_bcast<8, NW>(p, device, s);
+// The float32 attention kernels: the broadcast path or the row path by D.
+cudaError_t launch_f32(const Params& p, bool bcast, int device, cudaStream_t s) {
+  if (bcast) return p.k == 7 ? launch_bcast<7>(p, device, s) : launch_bcast<8>(p, device, s);
   switch ((p.D + kNX - 1) / kNX) {
-    case 1: return launch_attention<1, NW>(p, device, s);
-    case 2: return launch_attention<2, NW>(p, device, s);
-    case 3: return launch_attention<3, NW>(p, device, s);
-    default: return launch_attention<4, NW>(p, device, s);
+    case 1: return launch_attention<1>(p, device, s);
+    case 2: return launch_attention<2>(p, device, s);
+    case 3: return launch_attention<3>(p, device, s);
+    default: return launch_attention<4>(p, device, s);
   }
+}
+
+
+// ---- the narrow-operand mode on the tensor cores (rows_mma16.cuh) -----------
+
+// The per-channel slot softmax of two queries (logits l, values v, S <= SM
+// slots at pitch P; a global slot's logit lg and value vg last where glob)
+// -> o1, o2.  Straight-line code: every slot read of both queries goes out
+// before the exps; a padded slot's exp is 0, so the sums keep slot order's
+// bits.  Slots are read SM / 8 chunks of 8 at a time for SM > 8.
+template <int SM>
+__device__ __forceinline__ void slot_softmax2(const float* l1, const float* v1, const float* l2,
+                                              const float* v2, int S, int P, bool glob, float lg,
+                                              float vg, float& o1, float& o2) {
+  constexpr int kChunk = SM < 8 ? SM : 8;
+  const float ninf = __int_as_float(0xff800000);
+  float m1 = glob ? lg : ninf, m2 = m1;
+#pragma unroll
+  for (int s0 = 0; s0 < SM; s0 += kChunk) {
+    if (s0 >= S) break;
+    float x1[kChunk], x2[kChunk];
+#pragma unroll
+    for (int i = 0; i < kChunk; ++i) {
+      const int s = min(s0 + i, S - 1);
+      x1[i] = l1[s * P], x2[i] = l2[s * P];
+    }
+#pragma unroll
+    for (int i = 0; i < kChunk; ++i) m1 = fmaxf(m1, x1[i]), m2 = fmaxf(m2, x2[i]);
+  }
+  float se1 = 0.0f, se2 = 0.0f, a1 = 0.0f, a2 = 0.0f;
+#pragma unroll
+  for (int s0 = 0; s0 < SM; s0 += kChunk) {
+    if (s0 >= S) break;
+    float x1[kChunk], x2[kChunk], y1[kChunk], y2[kChunk];
+#pragma unroll
+    for (int i = 0; i < kChunk; ++i) {
+      const bool in = s0 + i < S;
+      const int s = min(s0 + i, S - 1);
+      x1[i] = in ? l1[s * P] : ninf, x2[i] = in ? l2[s * P] : ninf;
+      y1[i] = v1[s * P], y2[i] = v2[s * P];
+    }
+#pragma unroll
+    for (int i = 0; i < kChunk; ++i) {
+      const float e1 = expf(x1[i] - m1), e2 = expf(x2[i] - m2);
+      se1 += e1, se2 += e2;
+      a1 = fmaf(e1, y1[i], a1), a2 = fmaf(e2, y2[i], a2);
+    }
+  }
+  if (glob) {
+    const float e1 = expf(lg - m1), e2 = expf(lg - m2);
+    se1 += e1, se2 += e2;
+    a1 = fmaf(e1, vg, a1), a2 = fmaf(e2, vg, a2);
+  }
+  o1 = a1 / se1, o2 = a2 / se2;
+}
+
+// Block (blockIdx.x, b = blockIdx.y) owns the TQ = R / S queries from
+// blockIdx.x TQ of batch item b, row r = t S + s for query t and slot s
+// (S = k, plus the global slot's row unless its logits come from
+// glob_logits_kernel); rows TQ S .. R - 1 are padding that no output reads.
+// The passes over rows outside the products keep a column (pair) with its
+// thread, so its weights, biases and broadcast operands load once, and run
+// its rows a few at a time, so their gathers are in flight together.
+template <int NW>
+__global__ void __launch_bounds__(mma16::kMaxThreads, 2) attn_mma16_kernel(const Params p) {
+  constexpr int R = mma16::kRows;
+  extern __shared__ float4 smem4[];
+  char* base = reinterpret_cast<char*>(smem4);
+  const int D = p.D, M = p.M, k = p.k, P = mma16::tile_pitch(D), PA = mma16::act_pitch(D);
+  const bool glob_row = p.k_glob != nullptr && p.glog == nullptr;
+  const int S = k + glob_row, TQ = R / S;
+  uint16_t* act = reinterpret_cast<uint16_t*>(base);  // (R, PA) 16-bit MLP inputs
+  uint2* ring = reinterpret_cast<uint2*>(base + mma16::act_bytes(D));  // weight fragments
+  float* logits = reinterpret_cast<float*>(base);  // (R, P), over both after the products
+  float* vals = reinterpret_cast<float*>(base + mma16::region_bytes(D));  // (R, P) values
+  float* dxs = vals + R * P;                       // (R, 4) position deltas
+  int* nbr = reinterpret_cast<int*>(dxs + 4 * R);  // (R) kv index per row
+  const uint2* frag = p.frag;
+  const size_t wstride = mma16::frag_elems(D) / 4;  // uint2s of one weight
+  const int b = blockIdx.y, t0 = blockIdx.x * TQ, tid = threadIdx.x, nthr = blockDim.x;
+  const float* kv = p.kv_xyz + (size_t)b * M * 3;
+
+  // ---- neighbours and position deltas (the rounded fc_delta input) ---------
+  for (int r = tid; r < R; r += nthr) {
+    const int t = r / S, s = r - t * S, n = t0 + t;
+    const bool nb = t < TQ && s < k && n < p.Nq;
+    const int j = nb ? p.idx[((size_t)b * p.Nq + n) * k + s] : 0;
+    nbr[r] = j;
+    const float* xq = p.xyz_q + ((size_t)b * p.Nq + (nb ? n : 0)) * 3;
+#pragma unroll
+    for (int c = 0; c < 3; ++c)
+      dxs[r * 4 + c] = narrow<NW>(nb ? __fsub_rn(xq[c], kv[3 * j + c]) : 0.0f);
+  }
+  __syncthreads();
+
+  // ---- fc_delta layer 0: f32 chains, stored as 16-bit pairs; zero pad ------
+  {
+    const int pairs = mma16::pad16(D) / 2, step = nthr / pairs, c = tid % pairs;
+    if (tid < step * pairs) {
+      float w[2][3], b0[2];
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const int d = min(2 * c + i, D - 1);
+#pragma unroll
+        for (int e = 0; e < 3; ++e) w[i][e] = narrow<NW>(__ldg(p.dw0 + 3 * d + e));
+        b0[i] = __ldg(p.db0 + d);
+      }
+#pragma unroll 4
+      for (int r = tid / pairs; r < R; r += step) {
+        const float4 dx = *reinterpret_cast<const float4*>(dxs + r * 4);
+        float h[2];
+#pragma unroll
+        for (int i = 0; i < 2; ++i)
+          h[i] = 2 * c + i < D
+                     ? fmaxf(fmaf(dx.x, w[i][0], fmaf(dx.y, w[i][1], fmaf(dx.z, w[i][2], b0[i]))), 0.0f)
+                     : 0.0f;
+        *reinterpret_cast<uint32_t*>(act + r * PA + 2 * c) = mma16::pack2<NW>(h[0], h[1]);
+      }
+    }
+  }
+
+  // ---- fc_delta layer 1 -> pos (into the values' rows) ----------------------
+  float acc[mma16::kMT][mma16::kNT][4];
+  mma16::rows_mma16<NW>(act, frag, D, ring, acc);
+  mma16::for_each_pair(D, acc, [&](int r, int c, float a0, float a1) {
+    const float b0 = c < D ? __ldg(p.db1 + c) : 0.0f, b1 = c + 1 < D ? __ldg(p.db1 + c + 1) : 0.0f;
+    *reinterpret_cast<float2*>(vals + r * P + c) = make_float2(a0 + b0, a1 + b1);
+  });
+  __syncthreads();
+
+  // ---- fc_gamma's input and the values: u = (q - K[n]) + pos, value
+  // V[n] + pos (V rounded unless it is a projection); the global slot's
+  // row u = q - k_glob, value v_glob.  kBatch rows at a time, their loads in
+  // straight-line code before any of their stores, so they go out together;
+  // at an even D (and 8-byte aligned rows) each operand's column pair is one
+  // 8-byte load.
+  if (p.q != nullptr) {
+    constexpr int kBatch = 4;
+    const int pairs = mma16::pad8(D) / 2, step = nthr / pairs, c = tid % pairs;
+    if (tid < step * pairs) {
+      const int d0 = min(2 * c, D - 1), d1 = min(2 * c + 1, D - 1);
+      const float* qb = p.q + b * p.q_sb;
+      const float kg0 = p.k_glob ? __ldg(p.k_glob + (size_t)b * D + d0) : 0.0f;
+      const float kg1 = p.k_glob ? __ldg(p.k_glob + (size_t)b * D + d1) : 0.0f;
+      const float vg0 = p.k_glob ? __ldg(p.v_glob + (size_t)b * D + d0) : 0.0f;
+      const float vg1 = p.k_glob ? __ldg(p.v_glob + (size_t)b * D + d1) : 0.0f;
+      auto rows = [&](auto even) {
+        // the column pair (d0, d1) of a row: one float2 at an even D (pad
+        // columns read the row's last pair, which no store keeps)
+        auto ld2 = [&](const float* row) {
+          if constexpr (decltype(even)::value)
+            return __ldg(reinterpret_cast<const float2*>(row) + min(c, D / 2 - 1));
+          else
+            return make_float2(__ldg(row + d0), __ldg(row + d1));
+        };
+        for (int r0 = tid / pairs; r0 < R; r0 += kBatch * step) {
+          float2 q2[kBatch], k2[kBatch], v2[kBatch];
+#pragma unroll
+          for (int i = 0; i < kBatch; ++i) {
+            const int r = min(r0 + i * step, R - 1), t = r / S;
+            const size_t row = ((size_t)b * M + nbr[r]) * D;
+            q2[i] = ld2(qb + (long long)min(t0 + t, p.Nq - 1) * p.q_sn);
+            k2[i] = ld2(p.K + row);
+            v2[i] = ld2(p.V + row);
+          }
+#pragma unroll
+          for (int i = 0; i < kBatch; ++i) {
+            const int r = r0 + i * step;
+            if (r < R) {
+              const bool nb = r % S < k;
+              const float2 pos = *reinterpret_cast<const float2*>(vals + r * P + 2 * c);
+              float w0 = v2[i].x, w1 = v2[i].y;
+              if (p.round_v) w0 = narrow<NW>(w0), w1 = narrow<NW>(w1);
+              const float u0 = nb ? (q2[i].x - k2[i].x) + pos.x : q2[i].x - kg0;
+              const float u1 = nb ? (q2[i].y - k2[i].y) + pos.y : q2[i].y - kg1;
+              *reinterpret_cast<uint32_t*>(act + r * PA + 2 * c) =
+                  mma16::pack2<NW>(2 * c < D ? u0 : 0.0f, 2 * c + 1 < D ? u1 : 0.0f);
+              *reinterpret_cast<float2*>(vals + r * P + 2 * c) =
+                  make_float2(nb ? w0 + pos.x : vg0, nb ? w1 + pos.y : vg1);
+            }
+          }
+        }
+      };
+      const auto aligned = [](const float* x) { return ((uintptr_t)x & 7) == 0; };
+      if (D % 2 == 0 && p.q_sb % 2 == 0 && p.q_sn % 2 == 0 && aligned(p.q) && aligned(p.K) &&
+          aligned(p.V))
+        rows(std::true_type{});
+      else
+        rows(std::false_type{});
+    }
+  } else {  // pos-only: u = value = pos
+    mma16::for_each_pair(D, acc, [&](int r, int c, float, float) {
+      const float2 pos = *reinterpret_cast<const float2*>(vals + r * P + c);
+      *reinterpret_cast<uint32_t*>(act + r * PA + c) = mma16::pack2<NW>(pos.x, pos.y);
+    });
+  }
+
+  // ---- fc_gamma -------------------------------------------------------------
+  mma16::rows_mma16<NW>(act, frag + wstride, D, ring, acc);
+  mma16::for_each_pair(D, acc, [&](int r, int c, float a0, float a1) {
+    const float h0 = c < D ? fmaxf(a0 + __ldg(p.gb0 + c), 0.0f) : 0.0f;
+    const float h1 = c + 1 < D ? fmaxf(a1 + __ldg(p.gb0 + c + 1), 0.0f) : 0.0f;
+    *reinterpret_cast<uint32_t*>(act + r * PA + c) = mma16::pack2<NW>(h0, h1);
+  });
+  mma16::rows_mma16<NW>(act, frag + 2 * wstride, D, ring, acc);
+  mma16::for_each_pair(D, acc, [&](int r, int c, float a0, float a1) {
+    const float l0 = c < D ? a0 + __ldg(p.gb1 + c) : 0.0f;
+    const float l1 = c + 1 < D ? a1 + __ldg(p.gb1 + c + 1) : 0.0f;
+    *reinterpret_cast<float2*>(logits + r * P + c) = make_float2(l0, l1);
+  });
+  __syncthreads();
+
+  // ---- per-channel softmax over the slots, a global slot last: thread tid
+  // takes channel tid % D of queries tid / D, + nthr / D, ..., two at a time
+  const int qstep = nthr / D, d = tid % D;
+  if (tid >= qstep * D) return;
+  const bool glob = p.glog != nullptr;
+  const float lg = glob ? __ldg(p.glog + (size_t)b * D + d) : 0.0f;
+  const float vg = glob ? __ldg(p.v_glob + (size_t)b * D + d) : 0.0f;
+  const int tq = min(TQ, p.Nq - t0);  // queries of this block
+  for (int t = tid / D; t < tq; t += 2 * qstep) {
+    const int t2 = min(t + qstep, tq - 1);
+    const float* l1 = logits + t * S * P + d;
+    const float* l2 = logits + t2 * S * P + d;
+    const float* v1 = vals + t * S * P + d;
+    const float* v2 = vals + t2 * S * P + d;
+    float o1, o2;
+    if (S <= 8)
+      slot_softmax2<8>(l1, v1, l2, v2, S, P, glob, lg, vg, o1, o2);
+    else if (S <= 16)
+      slot_softmax2<16>(l1, v1, l2, v2, S, P, glob, lg, vg, o1, o2);
+    else
+      slot_softmax2<32>(l1, v1, l2, v2, S, P, glob, lg, vg, o1, o2);
+    p.out[((size_t)b * p.Nq + t0 + t) * D + d] = o1;
+    if (t + qstep < tq) p.out[((size_t)b * p.Nq + t0 + t2) * D + d] = o2;
+  }
+}
+
+// The narrow mode's kernels (NW: 1 bfloat16, 2 float16): the weights' layout,
+// a broadcast query's global logits, the rows.
+template <int NW>
+cudaError_t launch_narrow(const Params& p, uint2* frag, int device, cudaStream_t s) {
+  static bool opted_in[kMaxDevices];
+  if (!opted_in[device]) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        attn_mma16_kernel<NW>, cudaFuncAttributeMaxDynamicSharedMemorySize, mma16::kMaxSmem);
+    if (err != cudaSuccess) return failed(err);
+    opted_in[device] = true;
+  }
+  const size_t n = 3 * mma16::frag_elems(p.D) / 4;
+  const int blocks = (int)((n + 255) / 256 < 264 ? (n + 255) / 256 : 264);
+  mma16::weight_frags16_kernel<NW><<<blocks, 256, 0, s>>>(p.dw1, p.gw0, p.gw1, p.D, frag);
+  if (p.glog) glob_logits_kernel<NW><<<p.B, kThreads, 0, s>>>(p);
+  const int tq = mma16::kRows / (p.k + (p.k_glob && !p.glog ? 1 : 0));
+  const dim3 grid((p.Nq + tq - 1) / tq, p.B);
+  attn_mma16_kernel<NW><<<grid, 32 * mma16::warps(p.D), mma16::smem_bytes(p.D), s>>>(p);
+  return cudaGetLastError();
 }
 
 cudaError_t launch_knn(const float* xyz_q, const float* kv_xyz, const float* penalty, int B,
@@ -541,26 +821,33 @@ extern "C" {
 
 const char* nsdp_error_string(int err) { return cudaGetErrorString((cudaError_t)err); }
 
-// Whether a call takes the broadcast path (attn_bcast_kernel).
+// Whether a float32 call takes the broadcast path (attn_bcast_kernel).
 int nsdp_attention_bcast(int has_glob, long long q_sn, int k) {
   return has_glob && q_sn == 0 && k <= kBcastKMax;
 }
 
+// Shared memory of the narrow mode's attn_mma16_kernel at D.
+long long nsdp_attention_narrow_smem(int D) { return (long long)mma16::smem_bytes(D); }
+
 // idx: (B, Nq, k) int32 scratch for the neighbour indices, written here.
-// dw0, dw1, gw0, gw1: (out, in) weights, contiguous.  Where the query is
-// broadcast (q_sn == 0) with a global slot and k <= 8 (the broadcast path,
-// nsdp_attention_bcast), glog is (B, D) and wt (3, D, 4 ceil(D / 4)) float32
-// scratch on the device; else both are null.  mode: 0 float32, 1
-// bfloat16, 2 float16 operands of the MLPs (narrow<mode>; the weights and V
-// already rounded by the caller).
+// dw0, dw1, gw0, gw1: (out, in) float32 weights, contiguous.  mode: 0
+// float32, 1 bfloat16, 2 float16 operands of the MLPs.
+// mode 0: where the query is broadcast (q_sn == 0) with a global slot and
+// k <= 8 (the broadcast path, nsdp_attention_bcast), glog is (B, D) and wt
+// (3, D, 4 ceil(D / 4)) float32 scratch on the device, else both are null;
+// frag is null and round_v 0.
+// mode 1, 2: frag is 3 frag_elems(D) 16-bit values of scratch
+// (rows_mma16.cuh), glog (B, D) float32 scratch where the query is broadcast
+// with a global slot, else null; wt is null; the kernels round the weights,
+// and V where round_v (not a projection's V).
 int nsdp_fused_attention(
     const float* xyz_q, const float* kv_xyz, const float* penalty,
     const float* q, long long q_sb, long long q_sn,
     const float* K, const float* V, const float* k_glob, const float* v_glob,
     const float* dw0, const float* db0, const float* dw1, const float* db1,
     const float* gw0, const float* gb0, const float* gw1, const float* gb1,
-    int* idx, float* out, float* glog, float* wt, int B, int Nq, int M, int D, int k,
-    int mode, int device, void* stream) {
+    int* idx, float* out, float* glog, float* wt, void* frag, int B, int Nq, int M, int D,
+    int k, int mode, int round_v, int device, void* stream) {
   if (B < 1 || Nq < 1 || M < 1 || D < 1 || D > kDMax || k < 1 || k > kKMax || k > M ||
       k + (k_glob ? 1 : 0) > kRows || mode < 0 || mode > 2 || device < 0 ||
       device >= kMaxDevices)
@@ -568,8 +855,15 @@ int nsdp_fused_attention(
   if ((q == nullptr) != (K == nullptr) || (K == nullptr) != (V == nullptr) ||
       (k_glob == nullptr) != (v_glob == nullptr) || (k_glob != nullptr && q == nullptr))
     return (int)cudaErrorInvalidValue;
-  const bool bcast = nsdp_attention_bcast(k_glob != nullptr, q_sn, k);
-  if ((glog != nullptr) != bcast || (wt != nullptr) != bcast) return (int)cudaErrorInvalidValue;
+  if (mode == 0) {
+    const bool bcast = nsdp_attention_bcast(k_glob != nullptr, q_sn, k);
+    if ((glog != nullptr) != bcast || (wt != nullptr) != bcast || frag != nullptr || round_v)
+      return (int)cudaErrorInvalidValue;
+  } else {
+    const bool once = k_glob != nullptr && q_sn == 0;
+    if ((glog != nullptr) != once || wt != nullptr || frag == nullptr)
+      return (int)cudaErrorInvalidValue;
+  }
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)failed(err);
   const cudaStream_t s = (cudaStream_t)stream;
@@ -579,10 +873,11 @@ int nsdp_fused_attention(
   int ny = kBcastThreads / nx < kBcastQueries ? kBcastThreads / nx : kBcastQueries;
   while (ny > 1 && bcast_smem_bytes(nx, ny) > (size_t)kMaxSmem) --ny;
   const Params p{xyz_q, kv_xyz, idx, q, q_sb, q_sn, K, V, k_glob, v_glob,
-                 dw0, db0, dw1, db1, gw0, gb0, gw1, gb1, out, glog, wt, B, Nq, M, D, k, nx, ny};
-  if (mode == 1) return (int)launch_mode<1>(p, bcast, device, s);
-  if (mode == 2) return (int)launch_mode<2>(p, bcast, device, s);
-  return (int)launch_mode<0>(p, bcast, device, s);
+                 dw0, db0, dw1, db1, gw0, gb0, gw1, gb1, out, glog, wt,
+                 static_cast<const uint2*>(frag), B, Nq, M, D, k, nx, ny, round_v};
+  if (mode == 0) return (int)launch_f32(p, glog != nullptr, device, s);
+  uint2* f = static_cast<uint2*>(frag);
+  return (int)(mode == 1 ? launch_narrow<1>(p, f, device, s) : launch_narrow<2>(p, f, device, s));
 }
 
 }  // extern "C"

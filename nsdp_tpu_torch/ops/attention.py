@@ -55,7 +55,11 @@ float32 with float32 biases, and coordinates, distances, ``K_a``, the
 global slot's ``k_glob``/``v_glob`` and the softmax stay float32.  The JAX
 decoder (``exact_self=False``) rounds its split delta ``[x_q - hi | -lo]``
 (``_split_w0``); the port rounds ``dx`` itself, so there the two agree to
-tolerance, not bit for bit.  Forward only, as in JAX.
+tolerance, not bit for bit.  Forward only, as in JAX.  On the card the
+mode has kernels of its own on the tensor cores (``csrc/rows_mma16.cuh``,
+``attn_mma16_kernel``): 16-bit operands, exact products, float32 sums per
+16-deep step, which are the TPU kernel's own; the host side of that engine
+(fragment layout, row tiles, shared memory) is mirrored below.
 """
 
 import contextlib
@@ -170,10 +174,11 @@ def fused_vector_attention_plain(
 
 _SIGNATURES = {
     "nsdp_fused_attention": (ctypes.c_int, (
-        [ctypes.c_void_p] * 4 + [ctypes.c_longlong] * 2 + [ctypes.c_void_p] * 16
-        + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+        [ctypes.c_void_p] * 4 + [ctypes.c_longlong] * 2 + [ctypes.c_void_p] * 17
+        + [ctypes.c_int] * 8 + [ctypes.c_void_p]
     )),
     "nsdp_attention_bcast": (ctypes.c_int, [ctypes.c_int, ctypes.c_longlong, ctypes.c_int]),
+    "nsdp_attention_narrow_smem": (ctypes.c_longlong, [ctypes.c_int]),
 }
 _SIGNATURES_BWD = {"nsdp_fused_attention_bwd": (ctypes.c_int, (
     [ctypes.c_void_p] * 4 + [ctypes.c_longlong] * 2 + [ctypes.c_void_p] * 23
@@ -222,6 +227,67 @@ def weight_frags_plain(w: torch.Tensor, trans: bool) -> torch.Tensor:
 def weight_frag_floats(D: int) -> int:
     """Floats of one weight in fragment order (``rows_mma.cuh::frag_floats``)."""
     return pad8(D) ** 2
+
+
+# ---- the 16-bit tensor-core engine of K1's narrow mode (csrc/rows_mma16.cuh),
+# host side
+
+
+NARROW_ROWS = 64  # (query, slot) rows of a block of the narrow kernel
+NARROW_NT = 4  # n-tiles (8 columns) a warp
+NARROW_STAGES = 4  # k-steps of weight fragments in flight
+MAX_SMEM = 232448  # opt-in shared memory of an sm_90 block
+
+
+def pad16(D: int) -> int:
+    """D rounded up to the 16-deep k-steps of ``mma.m16n8k16``."""
+    return -(-D // 16) * 16
+
+
+def narrow_warps(D: int) -> int:
+    """Warps of a block of the narrow kernel: ``NARROW_NT`` n-tiles each."""
+    return -(-(pad8(D) // 8) // NARROW_NT)
+
+
+def narrow_tile_pitch(D: int) -> int:
+    """Row pitch (floats) of the kernel's f32 logits and values: pad8(D)
+    moved to 8 or 24 mod 32, so a warp's C-fragment stores meet no bank
+    conflict."""
+    p = pad8(D)
+    return p + 8 if p % 16 == 0 else p
+
+
+def narrow_smem_bytes(D: int) -> int:
+    """Shared memory of the narrow kernel (``rows_mma16.cuh::smem_bytes``):
+    the 16-bit activations (pitch pad16(D) + 8) and the weight ring, which
+    the f32 logits overlay after the products; the f32 values; a 4-float
+    position delta and a neighbour index per row."""
+    act = NARROW_ROWS * (pad16(D) + 8) * 2
+    ring = narrow_warps(D) * NARROW_STAGES * NARROW_NT * 32 * 8
+    tile = NARROW_ROWS * narrow_tile_pitch(D) * 4
+    return max(act + ring, tile) + tile + NARROW_ROWS * 20
+
+
+def weight_frag16_elems(D: int) -> int:
+    """16-bit values of one weight in the narrow engine's fragment order."""
+    return pad16(D) * pad8(D)
+
+
+def weight_frags16_plain(w: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """A D x D (out, in) weight as ``weight_frags16_kernel`` lays it out:
+    ``B = w^T`` rounded to ``dtype`` and zero-padded to pad16(D) x pad8(D),
+    as (k-step, n-tile, lane, 4) with ``[B[k0][n], B[k0 + 1][n],
+    B[k0 + 8][n], B[k0 + 9][n]]``, ``k0 = 16 kc + 2 (l % 4)``,
+    ``n = 8 nt + l // 4``: the two 32-bit B registers of ``mma.m16n8k16``
+    for lane l."""
+    D = w.shape[0]
+    Kp, Np = pad16(D), pad8(D)
+    B = torch.zeros((Kp, Np), dtype=dtype, device=w.device)
+    B[:D, :D] = w.t().to(dtype)
+    lane = torch.arange(32, device=w.device)
+    k = 16 * torch.arange(Kp // 16, device=w.device)[:, None, None] + 2 * (lane % 4)
+    n = 8 * torch.arange(Np // 8, device=w.device)[None, :, None] + lane // 4
+    return torch.stack([B[k, n], B[k + 1, n], B[k + 8, n], B[k + 9, n]], dim=-1)
 
 
 def _backward_tiles(D: int) -> int:
@@ -311,38 +377,41 @@ class _Pointers:
 def _launch(xyz_q, kv_xyz, q_feats, K_a, V_a, delta_w0, delta_b0, delta_w1,
             delta_b1, gamma_w0, gamma_b0, gamma_w1, gamma_b1, k, k_glob,
             v_glob, penalty, compute_dtype=None, round_values=True):
-    """K1 on the card -> (out (B, Nq, D), idx (B, Nq, k) int32).  In the
-    narrow mode the MLP weights and ``V_a`` are rounded here, once, on the
-    device; the kernel rounds each MLP input in registers."""
+    """K1 on the card -> (out (B, Nq, D), idx (B, Nq, k) int32).  The
+    narrow mode runs the kernels of ``csrc/rows_mma16.cuh``'s tensor-core
+    engine: they round the MLP weights (into fragment-order scratch
+    allocated here) and ``V_a`` themselves (not in projection mode, where
+    ``V_a`` is a float32 product, as in the plain version)."""
     weights = (delta_w0, delta_b0, delta_w1, delta_b1, gamma_w0, gamma_b0, gamma_w1, gamma_b1)
     B, Nq, M, D = _check_operands(xyz_q, kv_xyz, q_feats, K_a, V_a, weights, k,
                                   k_glob, v_glob, penalty)
-    if compute_dtype is not None:
-        rnd = _rounding(compute_dtype)
-        delta_w0, delta_w1, gamma_w0, gamma_w1 = map(
-            rnd, (delta_w0, delta_w1, gamma_w0, gamma_w1))
-        if round_values:
-            V_a = rnd(V_a)
-    out = torch.empty((B, Nq, D), dtype=torch.float32, device=xyz_q.device)
-    idx = torch.empty((B, Nq, k), dtype=torch.int32, device=xyz_q.device)
+    dev = xyz_q.device
+    out = torch.empty((B, Nq, D), dtype=torch.float32, device=dev)
+    idx = torch.empty((B, Nq, k), dtype=torch.int32, device=dev)
     if Nq == 0:
         return out, idx
     ptr = _Pointers()
     q_ptr, q_sb, q_sn = ptr.query(q_feats)
     lib = _build.load("attention", _SIGNATURES)
-    # the decoder's broadcast query: scratch for its global slot's logits
-    # and an (in, out) copy of the three D x D weights
-    glog = wt = None
-    if lib.nsdp_attention_bcast(k_glob is not None, q_sn, k):
-        glog = torch.empty((B, D), dtype=torch.float32, device=xyz_q.device)
-        wt = torch.empty((3, D, -(-D // 4) * 4), dtype=torch.float32, device=xyz_q.device)
+    glog = wt = frag = None
+    if compute_dtype is None:
+        # the decoder's broadcast query: scratch for its global slot's
+        # logits and an (in, out) copy of the three D x D weights
+        if lib.nsdp_attention_bcast(k_glob is not None, q_sn, k):
+            glog = torch.empty((B, D), dtype=torch.float32, device=dev)
+            wt = torch.empty((3, D, -(-D // 4) * 4), dtype=torch.float32, device=dev)
+    else:
+        frag = torch.empty(3 * weight_frag16_elems(D), dtype=compute_dtype, device=dev)
+        if k_glob is not None and q_sn == 0:  # a broadcast query's global logits, once
+            glog = torch.empty((B, D), dtype=torch.float32, device=dev)
     err = lib.nsdp_fused_attention(
         ptr(xyz_q), ptr(kv_xyz), ptr(penalty), q_ptr, q_sb, q_sn,
         ptr(K_a), ptr(V_a), ptr(k_glob), ptr(v_glob),
         ptr.linear(delta_w0), ptr(delta_b0), ptr.linear(delta_w1), ptr(delta_b1),
         ptr.linear(gamma_w0), ptr(gamma_b0), ptr.linear(gamma_w1), ptr(gamma_b1),
-        idx.data_ptr(), out.data_ptr(), ptr(glog), ptr(wt), B, Nq, M, D, k,
-        NARROW.get(compute_dtype, 0), xyz_q.device.index or 0, _build.stream_of(xyz_q),
+        idx.data_ptr(), out.data_ptr(), ptr(glog), ptr(wt), ptr(frag), B, Nq, M, D, k,
+        NARROW.get(compute_dtype, 0), int(compute_dtype is not None and round_values),
+        dev.index or 0, _build.stream_of(xyz_q),
     )
     _build.check(lib, err, f"attention kernel (B={B}, Nq={Nq}, M={M}, D={D}, k={k})")
     fused_vector_attention.launches += 1
@@ -567,7 +636,8 @@ def fused_vector_attention(
                 "projection mode replaces K_a/V_a and excludes the global token"
             )
         rnd = _rounding(compute_dtype)
-        K_a, V_a = rnd(kv_feats) @ rnd(wk), rnd(kv_feats) @ rnd(wv)
+        feats = rnd(kv_feats)
+        K_a, V_a = feats @ rnd(wk), feats @ rnd(wv)
     elif not pos_only and (K_a is None or V_a is None):
         raise ValueError("featured attention needs K_a and V_a (or kv_feats)")
     k = min(k, kv_xyz.shape[1])

@@ -233,6 +233,79 @@ def test_attention_kernel_narrow_mode_matches_plain(mode, dtype, cuda, rng):
     assert gap > 0 and _rel(got, ref) <= 0.25 * gap, (_rel(got, ref), gap)
 
 
+def _narrow_against_plain(a, w, dtype, cuda, broadcast=False, share=0.25):
+    """K1's narrow mode on the card against its plain version: one launch
+    counted in both counters, a relative L2 gap at most ``share`` of the
+    plain narrow version's gap to float32."""
+    t = lambda x: None if x is None else torch.as_tensor(np.ascontiguousarray(x), device=cuda)
+    named = ("xyz_q", "kv_xyz", "q_feats", "K_a", "V_a")
+    args = [t(a[key]) for key in named] + [t(x) for x in w]
+    if broadcast:
+        args[2] = args[2][:, :1].expand(-1, a["xyz_q"].shape[1], -1)
+    kw = {key: t(v) for key, v in a.items() if key not in named + ("k",)}
+    f = port_attention.fused_vector_attention
+    cpu = lambda x: x.cpu() if isinstance(x, torch.Tensor) else x
+    with torch.inference_mode():
+        before = (f.launches, f.narrow_launches)
+        got = f(*args, k=a["k"], compute_dtype=dtype, **kw)
+        torch.cuda.synchronize()
+        assert (f.launches, f.narrow_launches) == (before[0] + 1, before[1] + 1)
+        ref = f(*map(cpu, args), k=a["k"], compute_dtype=dtype, **{k: cpu(v) for k, v in kw.items()})
+        ref_f32 = f(*map(cpu, args), k=a["k"], **{k: cpu(v) for k, v in kw.items()})
+    assert torch.isfinite(got).all()
+    gap = _rel(ref, ref_f32)
+    assert gap > 0 and _rel(got, ref) <= share * gap, (_rel(got, ref), gap)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode,D,k,dtype", [
+    ("pos_only", 120, 10, torch.bfloat16), ("table", 120, 16, torch.bfloat16),
+    ("table", 256, 16, torch.bfloat16), ("table", 256, 16, torch.float16),
+    ("global", 200, 7, torch.bfloat16), ("global", 256, 16, torch.float16),
+    ("broadcast", 200, 7, torch.bfloat16), ("broadcast", 200, 7, torch.float16),
+    ("broadcast", 120, 10, torch.bfloat16), ("broadcast", 256, 16, torch.bfloat16),
+])
+def test_attention_kernel_narrow_mode_widths(mode, D, k, dtype, cuda, rng):
+    """The narrow mode's tensor-core kernel at the shipped widths and
+    neighbourhoods: with the global slot as a row of its query (S = k + 1,
+    up to 17), or a broadcast query's global logits once per batch item."""
+    a, w = _attention_case(rng, "global" if mode == "broadcast" else mode, False,
+                           B=2, M=200, D=D, k=k, nq=150)
+    _narrow_against_plain(a, w, dtype, cuda, broadcast=mode == "broadcast")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["ragged", "m_is_k", "masked_begin", "odd_d"])
+def test_attention_kernel_narrow_mode_edges(case, cuda, rng):
+    """The engine's edges: a query count that is no multiple of a block's
+    queries (37 = 4 x 9 + 1 at 64 rows and S = 7), as many kv points as
+    neighbours, a masked 5000-point begin block (k = 10) and an odd width
+    (D = 37: padded k-steps and n-tiles, one float per gather)."""
+    if case == "ragged":
+        a, w = _attention_case(rng, "global", False, B=2, M=100, D=200, k=7, nq=37)
+        _narrow_against_plain(a, w, torch.bfloat16, cuda, broadcast=True)
+    elif case == "m_is_k":
+        a, w = _attention_case(rng, "table", False, B=2, M=16, D=120, k=16)
+        _narrow_against_plain(a, w, torch.bfloat16, cuda)
+    elif case == "masked_begin":
+        a, w = _attention_case(rng, "pos_only", True, B=1, M=5000, D=120, k=10)
+        _narrow_against_plain(a, w, torch.bfloat16, cuda)
+    else:
+        a, w = _attention_case(rng, "table", True, B=2, M=90, D=37, k=9, nq=50)
+        _narrow_against_plain(a, w, torch.float16, cuda)
+
+
+@pytest.mark.gpu
+def test_narrow_shared_memory_mirror(cuda):
+    """The narrow kernel's shared memory equals the wrapper's mirror of it,
+    which the CPU tests hold under the card's 227 KB."""
+    from nsdp_tpu_torch.ops import _build
+
+    lib = _build.load("attention", port_attention._SIGNATURES)
+    for D in (1, 12, 37, 40, 120, 200, 256):
+        assert lib.nsdp_attention_narrow_smem(D) == port_attention.narrow_smem_bytes(D)
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("mode,D,k", [("pos_only", 120, 10), ("table", 256, 16),
                                       ("global", 200, 7), ("table", 64, 32)])
