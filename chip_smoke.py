@@ -50,19 +50,30 @@ Phases (any failure exits non-zero and prints no result line):
    ``wgrad_cublas_ms``: cuBLAS's time for the four weight-gradient products
    at the same shapes, a yardstick the port never calls;
 3. serving: the shipped full-width ``configs/deform4d/arbitrary.yaml``
-   model with seeded random weights warms up (``warmup``), then serves
-   three ``deform`` requests (Q = 3000, 20000 masked, 65536) and an edit
-   session with two drags; the launch counters must show 17 K1 and 4 K3
-   launches (and no K2, K4 or gather) per full evaluation and 8 + 2 per
-   drag (the forward half only); then one evaluation is traced with
-   ``torch.profiler``: device time by kind and the device's idle share;
+   model with seeded random weights, captured (``DeformationService``'s
+   default on the card): ``warmup`` captures every entry at every bucket
+   (the wrappers' counters move only there: each program's eager run and
+   its capture), then it serves three ``deform`` requests (Q = 3000, 20000
+   masked, 65536) and an edit session with two drags, all replays (the
+   counters must not move); each replay's kernels, counted from the
+   kernel nodes of the graphs it replayed (``graph_kernels``,
+   ``LAUNCH_KERNELS``), must be exactly 17 K1 and 4 K3 (and no K2, K4 or
+   gather) per full evaluation, 9 + 2 per edit session and 8 + 2 per drag
+   (the forward half only); then one evaluation is traced: device time by
+   kind, the device's idle share, and any kernel node the trace holds no
+   record of (``torch.profiler`` loses records of graph replays);
 3b. training: the shipped ``forward`` and ``backward`` (batch 16) and
-   ``arbitrary`` (batch 8) models at full width with seeded random weights
-   take a warm-up and 4 timed train steps on seeded batches (N = Q = 5000,
-   a handle mask); every step must launch K1/K2/K3 8/8/2, 8/8/2 and
-   17/17/4 times, every loss be finite, the parameters move; median step
-   time and peak device memory; one stage-2 step traced; a checkpoint
-   saved and resumed gives the same next loss;
+   ``arbitrary`` (batch 8) models at full width with seeded random weights,
+   their steps captured (``make_steps``' default on the card), take their
+   eager first step and the capture step (each launching, or recording,
+   K1/K2/K3 8/8/2, 8/8/2 and 17/17/4 by the counters) and 4 timed replays
+   on seeded batches (N = Q = 5000, a handle mask; the counters must not
+   move); every loss finite, the parameters moved; median step time and
+   peak device memory; the kernel nodes of the step's graph exactly the
+   eager step's launches; one replayed step against two eager twins loaded
+   with its state (phase 10c's rule: the loss and every buffer bit for
+   bit); one replay traced; a checkpoint saved and resumed gives the same
+   next loss;
 3c. serving the encoder ablation, configuration A (``ablation_config``:
    ``arbitrary.yaml`` with the ``pointnet++`` encoder, full width, seeded
    random weights) as phase 3 serves the shipped model: 3 K1 / 4 K3 / 4 K4
@@ -118,7 +129,8 @@ Phases (any failure exits non-zero and prints no result line):
    byte for byte the first run's; then K1's begin
    blocks and first set abstraction at M = 40,962 and K3 on the mesh and on
    its canonicalised surface (40,962 -> 500) against their plain versions;
-6. the training entry point: ``python -m nsdp_tpu_torch.train``, in
+6. the training entry point: ``python -m nsdp_tpu_torch.train`` (its
+   step captured), in
    process, on a synthetic deform4d fixture at the shipped sample counts
    (4 identities x 2 motions x 9 frames, 5000 surface and space samples)
    with the shipped ``forward``, ``backward`` and ``arbitrary`` configs cut
@@ -126,7 +138,9 @@ Phases (any failure exits non-zero and prints no result line):
    and save and validation frequencies (1): stage 1 twice, stage 2 from
    their last files, each with ``--profile_dir``, then stage 2 resumed to a
    third epoch.  Every train step must launch K1/K2/K3/K4/gather 8/8/2/0/0
-   or 17/17/4/0/0 and every validation batch the forward half of that; each
+   or 17/17/4/0/0 (the counters at the eager first step and the capture,
+   nothing at a replay; the kernel nodes of each captured graph) and
+   every validation batch the forward half of that; each
    run writes ``params.json``, ``stats.txt``, two model and optimizer files
    and one ``modelbest_*``, finite losses, moved parameters; stage 2's
    branches hold the stage-1 files bit for bit before its first step, the
@@ -138,17 +152,21 @@ Phases (any failure exits non-zero and prints no result line):
    and the optimizer before the first step, K2's inputs at every call and
    the resumed epoch's losses bit for bit those of the resume from the
    torch files (both resumes at ``--num_workers 0``, so both draw the same
-   items; the second replays K2's outputs of the first, ``K2Tape``);
+   items; the second replays K2's outputs of the first, ``K2Tape``; both
+   resumes eager, since a captured step's K2 runs inside its graph);
    ``watch_stats`` on the card launches as a train step and leaves the model,
    its ``.grad`` and the optimizer bit for bit as they were.  Logged per run:
    StepTimer's step intervals, the wall time of the loop's parts
    (``main``'s return), peak memory, the synchronising CUDA calls of a step
    (``torch.cuda.set_sync_debug_mode``), and the traced first epoch's device
-   activity and idle share;
+   activity and idle share.  Then phase 10's ``train`` in turns: stage 2
+   from the stage-1 files, eager, captured, captured, eager, untraced, with
+   each run's data / step / fetch split;
 7. several processes on the one card (``torch.distributed``; each rank a
    ``python3 chip_smoke.py --rank ...`` process started here, the kernels
    built before; a failed rank fails the phase and every rank is killed):
-   (a) two gloo ranks through ``make_steps(group=...)``, two stage-2 steps
+   (a) two gloo ranks through ``make_steps(group=...)`` (a grouped step
+   is eager), two stage-2 steps
    of the shipped model (B = 8, 4 rows a rank, N = Q = 5000, phase 4b's
    seeds, weights with O(1) outputs): K1/K2/K3 17/17/4 per step and rank;
    the ranks' states bit for bit equal after two steps; after one, held by
@@ -157,7 +175,7 @@ Phases (any failure exits non-zero and prints no result line):
    and the plain path in float64 by phase 4b's rule (4 times the float32
    error, floor 1e-4); the same two ranks in float64 (the plain path)
    within 1e-9 of one process; (b) one NCCL rank: bit for bit the step
-   without a group (K2's float64-atomic outputs replayed, its inputs held
+   without a group (eager, ``graphs=False``) (K2's float64-atomic outputs replayed, its inputs held
    bit for bit), no synchronising call from the end of its first step to
    the end of its second, both timed, and one of each traced (the
    device's idle share, the host's time in each all-reduce); (c) ``python -m
@@ -202,7 +220,33 @@ Phases (any failure exits non-zero and prints no result line):
    ``Deform4DFlowDataset``), ``nocorr``, and ``deform4d --make_watertight``
    by ``sdf`` and by ``poisson`` on each sequence's first frame (``--interval
    7``: at the default spacing one frame's SDF takes about a minute; each
-   watertight frame closed), each command timed.  Every timing is printed beside the card's name and
+   watertight frame closed), each command timed;
+10. (run after phase 4c, before phase 5: its busy times come from
+   ``torch.profiler``, which lost records of graph replays late in an
+   earlier run of this script) captured against eager
+   (``nsdp_tpu_torch/graphs.py``): (a) for the
+   shipped model and A, a captured and an eager service with the same
+   weights, each warmed alone (warm-up time, peak and held memory):
+   ``deform`` at every bucket, plain and masked, two edit sessions at one
+   bucket with their drags interleaved (the first's drag unchanged) and a
+   masked one, every output bit for bit (``hold_captured``: where the
+   replay's cuBLAS kernels differ from the eager run's, within rtol 1e-3 /
+   atol 2e-4 with the kernels named); each program's kernel nodes; for the
+   shipped model also two replicas on the card (``devices=``), captured
+   against eager bit for bit, the same way, each replayed call launching
+   twice one replica's kernels; an evaluation at Q = 65,536 and a drag at 20,000 timed in turns
+   (captured, eager, eager, captured) and traced (busy, idle share); (b)
+   ``predict`` at Q = 65,536 through a captured program in float32 and
+   ``compute_dtype=torch.bfloat16`` against the eager calls, bit for bit
+   and in turns; (c) captured train steps -- stage 1, stage 2, bf16 of
+   each, remat, ``nan_guard`` with a NaN batch -- against two eager twins loaded
+   with the captured run's state at the capture, the NaN step and the
+   sixth step (the loss and every buffer bit for bit; gradients and
+   parameters bit for bit or, where K2's float64 atomics reorder, by phase
+   4b's rule), the step graph's kernel nodes exactly the eager launches,
+   and the step timed
+   in turns; (d) peak and held memory of three steps, each model alone,
+   captured and eager.  Every timing is printed beside the card's name and
    power limit.
 
 The second-to-last lines are the card (``nvidia-smi``) and a ``kernels``
@@ -225,6 +269,7 @@ new CUDA toolkit (``expf`` and the compiler's code may round
 differently); the table's comment names the toolkit.
 """
 
+import collections
 import contextlib
 import hashlib
 import json
@@ -233,7 +278,10 @@ import re
 import shutil
 import subprocess
 import sys
+import tempfile
 import time
+import warnings
+import weakref
 
 import numpy as np
 
@@ -286,23 +334,9 @@ def time_ms(torch, fn, reps: int) -> float:
 
 def device_events(torch, fn, reps: int):
     """The device activities ``torch.profiler`` records over ``reps`` calls
-    of ``fn``, after one warm call.  A profiling session now and then
-    delivers no device activity at all; the measurement is then taken
-    again, three times at most."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
+    of ``fn``, after one warm call (:func:`profiled`)."""
     fn()
-    torch.cuda.synchronize()
-    for _ in range(3):
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            for _ in range(reps):
-                fn()
-            torch.cuda.synchronize()
-        events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-        if events:
-            return events
-    fail("the profiler recorded no device activity")
+    return profiled(torch, lambda: [fn() for _ in range(reps)])[1]
 
 
 def device_ms(torch, fn, reps: int) -> float:
@@ -1098,10 +1132,16 @@ SERVE_LAUNCHES = {
 
 
 def serve(torch, rng, surf, config, label):
-    """Serve ``config`` with seeded random weights: a warm-up, three
-    requests, an edit session with two drags (the main path, its launches
-    checked against ``SERVE_LAUNCHES[label]``), then timings and a traced
-    evaluation.  -> (service, launches of the main path)."""
+    """Serve ``config`` with seeded random weights, captured (the service's
+    default on the card): a warm-up that captures every entry at every
+    bucket, three requests, an edit session with two drags (the main path),
+    then timings and a traced evaluation.  The wrappers' counters move only
+    at a capture (each program's throw-away eager run and its capture, twice
+    ``SERVE_LAUNCHES[label]`` per bucket and mask) and not at all while the
+    programs replay; each replay's kernels, counted from the kernel nodes
+    of the graphs it replayed (:func:`replays`), must be
+    ``SERVE_LAUNCHES[label]``.  -> (service, the main path's device
+    launches (K1, K2, K3, K4, gather) by those nodes)."""
     from nsdp_tpu_torch.serving import DeformationService
 
     want = SERVE_LAUNCHES[label]
@@ -1114,23 +1154,52 @@ def serve(torch, rng, surf, config, label):
     pm[-500:] = 0.0  # a padded-partial cloud: padded rows at the origin
     requests = [(3000, None), (20000, pm), (65536, None)]
     queries = {q: rng.uniform(-1.3, 1.3, (q, 3)).astype(np.float32) for q, _ in requests}
-    t0 = time.perf_counter()
-    svc.warmup(n)  # every entry at every bucket: cuBLAS and allocator set-up
-    torch.cuda.synchronize()
-    log(f"serving {label}: warmup (3 buckets, plain + masked + edit session)"
-        f" {time.perf_counter() - t0:.2f} s")
 
-    stats = {}
-    reset_counts()  # ---- the main path: requests, a session, two drags
+    reset_counts()  # ---- the main path: the captures, requests, a session, two drags
+    t0 = time.perf_counter()
+    svc.warmup(n)  # every entry at every bucket, captured
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    programs = svc.graphs[0].programs
+    per_entry = tuple(d + s + g for d, s, g in zip(want["deform"], want["session"], want["drag"]))
+    expect_launches((0,) * 5, tuple(2 * 2 * len(svc.buckets) * x for x in per_entry),
+                    f"{label} warmup (each program's eager run and capture)")
+    log(f"serving {label}: warmup captured {len(programs)} programs (3 buckets x deform,"
+        f" canonicalize, drag x plain, masked) in {warm_s:.2f} s, the wrappers called at each"
+        f" program's eager run and capture only")
+    device = np.zeros(5, int)
+
+    def replayed(fn, expected, what):
+        before = counts()
+        out, names = replays(svc.graphs, fn)
+        expect_launches(before, (0,) * 5, f"{what}: the wrappers under replay")
+        expect_replay(launch_counts(names), expected, what)
+        device[:] += launch_counts(names)
+        return out
+
     for q, mask in requests:
         inp = inputs if mask is None else inputs * mask[:, None]
-        before = counts()
-        t0 = time.perf_counter()
-        out = svc.deform(queries[q], inp, point_mask=mask)
-        dt = time.perf_counter() - t0
-        expect_launches(before, want["deform"], f"{label} deform Q={q}")
+        out = replayed(lambda: svc.deform(queries[q], inp, point_mask=mask), want["deform"],
+                       f"{label} deform Q={q}")
         check_output(out, (q, 3), f"{label} deform Q={q}")
-        stats[f"deform_ms_q{q}"] = dt * 1e3
+    pts = queries[20000]
+    session = replayed(lambda: svc.edit_session(pts, surf), want["session"],
+                       f"{label} edit_session")
+    for scale in (1.0, 0.5):
+        dragged = replayed(lambda: session.drag(tgt * scale, handle), want["drag"],
+                           f"{label} drag (forward half only)")
+        check_output(dragged, (20000, 3), f"{label} drag")
+    launches = tuple(int(x) for x in device)  # ---- end of the main path
+    full = svc.deform(pts, np.concatenate([surf, tgt * 0.5, handle], -1))
+    if not np.allclose(dragged, full, rtol=1e-5, atol=1e-5):
+        fail(f"{label}: drag differs from the full deform with the same conditioning")
+
+    stats = {}
+    for q, mask in requests:
+        inp = inputs if mask is None else inputs * mask[:, None]
+        t0 = time.perf_counter()
+        svc.deform(queries[q], inp, point_mask=mask)
+        stats[f"deform_ms_q{q}"] = (time.perf_counter() - t0) * 1e3
     eval_ms = []
     for _ in range(5):
         t0 = time.perf_counter()
@@ -1138,35 +1207,22 @@ def serve(torch, rng, surf, config, label):
         eval_ms.append((time.perf_counter() - t0) * 1e3)
     stats["eval_ms_q65536"] = float(np.median(eval_ms))
     stats["qps_q65536"] = 65536 / (stats["eval_ms_q65536"] / 1e3)
-
-    pts = queries[20000]
-    before = counts()
-    session = svc.edit_session(pts, surf)
-    expect_launches(before, want["session"], f"{label} edit_session")
     drag_ms = []
-    for scale in (1.0, 0.5):
-        before = counts()
-        t0 = time.perf_counter()
-        dragged = session.drag(tgt * scale, handle)
-        drag_ms.append((time.perf_counter() - t0) * 1e3)
-        expect_launches(before, want["drag"], f"{label} drag (forward half only)")
-        check_output(dragged, (20000, 3), f"{label} drag")
-    launches = counts()  # ---- end of the main path
-    full = svc.deform(pts, np.concatenate([surf, tgt * 0.5, handle], -1))
-    if not np.allclose(dragged, full, rtol=1e-5, atol=1e-5):
-        fail(f"{label}: drag differs from the full deform with the same conditioning")
-    for scale in (0.9, 0.8, 0.7, 0.6, 0.4):  # more drags, for a steadier median
+    for scale in (1.0, 0.9, 0.8, 0.7, 0.6, 0.5, 0.4):
         t0 = time.perf_counter()
         session.drag(tgt * scale, handle)
         drag_ms.append((time.perf_counter() - t0) * 1e3)
-    log(f"serving {label}: deform "
-        f"{', '.join(f'Q={q}: {stats[f'deform_ms_q{q}']:.2f} ms' for q, _ in requests)}")
+    log(f"serving {label} (captured): deform "
+        f"{', '.join(f'Q={q}: {stats[f'deform_ms_q{q}']:.2f} ms' for q, _ in requests)}; main path"
+        f" {' / '.join(map(str, want['deform']))} K1 / K2 / K3 / K4 / gather kernels a replay of"
+        f" deform, {' / '.join(map(str, want['session']))} of a session,"
+        f" {' / '.join(map(str, want['drag']))} of a drag (the graphs' kernel nodes)")
     log(f"serving {label}: full evaluation at Q=65536 {stats['eval_ms_q65536']:.2f} ms (median of 5,"
         f" {min(eval_ms):.2f}-{max(eval_ms):.2f}), {stats['qps_q65536']:.4g} query points/s")
     log(f"serving {label}: drag at Q=20000 {float(np.median(drag_ms)):.2f} ms (median of 7,"
-        f" {min(drag_ms):.2f}-{max(drag_ms):.2f}; first two {drag_ms[0]:.2f}, {drag_ms[1]:.2f})")
+        f" {min(drag_ms):.2f}-{max(drag_ms):.2f})")
     trace(torch, lambda: svc.deform(queries[65536], inputs), stats["eval_ms_q65536"],
-          f"one {label} evaluation at Q=65536")
+          f"one {label} evaluation at Q=65536 (captured)", svc.graphs)
     return svc, launches
 
 
@@ -1189,23 +1245,132 @@ def busy_us(spans) -> float:
     return total + e0 - s0
 
 
-def trace(torch, run, wall_ms, what):
+# the CUDA kernel that marks one launch of each wrapper (K1: its selection,
+# in every mode; K2: its row kernel; K3: any variant; K4; the row gather)
+LAUNCH_KERNELS = (("knn_kernel",), ("bwd_rows_kernel",), K3_KERNELS, ("knn_split_kernel",),
+                  ("gather_rows_kernel",))
+
+
+def launch_counts(names):
+    """(K1, K2, K3, K4, gather) launches among kernel names (``LAUNCH_KERNELS``)."""
+    return tuple(sum(n in kinds for n in names) for kinds in LAUNCH_KERNELS)
+
+
+GRAPH_KERNELS = weakref.WeakKeyDictionary()  # program -> its graph's kernel names
+
+
+def graph_kernels(program):
+    """The kernel names of a captured program's CUDA graph, one per kernel
+    node: exactly what each replay launches (the wrappers' counters do not
+    move under replay).  Read from the graph's node list, which
+    ``graphs.KEEP_GRAPHS`` keeps and ``CUDAGraph.debug_dump`` writes out
+    (as Graphviz DOT, each kernel node with its mangled name); read once
+    per program."""
+    names = GRAPH_KERNELS.get(program)
+    if names is not None:
+        return names
+    with tempfile.TemporaryDirectory() as d, warnings.catch_warnings():
+        warnings.simplefilter("ignore")  # torch announces each dump
+        path = os.path.join(d, "graph.dot")
+        program.graph.debug_dump(path)
+        with open(path) as f:
+            text = f.read()
+    names = []
+    for node in re.split(r'^\s*"graph_\d+_node_\d+"\s*\[', text, flags=re.M)[1:]:
+        if "KERNEL" not in node:
+            continue
+        m = re.search(r"_Z\w+", node)
+        names.append(mangled_kernel(m.group()) if m else "?")
+    if not names:
+        fail(f"no kernel node in the dump of a captured graph: {text[:600]!r}")
+    GRAPH_KERNELS[program] = names
+    return names
+
+
+def mangled_kernel(mangled: str) -> str:
+    """The first ``*_kernel`` name of a mangled kernel name (its length
+    prefix read: ``10knn_kernel`` -> ``knn_kernel``), or ``?``."""
+    for m in re.finditer(r"\d+", mangled):
+        name = mangled[m.end():m.end() + int(m.group())]
+        if name.endswith("_kernel") and re.fullmatch(r"[A-Za-z_]\w*", name):
+            return name
+    return "?"
+
+
+def replay_launches(graphs, program):
+    """(K1, K2, K3, K4, gather) launches of one replay of a captured
+    program of ``graphs`` (:func:`graph_kernels`)."""
+    if program.graph is None:
+        fail(f"a program on {graphs.device} was never captured")
+    return launch_counts(graph_kernels(program))
+
+
+def replays(graphs_list, fn):
+    """-> (``fn()``, the kernel names its replays launched): the kernel
+    nodes (:func:`graph_kernels`) of each program of ``graphs_list`` whose
+    calls moved, once per call.  A call that captured or ran eagerly
+    instead, or that made a new program, fails."""
+    before = [(p, p.calls, p.graph is not None) for g in graphs_list
+              for p in g.programs.values()]
+    out = fn()
+    if len(before) != sum(len(g.programs) for g in graphs_list):
+        fail("a call expected to replay made a new program")
+    names = []
+    for p, calls, captured in before:
+        if p.calls != calls:
+            if not captured:
+                fail("a call expected to replay ran eagerly or captured")
+            names += (p.calls - calls) * graph_kernels(p)
+    return out, names
+
+
+def expect_replay(got, want, what):
+    """A replay's launches (``got``, its graphs' kernel nodes) against the
+    eager launches (``want``): equal."""
+    if got != want:
+        fail(f"{what}: {' / '.join(map(str, got))} K1 / K2 / K3 / K4 / gather kernels a replay"
+             f" (the graph's kernel nodes), expected {' / '.join(map(str, want))}")
+
+
+def profiled(torch, fn):
+    """-> (``fn()``, the device activities ``torch.profiler`` recorded
+    over it).  A session now and then delivers no device activity; ``fn``
+    then runs again, three times at most."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(3):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            out = fn()
+            torch.cuda.synchronize()
+        events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+        if events:
+            return out, events
+    fail("the profiler recorded no device activity")
+
+
+def trace(torch, run, wall_ms, what, graphs_list=None):
     """Device time of one call of ``run`` by kind, from ``torch.profiler``'s
     CUDA activity: the port's kernels (K1 = selection + attention, K2 = the
     attention's backward with its weight-gradient reductions, "frags" = K2's
     weights laid out in fragment order, K3, K4, the row gather), cuBLAS products,
     copies, other PyTorch kernels.  The union of the intervals is
     the device's busy time; against the untraced time ``wall_ms`` it gives
-    the device's idle share."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        run()
-        torch.cuda.synchronize()
-    events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-    if not events:
-        fail("the profiler recorded no device activity")
+    the device's idle share.  Where ``run`` replays programs of
+    ``graphs_list``, the kernel nodes of what it replayed that the trace
+    holds no record of are logged by name (the profiler's lost records;
+    the launch checks count the nodes, :func:`replays`).  -> busy ms."""
+    if graphs_list is None:
+        _, events = profiled(torch, run)
+    else:
+        (_, nodes), events = profiled(torch, lambda: replays(graphs_list, run))
+        lost = collections.Counter(nodes) - collections.Counter(kernel_name(e.name)
+                                                                 for e in events)
+        lost.pop("?", None)
+        if lost:
+            log(f"profiler: {what}: no record of {sum(lost.values())} of the {len(nodes)} kernel"
+                f" nodes replayed ({', '.join(f'{k} x{v}' for k, v in sorted(lost.items()))})")
     kinds = {"K1": 0.0, "K2": 0.0, "frags": 0.0, "K3": 0.0, "K4": 0.0, "gather": 0.0,
              "cuBLAS": 0.0, "copies": 0.0, "other": 0.0}
     for e in events:
@@ -1223,6 +1388,7 @@ def trace(torch, run, wall_ms, what):
     log(f"trace: {what}, {len(events)} device activities, busy {busy:.2f} ms"
         f" ({', '.join(f'{k} {v:.2f}' for k, v in kinds.items())} ms); against the"
         f" {wall_ms:.2f} ms untraced the device idles {100 * (1 - busy / wall_ms):.1f}%")
+    return busy
 
 
 # ---------------------------------------------------------------- phase 3b
@@ -1261,10 +1427,11 @@ def train_batch(rng, B, N, Q, near_surface=False):
 
 
 def train_setup(torch, model_type, seed, device="cuda", cfg=None, group=None, out_scale=1.0,
-                dtype=None):
+                dtype=None, graphs=None, nan_guard=False):
     """(config, model, schedule, optimizer, steps) of a shipped config or of
     ``cfg``, with seeded random weights (``init_random``'s ``out_scale``;
-    the model in ``dtype``; steps over ``group``'s ranks)."""
+    the model in ``dtype``; steps over ``group``'s ranks; ``make_steps``'
+    ``graphs`` and ``nan_guard``)."""
     from nsdp_tpu_torch.models import build_model, init_random
     from nsdp_tpu_torch.training import make_steps, optimizer_factory
     from nsdp_tpu_torch.utils.config import load_config
@@ -1275,7 +1442,8 @@ def train_setup(torch, model_type, seed, device="cuda", cfg=None, group=None, ou
     if dtype is not None:
         model = model.to(dtype)
     schedule, opt = optimizer_factory(cfg["training"], model.parameters())
-    steps = make_steps(model, model_type, opt, device=device, group=group)
+    steps = make_steps(model, model_type, opt, device=device, group=group, graphs=graphs,
+                       nan_guard=nan_guard)
     return cfg, model, schedule, opt, steps
 
 
@@ -1298,19 +1466,27 @@ def check_resume(torch, rng, model, opt, steps, B, lr, cfg):
     l1, l2 = steps["train_step"](nxt, lr), steps2["train_step"](nxt, lr)
     if abs(l1 - l2) > 1e-6 * abs(l1):
         fail(f"resume: the next step's loss {l2} differs from {l1}")
-    log(f"train: checkpoint saved and resumed; next stage-2 loss {l1:.6g} and {l2:.6g}")
+    log(f"train: checkpoint saved and resumed; next stage-2 loss {l1:.6g} (a replay) and"
+        f" {l2:.6g} (the resumed model's first, eager step)")
 
 
 def train(torch, rng, runs):
-    """Full-width training steps on the card (phases 3b, 3d and 8a) -> per-run
-    stats and the launches of the whole phase.  A run is (label, model type,
+    """Full-width training steps on the card (phases 3b, 3d and 8a),
+    captured (``make_steps``' default on the card) -> per-run stats and the
+    device launches of the phase's replays.  A run is (label, model type,
     configuration: None for the shipped one, an ablation's name or a config
-    dict); its launches are those of the label's first word.  The stage-2
-    runs and B are also traced; the shipped stage-2 run is resumed from a
-    checkpoint."""
+    dict); its launches are those of the label's first word.  Each run: the
+    eager first step (the wrappers count its launches), the capture step
+    (they count the launches it records, and it replays once), 4 timed
+    replays (the wrappers count nothing); the kernel nodes of its graph must be the eager step's launches, and a
+    replayed step holds against two eager twins from its state
+    (:func:`hold_replayed_step`); one replay traced.  The shipped stage-2
+    run is resumed from a checkpoint."""
     stats = {}
+    device = np.zeros(5, int)
     reset_counts()  # ---- the main path of training
     for label, model_type, ablation in runs:
+        want = TRAIN_LAUNCHES[label.split()[0]]
         cfg = ablation_config(ablation) if isinstance(ablation, str) else ablation
         cfg, model, schedule, opt, steps = train_setup(torch, model_type, seed=0, cfg=cfg)
         B = cfg["training"]["batch_size"]
@@ -1321,17 +1497,25 @@ def train(torch, rng, runs):
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
-        steps["train_step"](batches[0], lr)  # warm-up: cuBLAS and allocator set-up
+        before = counts()
+        steps["train_step"](batches[0], lr)  # the eager first step: cuBLAS, allocator, kernels
         torch.cuda.synchronize()
         warm_ms = (time.perf_counter() - t0) * 1e3
+        expect_launches(before, want, f"{label} first (eager) train step")
+        before = counts()
+        t0 = time.perf_counter()
+        steps["train_step"](batches[-1], lr)  # the capture, replayed once
+        torch.cuda.synchronize()
+        capture_ms = (time.perf_counter() - t0) * 1e3
+        expect_launches(before, want, f"{label} capture step (the launches it records)")
         step_ms, losses = [], []
+        before = counts()
         for batch in batches[1:TRAIN_STEPS + 1]:
-            before = counts()
             t0 = time.perf_counter()
             losses.append(steps["train_step"](batch, lr))
             torch.cuda.synchronize()
             step_ms.append((time.perf_counter() - t0) * 1e3)
-            expect_launches(before, TRAIN_LAUNCHES[label.split()[0]], f"{label} train step")
+        expect_launches(before, (0,) * 5, f"{label} replayed train steps (the wrappers)")
         peak_gb = torch.cuda.max_memory_allocated() / 1e9
         if not np.isfinite(losses).all():
             fail(f"{label}: non-finite training loss {losses}")
@@ -1343,18 +1527,33 @@ def train(torch, rng, runs):
             fail(f"{label}: a parameter is no longer float32")
         med = float(np.median(step_ms))
         stats[label] = dict(B=B, step_ms=med, peak_gb=peak_gb, losses=losses)
-        log(f"train {label:<9} B={B:<3} step {med:.2f} ms (median of {TRAIN_STEPS},"
-            f" {min(step_ms):.2f}-{max(step_ms):.2f}; warm-up {warm_ms:.1f}), peak memory"
-            f" {peak_gb:.2f} GB, losses {', '.join(f'{x:.4g}' for x in losses)},"
-            f" largest parameter move {moved:.3g}")
-        if label in ("arbitrary", "A", "B"):
-            trace(torch, lambda: steps["train_step"](batches[-1], lr), med,
-                  f"one {label} train step (B={B})")
+        log(f"train {label:<9} B={B:<3} step {med:.2f} ms (captured, median of {TRAIN_STEPS},"
+            f" {min(step_ms):.2f}-{max(step_ms):.2f}; eager first step {warm_ms:.1f}, capture"
+            f" step {capture_ms:.1f}), peak memory {peak_gb:.2f} GB, losses"
+            f" {', '.join(f'{x:.4g}' for x in losses)}, largest parameter move {moved:.3g}")
+        graphs = steps["train_step"].graphs
+        (program,) = graphs.programs.values()
+        got = replay_launches(graphs, program)
+        expect_replay(got, want, f"{label} replayed train step")
+        device += got
+        twins = [train_setup(torch, model_type, 0, cfg=cfg, graphs=False) for _ in range(2)]
+        (reordered, worst), _ = hold_replayed_step(
+            torch, f"{label} replayed train step", model, opt, steps["train_step"], twins,
+            batches[1], lr)
+        log(f"train {label}: a replayed step against two eager twins loaded with its state:"
+            f" the loss and every BatchNorm buffer bit for bit, {reordered} gradients and"
+            f" parameters not bit for bit (K2's float64 atomics) within phase 4b's rule, largest"
+            f" ratio {worst:.3g}")
+        del twins
+        trace(torch, lambda: steps["train_step"](batches[-1], lr), med,
+              f"one {label} train step (B={B}, captured)", [graphs])
         if label == "arbitrary":
             check_resume(torch, rng, model, opt, steps, B, lr, cfg)
         del model, opt, steps, before_params
         torch.cuda.empty_cache()
-    launches = counts()  # ---- end of the main path of training
+    if counts() == (0,) * 5:
+        fail("training: no wrapper was called")
+    launches = tuple(int(x) for x in device)  # ---- end of the main path of training
     return stats, launches
 
 
@@ -2002,23 +2201,39 @@ def cli_config(label, fx, root, epochs=CLI_EPOCHS, weights=None):
     return write_config(cfg, os.path.join(root, f"{label}_{epochs}.yaml")), cfg
 
 
-def recording_steps(torch, make_steps, record, label):
-    """``make_steps`` whose train and validation steps check their launches
-    (``TRAIN_LAUNCHES`` / ``VAL_LAUNCHES``) and feed ``record``: the model,
-    the optimizer and the real step functions, their state before the first
-    step (host copies), each step's loss, the last batch, and the
-    synchronising CUDA calls (``torch.cuda.set_sync_debug_mode``) from the
-    end of the first step to the end of the second: the loader, the
-    batch's upload and a whole step, before its late loss read."""
+def recording_steps(torch, make_steps, record, label, graphs=None):
+    """``make_steps`` (with ``graphs``, where given) whose train and
+    validation steps check their launches (``TRAIN_LAUNCHES`` /
+    ``VAL_LAUNCHES``; a captured step's wrappers count only at its first,
+    eager step and at its capture, and nothing while it replays) and feed
+    ``record``: the model, the optimizer and the real step functions,
+    whether the step is captured, their state before the first step (host
+    copies), each step's loss, the last batch, and the synchronising CUDA
+    calls (``torch.cuda.set_sync_debug_mode``) over one whole step after
+    the first (eager) or after the capture (captured): from the end of that
+    step to the end of the next -- the loader, the batch's upload and a
+    whole step, before its late loss read.  A captured run's window also
+    holds the late read of the capture step's loss (``float(loss)`` in
+    ``train.py``'s ``report``), the loop's one sanctioned synchronisation:
+    that one is left out."""
+    import linecache
     import warnings
+
+    def late_read(w):
+        return (w.filename.endswith(os.path.join("nsdp_tpu_torch", "train.py"))
+                and "float(loss)" in linecache.getline(w.filename, w.lineno))
 
     from nsdp_tpu_torch.training.async_ckpt import host_copy
 
     def make(model, model_type, optimizer, **kwargs):
+        if graphs is not None:
+            kwargs["graphs"] = graphs
         steps = make_steps(model, model_type, optimizer, **kwargs)
         train, validate = steps["train_step"], steps["validate_step_masked"]
+        captured = train.graphs is not None
+        watched = 1 if captured else 0  # the sync window opens after this step
         record.update(model=model, optimizer=optimizer, steps=dict(steps), losses=[], val=0,
-                      syncs=[])
+                      syncs=[], captured=captured)
 
         def train_step(batch, lr, fetch=True):
             n = len(record["losses"])
@@ -2027,15 +2242,18 @@ def recording_steps(torch, make_steps, record, label):
                 record["first_opt"] = host_copy(optimizer.state_dict())
             before = counts()
             loss = train(batch, lr, fetch)
-            if n == 1:
+            if n == watched + 1:
                 torch.cuda.set_sync_debug_mode("default")
-                record["syncs"] = [str(w.message) for w in record.pop("caught")
-                                   if "called a synchronizing" in str(w.message)]
+                record["syncs"] = [f"{w.filename}:{w.lineno}: {w.message}"
+                                   for w in record.pop("caught")
+                                   if "called a synchronizing" in str(w.message)
+                                   and not late_read(w)]
                 record.pop("catcher").__exit__(None, None, None)
-            expect_launches(before, TRAIN_LAUNCHES[label], f"{label} train step through the CLI")
+            want = (0,) * 5 if captured and n >= 2 else TRAIN_LAUNCHES[label]
+            expect_launches(before, want, f"{label} train step {n} through the CLI")
             record["losses"].append(loss)
             record["batch"] = batch
-            if n == 0:
+            if n == watched:
                 record["catcher"] = warnings.catch_warnings(record=True)
                 record["caught"] = record["catcher"].__enter__()
                 warnings.simplefilter("always")
@@ -2176,7 +2394,9 @@ def check_watch(torch, record):
 def cli_run(torch, label, path, cfg, record, ticks, argv, card):
     """One run of ``python -m nsdp_tpu_torch.train`` in process, its
     launches checked step by step -> (experiment directory, the last
-    epoch's wall time a step in ms, steps an epoch)."""
+    epoch's wall time a step in ms, steps an epoch, the last epoch's mean
+    data / step / fetch ms a step, median step interval, its wall time a
+    step and the run's peak memory)."""
     from nsdp_tpu_torch import train as port_train
     from nsdp_tpu_torch.training import read_state_dict
 
@@ -2191,7 +2411,9 @@ def cli_run(torch, label, path, cfg, record, ticks, argv, card):
     launches = counts()  # ---- end of the main path
     directory = os.path.join(cfg["experiment"]["out_dir"], cfg["experiment"]["name"])
     n_steps = len(times["step"])
-    want = tuple(n_steps * t + record["val"] * v
+    # a captured step's wrappers count at its eager first step and its capture
+    counted = min(n_steps, 2) if record["captured"] else n_steps
+    want = tuple(counted * t + record["val"] * v
                  for t, v in zip(TRAIN_LAUNCHES[label], VAL_LAUNCHES[label]))
     if launches != want or n_steps != len(record["losses"]) or record["val"] == 0:
         fail(f"{label}: {launches} launches for {n_steps} steps and {record['val']} validation"
@@ -2217,7 +2439,8 @@ def cli_run(torch, label, path, cfg, record, ticks, argv, card):
     epoch_ms = sum(map(sum, last.values())) / per_epoch
     rest = ", ".join(f"{k} {sum(times[k]) * 1e3:.1f} ms ({len(times[k])}x)"
                      for k in ("watch", "validation", "checkpoint"))
-    log(f"train CLI {label}: {n_steps} steps (B={cfg['training']['batch_size']}) and"
+    mode = "captured" if record["captured"] else "eager"
+    log(f"train CLI {label} ({mode}): {n_steps} steps (B={cfg['training']['batch_size']}) and"
         f" {record['val']} validation batches in {wall:.2f} s; step interval (StepTimer's ticks"
         f" inside the loop) by epoch {'; '.join(', '.join(f'{x:.1f}' for x in e) for e in intervals)}"
         f" ms, the last epoch's median {float(np.median(intervals[-1])):.1f} ms; the last epoch"
@@ -2225,9 +2448,11 @@ def cli_run(torch, label, path, cfg, record, ticks, argv, card):
         f" {', '.join(f'{x:.1f}' for x in last['data'])}, step"
         f" {', '.join(f'{x:.1f}' for x in last['step'])}, fetch"
         f" {', '.join(f'{x:.1f}' for x in last['fetch'])} ms; {rest}; peak memory"
-        f" {peak_gb:.2f} GB; largest parameter move {moved:.3g}; no synchronising call from the"
-        f" end of the first step to the end of the second ({card})")
-    return directory, epoch_ms, per_epoch
+        f" {peak_gb:.2f} GB; largest parameter move {moved:.3g}; no synchronising call over the"
+        f" {'first replayed' if record['captured'] else 'second'} step ({card})")
+    split = {k: float(np.mean(v)) for k, v in last.items()}
+    return directory, epoch_ms, per_epoch, dict(split, interval_ms=float(np.median(intervals[-1])),
+                                                epoch_ms=epoch_ms, peak_gb=peak_gb)
 
 
 def jax_layout_copy(torch, cfg, model_file, names, root):
@@ -2291,6 +2516,31 @@ def check_jax_layout_resume(torch, record, want, tape, directory, jax_dir, card)
         f" {len(printed[0])} printed lines bit for bit (last loss {losses[-1]!r}); {card}")
 
 
+def cli_turns(torch, fx, root, weights, record, ticks, make_steps, argv, card):
+    """Phase 10's `train` in turns: stage 2 through ``python -m
+    nsdp_tpu_torch.train`` from the stage-1 files, untraced, eager
+    (``graphs=False``), captured, captured, eager, each in a fresh
+    directory: the last epoch's data / step / fetch split a step, the
+    median step interval and peak memory of each."""
+    from nsdp_tpu_torch import train as port_train
+
+    rows = []
+    for i, graphs in enumerate((False, None, None, False)):
+        turn = os.path.join(root, f"turn{i}")
+        os.makedirs(turn)
+        path, cfg = cli_config("arbitrary", fx, turn, weights=weights)
+        port_train.make_steps = recording_steps(torch, make_steps, record, "arbitrary",
+                                                graphs=graphs)
+        *_, stats = cli_run(torch, "arbitrary", path, cfg, record, ticks, argv, card)
+        rows.append(("captured" if record["captured"] else "eager", stats))
+        record.clear()
+        torch.cuda.empty_cache()
+    log("graphs: train CLI stage 2 (B=8) in turns, the last epoch a step: " + "; ".join(
+        f"{mode} interval {r['interval_ms']:.1f} ms, data {r['data']:.1f} / step {r['step']:.1f}"
+        f" / fetch {r['fetch']:.1f} ms, wall {r['epoch_ms']:.1f} ms, peak {r['peak_gb']:.2f} GB"
+        for mode, r in rows) + f" ({card})")
+
+
 def train_cli(torch, card):
     """Phase 6: ``python -m nsdp_tpu_torch.train`` at full width, in
     process: stage 1 (forward, backward), stage 2 from their last files,
@@ -2329,7 +2579,7 @@ def train_cli(torch, card):
                 path, cfg = cli_config(label, fx, root, weights=weights)
                 trace_dir = os.path.join(root, "trace", label)
                 port_train.make_steps = recording_steps(torch, make_steps, record, label)
-                directory, epoch_ms, per_epoch = cli_run(
+                directory, epoch_ms, per_epoch, _ = cli_run(
                     torch, label, path, cfg, record, ticks, [*argv, "--profile_dir", trace_dir],
                     card)
                 best = check_cli_files(directory, label)
@@ -2341,18 +2591,28 @@ def train_cli(torch, card):
                         same_state(torch, sub, read_state_dict(wfile),
                                    f"stage 2: {branch} before the first step")
                 n_dev, busy, window, idle = trace_idle(trace_dir)
+                graphs = record["steps"]["train_step"].graphs
+                for program in graphs.programs.values():  # the last batch's size has its own
+                    expect_replay(replay_launches(graphs, program), TRAIN_LAUNCHES[label],
+                                  f"{label}'s captured step through the CLI")
                 per_step = busy / per_epoch
                 log(f"train CLI {label}: traced first epoch {window:.1f} ms, {n_dev} device"
                     f" activities, busy {busy:.1f} ms: the device idles {100 * idle:.1f}%"
                     f" (its first step's warm-up and the loader's start included); {per_step:.1f}"
                     f" ms busy a step against the untraced last epoch's {epoch_ms:.1f} ms a step:"
-                    f" {100 * (1 - per_step / epoch_ms):.1f}% idle; {best}; {card}")
+                    f" {100 * (1 - per_step / epoch_ms):.1f}% idle; its kernels"
+                    f" {' / '.join(map(str, TRAIN_LAUNCHES[label]))} K1 / K2 / K3 / K4 / gather"
+                    f" a step (the eager first step's and the capture's counters, the graph's"
+                    f" kernel nodes at every replay);"
+                    f" {best}; {card}")
                 if label == "forward":
                     check_watch(torch, record)
                 names = [n for n, _ in record["model"].named_parameters()]
                 record.clear()
                 torch.cuda.empty_cache()
 
+            cli_turns(torch, fx, root, (last["forward"], last["backward"]), record, ticks,
+                      make_steps, argv, card)
             path, cfg = cli_config("arbitrary", fx, root, epochs=3,
                                    weights=(last["forward"], last["backward"]))
             # the same stage-2 files in the JAX package's layout, in a
@@ -2361,14 +2621,16 @@ def train_cli(torch, card):
                                                 os.path.join(root, "jax_layout"))
             # both resumes draw their items in order (no loader threads
             # sharing np.random), and the second replays K2's outputs of the
-            # first (its float64 atomics sum in no fixed order)
+            # first (its float64 atomics sum in no fixed order): both eager,
+            # since a captured step's K2 runs inside its graph
             resume_argv = [*argv[:argv.index("--num_workers")], "--num_workers", "0",
                            *argv[argv.index("--num_workers") + 2:]]
             tape = K2Tape()
-            port_train.make_steps = recording_steps(torch, make_steps, record, "arbitrary")
+            port_train.make_steps = recording_steps(torch, make_steps, record, "arbitrary",
+                                                    graphs=False)
             with tape.run(replay=False):
-                directory, _, _ = cli_run(torch, "arbitrary", path, cfg, record, ticks,
-                                          resume_argv, card)
+                directory, _, _, _ = cli_run(torch, "arbitrary", path, cfg, record, ticks,
+                                             resume_argv, card)
             same_state(torch, record["first"], read_state_dict(last["arbitrary"]),
                        "resume: the model before its first step")
             opt = torch.load(last["arbitrary"].replace("model_", "opt_"), map_location="cpu",
@@ -2382,10 +2644,11 @@ def train_cli(torch, card):
             torch_resume = {k: record[k] for k in ("first", "first_opt")}
             torch_resume["losses"] = [float(x) for x in record["losses"]]
             record.clear()
-            port_train.make_steps = recording_steps(torch, make_steps, record, "arbitrary")
+            port_train.make_steps = recording_steps(torch, make_steps, record, "arbitrary",
+                                                    graphs=False)
             with tape.run(replay=True):
-                jax_dir, _, _ = cli_run(torch, "arbitrary", jax_path, jax_cfg, record, ticks,
-                                        resume_argv, card)
+                jax_dir, _, _, _ = cli_run(torch, "arbitrary", jax_path, jax_cfg, record, ticks,
+                                           resume_argv, card)
             check_jax_layout_resume(torch, record, torch_resume, tape, directory, jax_dir, card)
             record.clear()
     finally:
@@ -2466,12 +2729,13 @@ def remat_step(torch):
     step bit for bit, or, where K2's float64 atomics reorder (the two steps
     without remat differ there too), within phase 4b's rule: its relative L2
     gap to the first step without remat at most 4 times the second's, floor
-    1e-4.  Then 3 more steps of each, timed, with their peak memory."""
+    1e-4.  Then 3 more steps of each, timed, with their peak memory.  All
+    eager: phase 10 holds the captured remat step against the eager one."""
     batch = train_batch(np.random.RandomState(11), 8, 5000, 5000)
     runs = {}
     for name, remat in (("plain", False), ("again", False), ("remat", True)):
         _, model, schedule, opt, steps = train_setup(
-            torch, "arbitrary", seed=0, cfg=shipped_config("arbitrary", remat=remat))
+            torch, "arbitrary", seed=0, cfg=shipped_config("arbitrary", remat=remat), graphs=False)
         lr = schedule.get_learning_rate(0)
         before = counts()
         loss = steps["train_step"](batch, lr)
@@ -2878,7 +3142,10 @@ def rank_nccl(torch, rank, world, port, outdir):
     # repeat) adds in a fixed order
     _, model_g, schedule, opt_g, steps_g = train_setup(torch, "arbitrary", seed=MP_WEIGHT_SEED,
                                                        group=group)
-    _, model_n, _, opt_n, steps_n = train_setup(torch, "arbitrary", seed=MP_WEIGHT_SEED)
+    # the step without a group eager, as the grouped one is (K2Tape replays
+    # K2's outputs in Python, which a captured step would not run)
+    _, model_n, _, opt_n, steps_n = train_setup(torch, "arbitrary", seed=MP_WEIGHT_SEED,
+                                                graphs=False)
     lr = schedule.get_learning_rate(0)
     # the batches go up first, as the training entry point uploads them
     # before the step (a copy from pageable memory waits for the card)
@@ -3383,6 +3650,430 @@ def host_tools(card, native_build):
     log(f"host tools: phase 9 took {time.perf_counter() - t_phase:.1f} s")
 
 
+# ---------------------------------------------------------------- phase 10
+
+# (label, model type, model keys, nan_guard) of the train steps held
+# captured against eager; all but nan_guard's also timed in turns
+GRAPH_STEP_RUNS = [("forward", "forward", {}, False), ("arbitrary", "arbitrary", {}, False),
+                   ("forward bf16", "forward", {"compute_dtype": "bfloat16"}, False),
+                   ("arbitrary bf16", "arbitrary", {"compute_dtype": "bfloat16"}, False),
+                   ("arbitrary remat", "arbitrary", {"remat": True}, False),
+                   ("forward nan_guard", "forward", {}, True)]
+GRAPH_CHECK_STEPS = 5  # replayed steps of each run; held at the first and the last
+
+
+def turns(torch, fns, order, reps):
+    """Host-clock ms of ``reps`` synchronised calls of ``fns[key]`` per
+    entry of ``order`` (keys in turns, e.g. captured, eager, eager,
+    captured) -> each key's median over its turns."""
+    times = {k: [] for k in fns}
+    for key in order:
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fns[key]()
+            torch.cuda.synchronize()
+            times[key].append((time.perf_counter() - t0) * 1e3)
+    return {k: float(np.median(v)) for k, v in times.items()}
+
+
+def hold_captured(torch, what, got, want, replay, eager):
+    """A captured output against the eager one on the same inputs: bit for
+    bit -- or, where the replay's cuBLAS kernels differ from the eager
+    run's (another algorithm under capture), within serving's rule against
+    float32 (``E2E_TOL``), with the kernels named.  -> None (bit for bit)
+    or the differing kernels."""
+    import collections
+
+    if np.array_equal(got, want):
+        return None
+    kernels = []
+    for fn in (replay, eager):
+        _, events = profiled(torch, fn)
+        kernels.append(collections.Counter(kernel_name(e.name) for e in events))
+    differ = sorted(((kernels[0] - kernels[1]) + (kernels[1] - kernels[0])).keys())
+    if not differ or not all("gemm" in k for k in differ):
+        fail(f"{what}: the captured output differs from the eager one (max abs"
+             f" {float(np.abs(got - want).max()):.3g}) with the same kernels but {differ}")
+    if not np.allclose(got, want, **E2E_TOL):
+        fail(f"{what}: captured against eager max abs {float(np.abs(got - want).max()):.3g}"
+             f" beyond rtol 1e-3 / atol 2e-4 (cuBLAS under capture: {differ})")
+    log(f"graphs: {what}: not bit for bit; cuBLAS picks other kernels under capture ({differ});"
+        f" within rtol 1e-3 / atol 2e-4 (max abs {float(np.abs(got - want).max()):.3g})")
+    return differ
+
+
+def warmed_service(torch, config, n, graphs, state_dict=None):
+    """A service warmed at ``n`` surface points -> (service, warm-up s,
+    peak MB above the memory held before it, MB it holds after)."""
+    import gc
+
+    from nsdp_tpu_torch.serving import DeformationService
+
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    svc = DeformationService(config, device="cuda", seed=0, graphs=graphs, state_dict=state_dict)
+    t0 = time.perf_counter()
+    svc.warmup(n)
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    return (svc, warm_s, (torch.cuda.max_memory_allocated() - base) / 1e6,
+            (torch.cuda.memory_allocated() - base) / 1e6)
+
+
+def serving_against_eager(torch, rng, surf, config, label, card):
+    """Phase 10a: a captured service against an eager one with the same
+    weights, each warmed alone (capture time, memory): ``deform`` at every
+    bucket, plain and masked, bit for bit; two edit sessions at one bucket
+    with their drags interleaved (the first's drags unchanged bit for bit)
+    and a masked one; each program's kernels in one replay; then an
+    evaluation at Q = 65,536 and a drag at 20,000 in turns, and one of
+    each traced.  -> the captured service's model."""
+    n = surf.shape[0]
+    handle = (surf[:, 2] > 0.8).astype(np.float32)[:, None]
+    tgt = (surf + np.array([0.25, 0.0, 0.1], np.float32)) * handle
+    inputs = np.concatenate([surf, tgt, handle], -1)
+    pm = np.ones(n, np.float32)
+    pm[-500:] = 0.0
+    eager, warm_e, peak_e, held_e = warmed_service(torch, config, n, False)
+    cap, warm_c, peak_c, held_c = warmed_service(torch, config, n, None,
+                                                 eager.model.state_dict())
+    programs = cap.graphs[0].programs
+    log(f"graphs: serving {label}: warmup {warm_c:.2f} s captured ({len(programs)} programs)"
+        f" against {warm_e:.2f} s eager; peak memory above the model {peak_c:.1f} MB against"
+        f" {peak_e:.1f} MB, held after it {held_c:.1f} MB against {held_e:.1f} MB ({card})")
+    fallbacks = []
+    for b in cap.buckets:
+        pts = rng.uniform(-1.3, 1.3, (b - 100, 3)).astype(np.float32)
+        for mask in (None, pm):
+            inp = inputs if mask is None else inputs * mask[:, None]
+            run = lambda s: s.deform(pts, inp, point_mask=mask)
+            fallbacks.append(hold_captured(torch, f"{label} deform Q={b - 100}"
+                                           f"{' masked' if mask is not None else ''}",
+                                           run(cap), run(eager), lambda: run(cap),
+                                           lambda: run(eager)))
+    pts, pts2 = (rng.uniform(-1.3, 1.3, (20000, 3)).astype(np.float32) for _ in range(2))
+    surf2 = surf * np.float32(0.9) + np.float32(0.05)
+    s1, e1 = cap.edit_session(pts, surf), eager.edit_session(pts, surf)
+    first = s1.drag(tgt, handle)
+    fallbacks.append(hold_captured(torch, f"{label} session 1 drag", first, e1.drag(tgt, handle),
+                                   lambda: s1.drag(tgt, handle), lambda: e1.drag(tgt, handle)))
+    s2, e2 = cap.edit_session(pts2, surf2), eager.edit_session(pts2, surf2)
+    fallbacks.append(hold_captured(torch, f"{label} session 2 drag", s2.drag(tgt * 0.5, handle),
+                                   e2.drag(tgt * 0.5, handle), lambda: s2.drag(tgt * 0.5, handle),
+                                   lambda: e2.drag(tgt * 0.5, handle)))
+    if not np.array_equal(s1.drag(tgt, handle), first):
+        fail(f"{label}: a second session at the same bucket changed the first one's drag")
+    fallbacks.append(hold_captured(torch, f"{label} session 1 second drag",
+                                   s1.drag(tgt * 0.5, handle), e1.drag(tgt * 0.5, handle),
+                                   lambda: s1.drag(tgt * 0.5, handle),
+                                   lambda: e1.drag(tgt * 0.5, handle)))
+    masked = surf * pm[:, None]
+    s3, e3 = cap.edit_session(pts, masked, pm), eager.edit_session(pts, masked, pm)
+    fallbacks.append(hold_captured(torch, f"{label} masked session drag", s3.drag(tgt, handle),
+                                   e3.drag(tgt, handle), lambda: s3.drag(tgt, handle),
+                                   lambda: e3.drag(tgt, handle)))
+    same = sum(f is None for f in fallbacks)
+    log(f"graphs: serving {label}: captured against eager, {same} of {len(fallbacks)} outputs bit"
+        f" for bit (every bucket, plain and masked; sessions and drags), the first session's drag"
+        f" unchanged bit for bit after a second session at its bucket")
+    rows = []
+    for (name, sig), program in sorted(programs.items(), key=lambda kv: (kv[0][0],
+                                                                       kv[0][1][0][0][1])):
+        got = replay_launches(cap.graphs[0], program)
+        rows.append(f"{name} {sig[0][0][1]}{' masked' if sig[-1] is not None else ''}:"
+                    f" {'/'.join(map(str, got))} of {len(graph_kernels(program))}")
+    log(f"graphs: serving {label}: per replay of each program, K1/K2/K3/K4/gather launches of"
+        f" all its graph's kernel nodes: {'; '.join(rows)}")
+    q65 = rng.uniform(-1.3, 1.3, (65536, 3)).astype(np.float32)
+    svc = {"captured": cap, "eager": eager}
+    order = ("captured", "eager", "eager", "captured")
+    evals = turns(torch, {k: (lambda s=s: s.deform(q65, inputs)) for k, s in svc.items()},
+                  order, 5)
+    sessions = {"captured": s1, "eager": e1}
+    drags = turns(torch, {k: (lambda s=s: s.drag(tgt * 0.7, handle))
+                          for k, s in sessions.items()}, order, 5)
+    busy = {k: trace(torch, lambda s=s: s.deform(q65, inputs), evals[k],
+                     f"graphs: one {label} evaluation at Q=65536 ({k})", s.graphs)
+            for k, s in svc.items()}
+    drag_busy = {k: trace(torch, lambda s=s: s.drag(tgt * 0.7, handle), drags[k],
+                          f"graphs: one {label} drag at Q=20000 ({k})", svc[k].graphs)
+                 for k, s in sessions.items()}
+    log(f"graphs: serving {label} in turns (captured, eager, eager, captured; medians of 10):"
+        f" evaluation at Q=65536 {evals['captured']:.2f} ms captured against"
+        f" {evals['eager']:.2f} ms eager (device busy {busy['captured']:.2f} / {busy['eager']:.2f}"
+        f" ms, idle {100 * (1 - busy['captured'] / evals['captured']):.1f}% /"
+        f" {100 * (1 - busy['eager'] / evals['eager']):.1f}%); drag at Q=20000"
+        f" {drags['captured']:.2f} ms against {drags['eager']:.2f} ms (busy"
+        f" {drag_busy['captured']:.2f} / {drag_busy['eager']:.2f} ms) ({card})")
+    model = cap.model
+    del eager, cap, svc, s1, s2, s3, e1, e2, e3, sessions
+    torch.cuda.empty_cache()
+    return model
+
+
+def replicas_against_eager(torch, rng, surf, config, label):
+    """Phase 10a, ``devices=``: two replicas on the one card
+    (``devices=("cuda:0", "cuda:0")``, each with its own programs and
+    memory pool), captured, against the same two replicas eager with the
+    same weights: ``deform`` at every bucket, plain and masked, and two
+    edit sessions at one bucket with their drags interleaved, bit for bit;
+    every replayed call launches twice ``SERVE_LAUNCHES[label]`` (each
+    replica encodes the surface and decodes its half of the queries)."""
+    from nsdp_tpu_torch.serving import DeformationService
+
+    devices = ("cuda:0", "cuda:0")
+    cap = DeformationService(config, devices=devices, seed=0)
+    eager = DeformationService(config, devices=devices, state_dict=cap.model.state_dict(),
+                               graphs=False)
+    n = surf.shape[0]
+    cap.warmup(n)
+    handle = (surf[:, 2] > 0.8).astype(np.float32)[:, None]
+    tgt = (surf + np.array([0.25, 0.0, 0.1], np.float32)) * handle
+    inputs = np.concatenate([surf, tgt, handle], -1)
+    pm = np.ones(n, np.float32)
+    pm[-500:] = 0.0
+    want = {k: tuple(2 * x for x in v) for k, v in SERVE_LAUNCHES[label].items()}
+
+    def same(what, fn, entry):
+        before = counts()
+        got, names = replays(cap.graphs, lambda: fn(cap))
+        expect_launches(before, (0,) * 5, f"{what}: the wrappers under replay")
+        expect_replay(launch_counts(names), want[entry], what)
+        if not np.array_equal(got, fn(eager)):
+            fail(f"{what}: the captured output differs from the eager one")
+        return got
+
+    for b in cap.buckets:
+        pts = rng.uniform(-1.3, 1.3, (b - 100, 3)).astype(np.float32)
+        for mask in (None, pm):
+            inp = inputs if mask is None else inputs * mask[:, None]
+            same(f"{label} on two replicas: deform Q={b - 100}",
+                 lambda s: s.deform(pts, inp, point_mask=mask), "deform")
+    pts, pts2 = (rng.uniform(-1.3, 1.3, (20000, 3)).astype(np.float32) for _ in range(2))
+    s1 = replays(cap.graphs, lambda: cap.edit_session(pts, surf))[0]
+    e1 = eager.edit_session(pts, surf)
+    first = same(f"{label} on two replicas: session 1 drag",
+                 lambda s: (s1 if s is cap else e1).drag(tgt, handle), "drag")
+    s2, e2 = cap.edit_session(pts2, surf * np.float32(0.9)), eager.edit_session(
+        pts2, surf * np.float32(0.9))
+    same(f"{label} on two replicas: session 2 drag",
+         lambda s: (s2 if s is cap else e2).drag(tgt * 0.5, handle), "drag")
+    if not np.array_equal(s1.drag(tgt, handle), first):
+        fail(f"{label} on two replicas: a second session at the same bucket changed the first"
+             f" one's drag")
+    log(f"graphs: serving {label} on two replicas of one card (devices=): captured against eager,"
+        f" deform at every bucket plain and masked and two interleaved sessions' drags bit for"
+        f" bit, the first session's drag unchanged after the second; each replayed call"
+        f" {' / '.join(map(str, want['deform']))} (deform) and"
+        f" {' / '.join(map(str, want['drag']))} (drag) K1 / K2 / K3 / K4 / gather kernel nodes,"
+        f" twice one replica's")
+    del cap, eager, s1, s2, e1, e2
+    torch.cuda.empty_cache()
+
+
+def predict_against_eager(torch, model, rng, surf, card):
+    """Phase 10b: ``predict`` of the shipped model at Q = 65,536 through a
+    captured program (``graphs.Graphs``), float32 and
+    ``compute_dtype=torch.bfloat16``, against the eager calls: bit for
+    bit, then timed in turns and one of each captured traced."""
+    from nsdp_tpu_torch.graphs import Graphs
+
+    graphs = Graphs("cuda")
+    handle = (surf[:, 2] > 0.8).astype(np.float32)[:, None]
+    inputs = np.concatenate([surf, (surf + np.float32(0.25)) * handle, handle], -1)
+    pts = torch.from_numpy(rng.uniform(-1.3, 1.3, (1, 65536, 3)).astype(np.float32))
+    inp = torch.from_numpy(inputs[None])
+    bf16 = lambda a, b: model.predict(a, b, compute_dtype=torch.bfloat16)
+    fns = {"captured f32": lambda: graphs("f32", model.predict, pts, inp).cpu(),
+           "captured bf16": lambda: graphs("bf16", bf16, pts, inp).cpu(),
+           "eager bf16": lambda: bf16(pts.cuda(), inp.cuda()).cpu(),
+           "eager f32": lambda: model.predict(pts.cuda(), inp.cuda()).cpu()}
+    with torch.inference_mode():
+        outs = {k: f().numpy() for k, f in fns.items()}
+        for dtype in ("f32", "bf16"):
+            hold_captured(torch, f"predict {dtype}", outs[f"captured {dtype}"],
+                          outs[f"eager {dtype}"], fns[f"captured {dtype}"], fns[f"eager {dtype}"])
+        order = list(fns) + list(fns)[::-1]
+        ms = turns(torch, fns, order, 5)
+        busy = {k: trace(torch, fns[k], ms[k], f"graphs: predict at Q=65536, {k}", [graphs])
+                for k in ("captured f32", "captured bf16")}
+    log(f"graphs: predict at Q=65536 in turns (medians of 10): "
+        + ", ".join(f"{k} {v:.2f} ms" for k, v in ms.items())
+        + f"; captured bf16 against captured f32 {ms['captured bf16'] - ms['captured f32']:+.2f} ms"
+        f" (device busy {busy['captured bf16']:.2f} against {busy['captured f32']:.2f} ms);"
+        f" captured outputs bit for bit the eager ones ({card})")
+
+
+def bitwise(torch, a, b) -> bool:
+    """Equal bit for bit, NaNs at the same places counting as equal (and
+    two Nones)."""
+    if a is None or b is None:
+        return a is b
+    nan = a.isnan()
+    return torch.equal(nan, b.isnan()) and torch.equal(a[~nan], b[~nan])
+
+
+def step_state(model, loss):
+    """A step's loss and copies of the model's buffers, gradients (None
+    after a ``nan_guard`` skip) and parameters."""
+    return dict(loss=loss, buffers=[b.clone() for b in model.buffers()],
+                grads=[None if p.grad is None else p.grad.clone() for p in model.parameters()],
+                params=[p.detach().clone() for p in model.parameters()])
+
+
+def hold_step(torch, what, cap, eager, again):
+    """A replayed step against an eager one from the same state: the loss
+    and every buffer bit for bit; each gradient and parameter bit for bit
+    or, where K2's float64 atomics reorder, within phase 4b's rule against
+    a second eager step's own gap -> (tensors not bit for bit, largest
+    ratio)."""
+    if not (cap["loss"] == eager["loss"] or (np.isnan(cap["loss"]) and np.isnan(eager["loss"]))):
+        fail(f"{what}: loss {cap['loss']!r} captured against {eager['loss']!r} eager")
+    if not all(bitwise(torch, a, b) for a, b in zip(cap["buffers"], eager["buffers"])):
+        fail(f"{what}: a BatchNorm buffer differs from the eager step's")
+    reordered, worst = 0, 0.0
+    for key in ("grads", "params"):
+        for i, (c, e, q) in enumerate(zip(cap[key], eager[key], again[key])):
+            if bitwise(torch, c, e):
+                continue
+            reordered += 1
+            err, noise = rel_err(c, e), rel_err(q, e)
+            limit = max(REMAT_RULE["factor"] * noise, REMAT_RULE["floor"])
+            worst = max(worst, err / limit)
+            if not err <= limit:
+                fail(f"{what}: {key} {i}: relative L2 gap {err:.3g} beyond {limit:.3g} (two eager"
+                     f" steps differ by {noise:.3g})")
+    return reordered, worst
+
+
+def hold_replayed_step(torch, what, model, opt, step, twins, batch, lr):
+    """A captured ``step`` on ``batch`` against the eager steps of two
+    ``twins`` (``train_setup``'s tuples) loaded with its model's and
+    optimizer's state before it: :func:`hold_step` -> (its result, the
+    captured step's loss)."""
+    import copy
+
+    state = {n: t.clone() for n, t in model.state_dict().items()}
+    opt_state = copy.deepcopy(opt.state_dict())
+    loss = step(batch, lr)
+    got = step_state(model, loss)
+    held = []
+    for _, m, _, o, st in twins:
+        m.load_state_dict(state)
+        o.load_state_dict(copy.deepcopy(opt_state))
+        held.append(step_state(m, st["train_step"](batch, lr)))
+    return hold_step(torch, what, got, *held), loss
+
+
+def steps_against_eager(torch, card):
+    """Phase 10c: per run of ``GRAPH_STEP_RUNS`` (stage 1 and 2, bf16,
+    remat, ``nan_guard`` with a NaN target in the third replayed batch), a
+    captured step sequence -- its eager first step, the capture, 4 more
+    replays -- and at the capture, at the NaN step and at the last step two
+    eager twins loaded with the captured run's state (model and optimizer)
+    take the same batch: ``hold_step``.  Then the captured and the eager
+    step timed in turns, phase 3b's way."""
+    rs = np.random.RandomState(23)
+    for label, model_type, model_kw, nan_guard in GRAPH_STEP_RUNS:
+        want = REMAT_LAUNCHES if model_kw.get("remat") else TRAIN_LAUNCHES[model_type]
+        cfg = shipped_config(model_type, **model_kw)
+        B = cfg["training"]["batch_size"]
+        _, model, schedule, opt, steps = train_setup(torch, model_type, 0, cfg=cfg,
+                                                     nan_guard=nan_guard)
+        twins = [train_setup(torch, model_type, 0, cfg=cfg, nan_guard=nan_guard, graphs=False)
+                 for _ in range(2)]
+        lr = schedule.get_learning_rate(0)
+        batches = [train_batch(rs, B, 5000, 5000) for _ in range(GRAPH_CHECK_STEPS + 1)]
+        checks = {1, GRAPH_CHECK_STEPS}
+        if nan_guard:
+            batches[3]["space_samples_tgt"][0, 0, 0] = np.nan
+            checks.add(3)
+        steps["train_step"](batches[0], lr)  # the eager first step
+        reordered, worst = 0, 0.0
+        for k in range(1, GRAPH_CHECK_STEPS + 1):
+            if k not in checks:
+                steps["train_step"](batches[k], lr)
+                continue
+            (r, w), loss = hold_replayed_step(torch, f"graphs: {label} step {k + 1}", model, opt,
+                                              steps["train_step"], twins, batches[k], lr)
+            reordered, worst = reordered + r, max(worst, w)
+            if nan_guard and k == 3 and not np.isnan(loss):
+                fail(f"{label}: the NaN batch's loss is {loss}")
+        n = 2 * len(list(model.parameters())) * len(checks)
+        line = (f"graphs: {label} (B={B}) train steps captured against eager from the same state"
+                f" at steps {sorted(k + 1 for k in checks)}: losses and every BatchNorm buffer bit"
+                f" for bit, {n - reordered} of {n} gradients and parameters bit for bit, the other"
+                f" {reordered} (K2's float64 atomics) within phase 4b's rule, largest ratio"
+                f" {worst:.3g}")
+        graphs = steps["train_step"].graphs
+        (program,) = graphs.programs.values()
+        got = replay_launches(graphs, program)
+        expect_replay(got, want, f"graphs: {label} step")
+        line += (f"; a replay of the step's graph: {'/'.join(map(str, got))} K1/K2/K3/K4/gather"
+                 f" of its {len(graph_kernels(program))} kernel nodes")
+        if not nan_guard:
+            fns = {"captured": lambda: steps["train_step"](batches[1], lr),
+                   "eager": lambda: twins[0][4]["train_step"](batches[1], lr)}
+            ms = turns(torch, fns, ("captured", "eager", "eager", "captured"), TRAIN_STEPS)
+            line += (f"; in turns (captured, eager, eager, captured; medians of"
+                     f" {2 * TRAIN_STEPS}) {ms['captured']:.2f} ms captured against"
+                     f" {ms['eager']:.2f} ms eager")
+        log(line + f" ({card})")
+        del model, opt, steps, twins
+        torch.cuda.empty_cache()
+
+
+def train_memory(torch, card):
+    """Phase 10d: peak memory of three steps (eager first, capture, replay)
+    of the stage-1 ``forward`` (B = 16) and stage-2 ``arbitrary`` (B = 8)
+    steps, each model alone, captured and eager, and what stays held."""
+    import gc
+
+    rs = np.random.RandomState(29)
+    rows = []
+    for model_type in ("forward", "arbitrary"):
+        for graphs in (False, None):
+            gc.collect()
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            base = torch.cuda.memory_allocated()
+            cfg, model, schedule, opt, steps = train_setup(torch, model_type, 0, graphs=graphs)
+            B = cfg["training"]["batch_size"]
+            torch.cuda.reset_peak_memory_stats()
+            for _ in range(3):
+                steps["train_step"](train_batch(rs, B, 5000, 5000), schedule.get_learning_rate(0))
+            torch.cuda.synchronize()
+            rows.append(f"{model_type} (B={B}) {'captured' if graphs is None else 'eager'} peak"
+                        f" {(torch.cuda.max_memory_allocated() - base) / 1e9:.2f} GB, held"
+                        f" {(torch.cuda.memory_allocated() - base) / 1e9:.2f} GB")
+            del model, opt, steps
+    torch.cuda.empty_cache()
+    log(f"graphs: training memory, each model alone: {'; '.join(rows)} ({card})")
+
+
+def graphs_phase(torch, card):
+    """Phase 10: every captured program against its eager run on the card,
+    and timed against it in turns."""
+    from nsdp_tpu_torch.utils.config import load_config
+
+    t_phase = time.perf_counter()
+    rng = np.random.RandomState(31)
+    surf = surface(rng, 5000)
+    for label, config in (("shipped", load_config(CONFIG)), ("A", ablation_config("A"))):
+        model = serving_against_eager(torch, rng, surf, config, label, card)
+        if label == "shipped":
+            replicas_against_eager(torch, rng, surf, config, label)
+            predict_against_eager(torch, model, rng, surf, card)
+        del model
+    steps_against_eager(torch, card)
+    train_memory(torch, card)
+    log(f"graphs: phase 10 took {time.perf_counter() - t_phase:.1f} s")
+
+
 def rank_main(argv) -> None:
     """A rank of phase 7: ``--rank ROLE RANK WORLD PORT ARGS...``."""
     import torch
@@ -3452,8 +4143,11 @@ def main() -> None:
     if not os.path.isdir(os.path.join(REPO, "nsdp_tpu_torch")) or not os.path.exists(CONFIG):
         fail("run from a checkout of the repository: nsdp_tpu_torch/ and configs/ are missing")
     sys.path.insert(0, REPO)
+    from nsdp_tpu_torch import graphs
     from nsdp_tpu_torch.ops import _build
     from nsdp_tpu_torch.utils.config import load_config
+
+    graphs.KEEP_GRAPHS = True  # the launch checks read each graph's kernel nodes
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -3487,6 +4181,10 @@ def main() -> None:
     train(torch, rng, ABLATION_RUNS)
     check_training_reference(torch, "A", ablation_config("A"), batch_seed=19)
     torch.cuda.empty_cache()
+    # phase 10 before the later phases' profiling sessions: its busy times
+    # come from torch.profiler, which lost records of graph replays late in
+    # an earlier run of this script (PERF.md)
+    graphs_phase(torch, card)
     entry_points(torch, rows, card)
     train_cli(torch, card)
     multi_process(torch, card)

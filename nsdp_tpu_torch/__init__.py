@@ -13,7 +13,9 @@ JAX package is a hand-written CUDA kernel under ``csrc/``:
 
 Entry points run on ``cuda`` unless the caller asks for the CPU
 (``device="cpu"``), where every kernel wrapper takes its plain PyTorch
-version; with no card and no explicit CPU request they raise.
+version; with no card and no explicit CPU request they raise.  On the card
+the serving entries and the single-card train step run as captured CUDA
+graphs (``graphs.py``, the counterpart of the JAX package's ``jax.jit``).
 
 The host tools -- ``native`` (C++ KD-tree and marching tetrahedra),
 ``meshing`` and ``preprocess`` (``python -m nsdp_tpu_torch.preprocess``) --

@@ -57,7 +57,10 @@ class DeformationNetwork(nn.Module):
 
     def _call(self, module, *args):
         if self.remat and self.training and torch.is_grad_enabled():
-            return checkpoint(module, *args, use_reentrant=False,
+            # the model draws no random numbers, so no RNG state is stashed
+            # for the recompute (reading the card's RNG state is not allowed
+            # inside a CUDA graph capture)
+            return checkpoint(module, *args, use_reentrant=False, preserve_rng_state=False,
                               context_fn=checkpoint_contexts)
         return module(*args)
 

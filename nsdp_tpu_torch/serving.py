@@ -12,11 +12,20 @@ are independent), so the card sees few distinct shapes.  The model runs
 under ``torch.inference_mode``; every kNN attention and FPS of the path is a
 hand-written CUDA kernel on the card.
 
+On the card every entry runs as a captured CUDA graph per bucket
+(``graphs.Graphs``; the counterpart of the JAX service's compiled programs,
+``nsdp_tpu/serving.py:133-189,355-356``): ``deform`` with and without a
+``point_mask``, the edit session's canonicalisation half and its drag
+(forward) half, each captured at the first request of its shape -- or all
+at once by :meth:`DeformationService.warmup` -- and replayed after.
+``graphs=False`` runs them eagerly, op by op.
+
 ``devices=(...)`` splits the query axis over several devices of one process
 (the counterpart of a ``('data', 'query')`` mesh with ``data=1``,
 ``nsdp_tpu/serving.py:25-35,129-131,338-352``): one replica of the model
 per device encodes the surface and decodes its share of the queries; the
-shares are concatenated in order.
+shares are concatenated in order.  Each replica captures its own programs
+on its own device.
 """
 
 import copy
@@ -26,11 +35,19 @@ import numpy as np
 import torch
 
 from nsdp_tpu_torch import resolve_device
+from nsdp_tpu_torch.graphs import Graphs
 from nsdp_tpu_torch.models import build_model, evaluation_config, init_random
 from nsdp_tpu_torch.training.checkpoints import read_state_dict
 from nsdp_tpu_torch.utils.padding import pad_queries
 
 WARM_SURFACE_POINTS = 256  # the surface size the JAX service warms at
+
+
+def _host(t: torch.Tensor) -> np.ndarray:
+    """A float32 host copy the caller owns (never a view of a program's
+    static output, which the next call overwrites -- ``.cpu()`` of a CPU
+    tensor copies nothing)."""
+    return t.to("cpu", torch.float32, copy=True).numpy()
 
 
 class DeformationService:
@@ -53,6 +70,13 @@ class DeformationService:
         ``device``.
       warm: run :meth:`warmup` at construction, at 256 surface points (the
         JAX service's warm size, ``nsdp_tpu/serving.py:55,108-109``).
+      graphs: run every entry as a captured CUDA graph per replica and
+        input shape (module docstring), the counterpart of the JAX
+        service's compiled programs as ``use_fused`` is of its fused path.
+        None (the default): on for a service on the card, off on the CPU;
+        False: eager, op by op (the A/B against the captured path); True
+        on the CPU keeps the captured path's static-buffer contract
+        (``graphs.Program``), for the tests.
 
     The model is built from ``models.evaluation_config(config)``: the
     shipped pair evaluates in float32 under any ``model.compute_dtype``, as
@@ -63,7 +87,8 @@ class DeformationService:
     def __init__(self, config: Dict, state_dict: Optional[Dict] = None,
                  buckets: Sequence[int] = (4096, 16384, 65536), device=None,
                  seed: int = 0, weight_file: Optional[str] = None,
-                 devices: Optional[Sequence] = None, warm: bool = False):
+                 devices: Optional[Sequence] = None, warm: bool = False,
+                 graphs: Optional[bool] = None):
         if state_dict is not None and weight_file is not None:
             raise ValueError("pass state_dict or weight_file, not both")
         if devices is not None and device is not None:
@@ -82,6 +107,10 @@ class DeformationService:
             self.model.load_state_dict(state_dict, strict=True)
         self.replicas = [self.model] + [copy.deepcopy(self.model).to(d)
                                         for d in self.devices[1:]]
+        if graphs is None:
+            graphs = all(d.type == "cuda" for d in self.devices)
+        # each replica's captured programs, or None: eager
+        self.graphs = [Graphs(d) for d in self.devices] if graphs else None
         if warm:
             self.warmup(WARM_SURFACE_POINTS)
 
@@ -107,7 +136,19 @@ class DeformationService:
         return ((out + m - 1) // m) * m
 
     def _tensor(self, a, device=None) -> torch.Tensor:
+        if isinstance(a, torch.Tensor):
+            return a.to(device or self.device)
         return torch.as_tensor(np.asarray(a, np.float32), device=device or self.device)
+
+    def _call(self, i: int, name: str, fn, *args):
+        """Replica ``i``'s ``fn`` on ``args`` (arrays, tensors or None):
+        eagerly on its device, or through its captured program for
+        ``name`` at the arguments' shapes, which copies each argument into
+        its static buffer from where it lies."""
+        if self.graphs is None:
+            return fn(*(None if a is None else self._tensor(a, self.devices[i]) for a in args))
+        host = lambda a: a if a is None or isinstance(a, torch.Tensor) else self._tensor(a, "cpu")
+        return self.graphs[i](name, fn, *map(host, args))
 
     def _shares(self, padded: np.ndarray) -> List[np.ndarray]:
         """The (B, Q, 3) padded queries cut into one equal share per device."""
@@ -119,10 +160,14 @@ class DeformationService:
         return outs[0] if len(outs) == 1 else torch.cat([o.to(self.device) for o in outs], dim=1)
 
     def warmup(self, n_surface: int) -> None:
-        """Run every serving entry once at every bucket size -- ``deform``
-        with and without a ``point_mask`` and, for the 'arbitrary'
-        composition, an edit session and a drag: builds the kernels and
-        fills PyTorch's allocator cache before the first request."""
+        """Run every serving entry once at every bucket size, for
+        ``n_surface`` conditioning points -- ``deform`` with and without a
+        ``point_mask`` and, for the 'arbitrary' composition, an edit
+        session and a drag.  On the card it captures each of them as a
+        CUDA graph per replica (the counterpart of the JAX service's
+        ``warmup``, ``nsdp_tpu/serving.py:133-189``, which compiles every
+        bucket ahead of the first request); eagerly it builds the kernels
+        and fills PyTorch's allocator cache."""
         rng = np.random.RandomState(0)
         inputs = rng.randn(n_surface, 7).astype(np.float32)
         pmask = np.ones((n_surface,), np.float32)
@@ -158,10 +203,9 @@ class DeformationService:
         padded, _ = pad_queries(np.asarray(points), self._bucket(q))
         with torch.inference_mode():
             # every replica's work is queued before the first result is read
-            outs = [model.predict(self._tensor(share, d), self._tensor(surface_samples_inputs, d),
-                                  None if point_mask is None else self._tensor(point_mask, d))
-                    for model, d, share in zip(self.replicas, self.devices, self._shares(padded))]
-            out = self._joined(outs)[:, :q].float().cpu().numpy()
+            outs = [self._call(i, "deform", model.predict, share, surface_samples_inputs, point_mask)
+                    for i, (model, share) in enumerate(zip(self.replicas, self._shares(padded)))]
+            out = _host(self._joined(outs)[:, :q])
         return out[0] if squeeze else out
 
     def edit_session(self, points: np.ndarray, surface_samples_src: np.ndarray,
@@ -186,13 +230,19 @@ class DeformationService:
             )
         q = points.shape[0]
         padded, _ = pad_queries(np.asarray(points)[None], self._bucket(q))
+        src = np.asarray(surface_samples_src, np.float32)[None]
         shares = []
         with torch.inference_mode():
-            for model, d, share in zip(self.replicas, self.devices, self._shares(padded)):
+            for i, (model, d, share) in enumerate(zip(self.replicas, self.devices,
+                                                      self._shares(padded))):
                 pm = None if point_mask is None else self._tensor(point_mask, d).reshape(1, -1)
-                space_cano, surf_cano = model.canonicalize(
-                    self._tensor(share, d), self._tensor(surface_samples_src, d)[None], pm
-                )
+                space_cano, surf_cano = self._call(i, "canonicalize", model.canonicalize,
+                                                   share, src, pm)
+                if self.graphs is not None:
+                    # the session owns its canonical pose: the program's
+                    # outputs are overwritten by the next call (another
+                    # session's at the same bucket)
+                    space_cano, surf_cano = space_cano.clone(), surf_cano.clone()
                 shares.append((space_cano, surf_cano, pm))
         return EditSession(self, shares, q)
 
@@ -200,7 +250,8 @@ class DeformationService:
 class EditSession:
     """Precomputed canonicalisation + per-drag forward evaluation, per
     device: its share of the canonicalised queries, the canonicalised
-    surface and the point mask."""
+    surface and the point mask, owned by the session (on the card each
+    drag copies them into the drag program's static inputs)."""
 
     def __init__(self, service: DeformationService, shares, q: int):
         self._service = service
@@ -219,10 +270,10 @@ class EditSession:
           (Q, 3) deformed query positions.
         """
         svc = self._service
-        mask = np.asarray(handle_mask, np.float32).reshape(-1, 1)
+        tgt = np.asarray(surface_samples_tgt, np.float32)[None]
+        mask = np.asarray(handle_mask, np.float32).reshape(1, -1, 1)
         with torch.inference_mode():
-            outs = [model.deform(space_cano, surf_cano, svc._tensor(surface_samples_tgt, d)[None],
-                                 svc._tensor(mask, d)[None], pm)
-                    for model, d, (space_cano, surf_cano, pm)
-                    in zip(svc.replicas, svc.devices, self._shares)]
-            return svc._joined(outs)[0, : self._q].float().cpu().numpy()
+            outs = [svc._call(i, "drag", model.deform, space_cano, surf_cano, tgt, mask, pm)
+                    for i, (model, (space_cano, surf_cano, pm))
+                    in enumerate(zip(svc.replicas, self._shares))]
+            return _host(svc._joined(outs)[0, : self._q])

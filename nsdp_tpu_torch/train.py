@@ -19,7 +19,12 @@ resumed (best model first, then the latest checkpoint).
 The host stays ahead of the card: batches go up from pinned memory without
 waiting for the device, the step's loss is read one step late (a step is
 queued before the previous one's loss is read), and checkpoints are written
-on a background thread.  The model runs on ``cuda`` (every kNN attention,
+on a background thread.  On one card each train step is a captured CUDA
+graph (``make_steps``' ``graphs``, the counterpart of ``train.py``'s
+compiled step): its first step runs eagerly, the second captures, the rest
+replay, each batch copied from its upload into the graph's static inputs;
+a last batch of another size captures a graph of its own.  Validation, the
+watch norms and several processes stay eager.  The model runs on ``cuda`` (every kNN attention,
 its backward and every FPS a hand-written kernel) unless ``--device cpu``
 asks for the plain PyTorch path.  Weights start from
 ``models.init_random(model, seed)``, then ``training.weight_file`` or the
@@ -275,6 +280,8 @@ def main(argv) -> Dict[str, List[float]]:
                     times["step"].append(time.perf_counter() - t1)
                     if pending is not None:
                         report(epoch, *pending)
+                    # the step's own copy of its loss: a captured step's
+                    # static loss is overwritten by the next replay
                     pending = (b, loss)
                     t0 = time.perf_counter()
                 if pending is not None:

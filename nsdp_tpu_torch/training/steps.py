@@ -13,6 +13,11 @@ tensors):
 The model and the optimizer hold the state and are updated in place.  On
 the card every kNN attention of a train step runs K1 forward and K2
 backward, every FPS K3; nothing carries gradients through a selection.
+On one card the train step's device work up to the update -- forward,
+loss, backward, the BatchNorm snapshot and the stage-2 running-statistics
+update -- runs as a captured CUDA graph per batch shape (``graphs.Graphs``,
+the counterpart of the JAX step's one compiled program), the optimizer's
+update eagerly after it.
 """
 
 import math
@@ -23,6 +28,7 @@ import torch
 from torch import nn
 
 from nsdp_tpu_torch import resolve_device
+from nsdp_tpu_torch.graphs import Graphs
 from nsdp_tpu_torch.nn.blocks import BatchNorm, bn_sync
 from nsdp_tpu_torch.parallel.dist import all_reduce_flat
 from nsdp_tpu_torch.training.optim import set_learning_rate
@@ -71,7 +77,8 @@ def _double_bn_update(bns: List[BatchNorm], saved) -> None:
 
 
 def make_steps(model: nn.Module, model_type: str, optimizer: torch.optim.Optimizer,
-               nan_guard: bool = False, device=None, group=None) -> Dict[str, Callable]:
+               nan_guard: bool = False, device=None, group=None,
+               graphs: Optional[bool] = None) -> Dict[str, Callable]:
     """The step functions of a model.
 
     Args:
@@ -82,7 +89,7 @@ def make_steps(model: nn.Module, model_type: str, optimizer: torch.optim.Optimiz
       nan_guard: on a non-finite loss skip the update, and put back every
         BatchNorm's running statistics (the train-mode forward moved them
         in place), so parameters, optimizer state and statistics stay as
-        they were; the loss is still returned.
+        they were; the loss is still returned (and ``.grad`` is None).
       device: where batches go (``cuda`` unless told otherwise), in the
         model's dtype.
       group: a ``torch.distributed`` process group whose ranks each hold
@@ -97,6 +104,25 @@ def make_steps(model: nn.Module, model_type: str, optimizer: torch.optim.Optimiz
         the ranks.  Every step but ``predict`` is then a collective that
         every rank must call.  The parameters must start equal on every
         rank (``parallel.broadcast_module``).  None: this process alone.
+      graphs: run the train step's device work up to the update -- the
+        train-mode forward and loss, the gradients (every parameter's, as
+        ``full_grads`` makes them), the BatchNorm snapshot and the stage-2
+        double update -- as a captured CUDA graph per batch shape
+        (``graphs.Graphs``, the counterpart of the JAX step's
+        ``jax.jit``).  Its first call at a shape is a real step run eagerly
+        on a side stream, the next captures and replays, later ones replay,
+        so a captured run's trajectory is the eager run's step for step.
+        ``set_learning_rate`` and ``optimizer.step()`` stay eager, after
+        the replay: the parameters are the eager step's bit for bit, a new
+        learning rate needs no new capture, and the optimizer's state
+        keeps its checkpoint format.  ``.grad`` holds the program's static
+        gradients, overwritten by its next replay (which hands them back to
+        ``.grad`` after a ``nan_guard`` skip set it to None).  None (the
+        default): on for a card without a group; False: eager; True on the
+        CPU keeps the static-buffer contract, for the tests.  Under a group
+        the step stays eager (its all-reduces are not captured), and
+        ``graphs=True`` raises ``ValueError``.  Validation, ``watch_stats``
+        and ``predict`` stay eager.
 
     Returns:
       ``train_step(batch, lr, fetch=True) -> loss``,
@@ -106,12 +132,21 @@ def make_steps(model: nn.Module, model_type: str, optimizer: torch.optim.Optimiz
       ``watch_stats(batch) -> (param_norms, grad_norms)`` and
       ``predict(points, surface_samples_inputs, point_mask=None) -> tensor``.
       Losses are Python floats, except ``train_step(..., fetch=False)``'s
-      without ``nan_guard``: a 0-d tensor on ``device``, so that the host
-      queues the step without waiting for the device.  Under a group every
+      without ``nan_guard``: a 0-d tensor on ``device`` that the caller
+      owns (a copy of a captured step's static loss), so that the host
+      queues the step without waiting for the device.  ``train_step.graphs``
+      is the :class:`~nsdp_tpu_torch.graphs.Graphs` of the captured step,
+      or None.  Under a group every
       loss is the mean over the whole batch, and ``watch_stats`` reports
       the averaged gradients.
     """
     device = resolve_device(device)
+    if graphs and group is not None:
+        raise ValueError("a grouped train step is not captured (its all-reduces stay eager): "
+                         "pass graphs=None or False with a group")
+    if graphs is None:
+        graphs = device.type == "cuda" and group is None
+    captured = Graphs(device) if graphs else None
     arbitrary = model_type == "arbitrary"
     all_bns = _batch_norms(model)
     cano_bns = _batch_norms(model.model_canonicalize.encoder) if arbitrary else []
@@ -132,14 +167,19 @@ def make_steps(model: nn.Module, model_type: str, optimizer: torch.optim.Optimiz
             return model(points, inputs[..., 0:3], inputs[..., 3:6], inputs[..., 6:7], point_mask)
         return model(points, inputs, point_mask)
 
-    def train_loss(batch: Dict[str, Any]) -> torch.Tensor:
-        """The train-mode loss of ``batch`` (running statistics updated in
-        place; the stage-2 encoder's first update only)."""
+    def step_inputs(batch: Dict[str, Any]):
+        """(points, conditioning, targets, point mask or None) of a batch
+        on ``device``, in the model's dtype."""
+        return (tensor(batch["space_samples_src"]), tensor(batch["surface_samples_inputs"]),
+                tensor(batch["space_samples_tgt"]), tensor(batch.get("surface_valid_mask")))
+
+    def train_loss(points, inputs, target, point_mask) -> torch.Tensor:
+        """The train-mode loss (running statistics updated in place; the
+        stage-2 encoder's first update only)."""
         model.train()
         with bn_sync(group):
-            pred = forward(batch["space_samples_src"], batch["surface_samples_inputs"],
-                           batch.get("surface_valid_mask"))
-        return compute_l2_error(pred, tensor(batch["space_samples_tgt"]))
+            pred = forward(points, inputs, point_mask)
+        return compute_l2_error(pred, target)
 
     def full_grads(grads):
         """Every parameter's gradient: a parameter the loss does not reach
@@ -148,30 +188,50 @@ def make_steps(model: nn.Module, model_type: str, optimizer: torch.optim.Optimiz
         would skip it, its weight decay and its Adam step count included."""
         return [torch.zeros_like(p) if g is None else g for p, g in zip(params, grads)]
 
-    def train_step(batch: Dict[str, Any], lr: float, fetch: bool = True):
-        saved_all = _snapshot(all_bns) if nan_guard else None
+    def forward_backward(points, inputs, target, point_mask):
+        """A train step's device work up to the update -> (loss, every
+        parameter's gradient, the BatchNorm buffers before the forward
+        that ``nan_guard`` restores).  The stage-2 encoder's second
+        running-statistics update is made here: a non-finite loss restores
+        every buffer from the snapshot, that update included."""
+        saved_all = _snapshot(all_bns) if nan_guard else []
         saved_cano = _snapshot(cano_bns)
-        optimizer.zero_grad(set_to_none=True)
-        loss = train_loss(batch)
-        loss.backward()
-        loss = loss.detach()
-        grads = full_grads([p.grad for p in params])
+        loss = train_loss(points, inputs, target, point_mask)
+        grads = full_grads(torch.autograd.grad(loss, params, allow_unused=True))
+        _double_bn_update(cano_bns, saved_cano)
+        return loss.detach(), grads, saved_all
+
+    def train_step(batch: Dict[str, Any], lr: float, fetch: bool = True):
+        args = step_inputs(batch)
+        if not model.training:  # as the eager forward leaves it (a replay sets no mode)
+            model.train()
+        if captured is None:
+            loss, grads, saved_all = forward_backward(*args)
+        else:
+            loss, grads, saved_all = captured("train_step", forward_backward, *args,
+                                              eager_calls=1)
         if group is not None:
             *grads, loss = all_reduce_flat([*grads, loss], group, average=True)
         for p, g in zip(params, grads):
-            p.grad = g
+            if p.grad is not g:
+                p.grad = g
         if nan_guard:  # the update depends on the loss: read it now
             value = float(loss)
             if not math.isfinite(value):
                 _restore(all_bns, saved_all)
                 optimizer.zero_grad(set_to_none=True)
                 return value
-        _double_bn_update(cano_bns, saved_cano)
         set_learning_rate(optimizer, lr)
         optimizer.step()
         if nan_guard:
             return value
-        return float(loss) if fetch else loss
+        if fetch:
+            return float(loss)
+        # a captured step's loss is its program's output, which the next
+        # step overwrites: the caller gets its own copy
+        return loss if captured is None else loss.clone()
+
+    train_step.graphs = captured
 
     def watch_stats(batch: Dict[str, Any]):
         """Parameter and gradient norms of one train-mode forward and
@@ -187,7 +247,8 @@ def make_steps(model: nn.Module, model_type: str, optimizer: torch.optim.Optimiz
         was_training = model.training
         saved = _snapshot(all_bns)
         try:
-            grads = torch.autograd.grad(train_loss(batch), params, allow_unused=True)
+            grads = torch.autograd.grad(train_loss(*step_inputs(batch)), params,
+                                        allow_unused=True)
         finally:
             _restore(all_bns, saved)
             model.train(was_training)
@@ -208,9 +269,8 @@ def make_steps(model: nn.Module, model_type: str, optimizer: torch.optim.Optimiz
     @torch.no_grad()
     def validate_step(batch: Dict[str, Any]) -> float:
         model.eval()
-        pred = forward(batch["space_samples_src"], batch["surface_samples_inputs"],
-                       batch.get("surface_valid_mask"))
-        loss = compute_l2_error(pred, tensor(batch["space_samples_tgt"]))
+        points, inputs, target, point_mask = step_inputs(batch)
+        loss = compute_l2_error(forward(points, inputs, point_mask), target)
         if group is not None:
             (loss,) = all_reduce_flat([loss], group, average=True)
         return float(loss)
