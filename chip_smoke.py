@@ -114,8 +114,17 @@ Phases (any failure exits non-zero and prints no result line):
    space samples; TOSCA-style meshes of 40,962 and 10,242 vertices) and a
    weight file of seeded weights; ``python -m nsdp_tpu_torch.test`` on the
    shipped ``arbitrary.yaml`` (3 pairs) and ``python -m nsdp_tpu_torch.run``
-   on ``configs/tosca/head.yaml`` for each mesh, in process: 34 K1 and 8 K3
-   launches per pair (two full evaluations), 4 of them by
+   on ``configs/tosca/head.yaml`` for each mesh, in process, each
+   evaluation through ``make_steps``' captured ``predict`` (a signature's
+   first call eager, its second captured): 34 K1 and 8 K3 launches per
+   pair (two full evaluations) by the wrappers at the first two pairs of
+   ``test`` and at ``run``'s one pair a mesh (whose two signatures stay
+   eager), each replay's kernel nodes a full evaluation, the programs
+   captured and the signatures left eager reported (``test_programs``);
+   then ``test`` and ``run`` (40,962 vertices) anew in turns, captured
+   and eager (``graphs=False``), 3 of each, every ``test`` turn's files
+   byte for byte the main path's, the wall time per pair of each turn
+   (``entry_turns``); 4 of the K3 launches by
    ``fps_cluster_kernel`` on the 40,962-vertex mesh (none on 10,242
    vertices) and none by ``fps_global_kernel``, the written meshes and
    point clouds finite; wall time per pair split into data, test_on_batch,
@@ -154,19 +163,28 @@ Phases (any failure exits non-zero and prints no result line):
    torch files (both resumes at ``--num_workers 0``, so both draw the same
    items; the second replays K2's outputs of the first, ``K2Tape``; both
    resumes eager, since a captured step's K2 runs inside its graph);
-   ``watch_stats`` on the card launches as a train step and leaves the model,
-   its ``.grad`` and the optimizer bit for bit as they were.  Logged per run:
+   every validation batch through its program (a signature's first,
+   eager call and its capture counted by the wrappers, each replay's
+   kernel nodes the forward half of a step); ``watch_stats`` captured on
+   the card (a train step's launches by the wrappers at its first, eager
+   call and again at its capture, a train step's in each replay's kernel
+   nodes) against the eager ``watch_stats`` (bit
+   for bit; gradient norms by phase 10c's rule where K2's float64 atomics
+   reorder), leaving the model, its ``.grad`` and the optimizer bit for
+   bit as they were, both timed in turns.  Logged per run:
    StepTimer's step intervals, the wall time of the loop's parts
    (``main``'s return), peak memory, the synchronising CUDA calls of a step
    (``torch.cuda.set_sync_debug_mode``), and the traced first epoch's device
    activity and idle share.  Then phase 10's ``train`` in turns: stage 2
-   from the stage-1 files, eager, captured, captured, eager, untraced, with
-   each run's data / step / fetch split;
+   from the stage-1 files, 3 epochs, eager, captured, captured, eager,
+   untraced, with each run's data / step / fetch split and its two
+   validation passes (captured: the first eager then captured, the second
+   replayed);
 7. several processes on the one card (``torch.distributed``; each rank a
    ``python3 chip_smoke.py --rank ...`` process started here, the kernels
    built before; a failed rank fails the phase and every rank is killed):
-   (a) two gloo ranks through ``make_steps(group=...)`` (a grouped step
-   is eager), two stage-2 steps
+   (a) two gloo ranks through ``make_steps(group=...)`` (a gloo group's
+   steps stay eager on the card), two stage-2 steps
    of the shipped model (B = 8, 4 rows a rank, N = Q = 5000, phase 4b's
    seeds, weights with O(1) outputs): K1/K2/K3 17/17/4 per step and rank;
    the ranks' states bit for bit equal after two steps; after one, held by
@@ -174,11 +192,22 @@ Phases (any failure exits non-zero and prints no result line):
    gradients too) against one process on the card in float32
    and the plain path in float64 by phase 4b's rule (4 times the float32
    error, floor 1e-4); the same two ranks in float64 (the plain path)
-   within 1e-9 of one process; (b) one NCCL rank: bit for bit the step
-   without a group (eager, ``graphs=False``) (K2's float64-atomic outputs replayed, its inputs held
-   bit for bit), no synchronising call from the end of its first step to
-   the end of its second, both timed, and one of each traced (the
-   device's idle share, the host's time in each all-reduce); (c) ``python -m
+   within 1e-9 of one process; (b) one NCCL rank: eager
+   (``graphs=False``), bit for bit the step without a group (K2's
+   float64-atomic outputs replayed, its inputs held bit for bit), no
+   synchronising call from the end of its first step to the end of its
+   second; 20 captures of all-reduces in torch's default global capture
+   mode right after unwaited eager all-reduces, none broken
+   (``capture_stress``); captured (``make_steps``' default under NCCL,
+   the all-reduces inside the graph): from one state a replayed step
+   against the eager grouped step and the captured step without a group
+   by phase 10c's rule, the graph's kernel nodes K1/K2/K3 17/17/4 with
+   NCCL's kernels and every node kind counted beside the ungrouped
+   graph's, no synchronising call from the end of one replayed step to
+   the end of the next; the four steps (eager and captured, with and
+   without the group) timed in turns, and the eager two and the captured
+   grouped one traced (the device's idle share, the host's time in each
+   all-reduce); (c) ``python -m
    nsdp_tpu_torch.train`` (stage 1, ``forward.yaml`` on phase 6's fixture,
    2 epochs) on two gloo ranks whose group the phase sets up before
    ``main`` runs: the files written once, by rank 0, ``stats.txt`` holding
@@ -246,8 +275,17 @@ Phases (any failure exits non-zero and prints no result line):
    4b's rule), the step graph's kernel nodes exactly the eager launches,
    and the step timed
    in turns; (d) peak and held memory of three steps, each model alone,
-   captured and eager.  Every timing is printed beside the card's name and
-   power limit.
+   captured and eager, then with validation and ``watch_stats`` run to
+   their replays too (the evaluation programs in the step's pool);
+   (e) ``make_steps``' evaluation programs of the
+   shipped stage-2 model (``validate_step`` and ``validate_step_masked``
+   at ``train``'s validation batch, ``watch_stats``, ``predict`` at
+   ``test``'s shapes) against the eager steps: outputs bit for bit (the
+   gradient norms by phase 10c's rule where K2's float64 atomics
+   reorder), a held ``predict`` output unchanged by the next call, each
+   program's kernel nodes its eager launches (``EVAL_LAUNCHES``), timed in
+   turns.  Every timing is printed beside the card's name and power
+   limit.
 
 The second-to-last lines are the card (``nvidia-smi``) and a ``kernels``
 JSON object (K1's and K2's entries also carry ``bound_tc_ms``, their bound
@@ -1256,45 +1294,65 @@ def launch_counts(names):
     return tuple(sum(n in kinds for n in names) for kinds in LAUNCH_KERNELS)
 
 
-GRAPH_KERNELS = weakref.WeakKeyDictionary()  # program -> its graph's kernel names
+GRAPH_NODES = weakref.WeakKeyDictionary()  # program -> its graph's nodes
 
 
-def graph_kernels(program):
-    """The kernel names of a captured program's CUDA graph, one per kernel
-    node: exactly what each replay launches (the wrappers' counters do not
-    move under replay).  Read from the graph's node list, which
+def graph_nodes(program):
+    """The nodes of a captured program's CUDA graph as (kind, name) pairs:
+    ``KERNEL`` with the kernel's name, or another kind (``MEMCPY``,
+    ``MEMSET``, ...) with None.  Read from the graph's node list, which
     ``graphs.KEEP_GRAPHS`` keeps and ``CUDAGraph.debug_dump`` writes out
     (as Graphviz DOT, each kernel node with its mangled name); read once
     per program."""
-    names = GRAPH_KERNELS.get(program)
-    if names is not None:
-        return names
+    nodes = GRAPH_NODES.get(program)
+    if nodes is not None:
+        return nodes
     with tempfile.TemporaryDirectory() as d, warnings.catch_warnings():
         warnings.simplefilter("ignore")  # torch announces each dump
         path = os.path.join(d, "graph.dot")
         program.graph.debug_dump(path)
         with open(path) as f:
             text = f.read()
-    names = []
+    nodes = []
     for node in re.split(r'^\s*"graph_\d+_node_\d+"\s*\[', text, flags=re.M)[1:]:
-        if "KERNEL" not in node:
-            continue
-        m = re.search(r"_Z\w+", node)
-        names.append(mangled_kernel(m.group()) if m else "?")
-    if not names:
+        if "KERNEL" in node:
+            m = re.search(r"_Z\w+", node)
+            c_name = re.search(r"\bnccl\w*", node)  # a kernel of C linkage
+            nodes.append(("KERNEL", mangled_kernel(m.group()) if m
+                          else c_name.group() if c_name else "?"))
+        else:
+            m = re.search(r"\b(MEMCPY|MEMSET|EVENT_RECORD|WAIT_EVENT|HOST|EMPTY|GRAPH|MEM_ALLOC"
+                          r"|MEM_FREE|CONDITIONAL)\b", node)
+            nodes.append((m.group(1) if m else "?", None))
+    if not any(kind == "KERNEL" for kind, _ in nodes):
         fail(f"no kernel node in the dump of a captured graph: {text[:600]!r}")
-    GRAPH_KERNELS[program] = names
-    return names
+    GRAPH_NODES[program] = nodes
+    return nodes
+
+
+def graph_kernels(program):
+    """The kernel names of a captured program's CUDA graph, one per kernel
+    node (:func:`graph_nodes`): exactly what each replay launches (the
+    wrappers' counters do not move under replay)."""
+    return [name for kind, name in graph_nodes(program) if kind == "KERNEL"]
 
 
 def mangled_kernel(mangled: str) -> str:
-    """The first ``*_kernel`` name of a mangled kernel name (its length
-    prefix read: ``10knn_kernel`` -> ``knn_kernel``), or ``?``."""
+    """The first ``*_kernel`` name (or NCCL's ``nccl*`` kernel name) of a
+    mangled kernel name (its length prefix read: ``10knn_kernel`` ->
+    ``knn_kernel``), or ``?``."""
     for m in re.finditer(r"\d+", mangled):
         name = mangled[m.end():m.end() + int(m.group())]
-        if name.endswith("_kernel") and re.fullmatch(r"[A-Za-z_]\w*", name):
+        if ((name.endswith("_kernel") or name.lower().startswith("nccl"))
+                and re.fullmatch(r"[A-Za-z_]\w*", name)):
             return name
     return "?"
+
+
+def step_programs(graphs):
+    """The train step's programs in ``make_steps``' ``Graphs``, which also
+    holds its evaluation programs."""
+    return [p for (name, _), p in graphs.programs.items() if name == "train_step"]
 
 
 def replay_launches(graphs, program):
@@ -1532,7 +1590,7 @@ def train(torch, rng, runs):
             f" step {capture_ms:.1f}), peak memory {peak_gb:.2f} GB, losses"
             f" {', '.join(f'{x:.4g}' for x in losses)}, largest parameter move {moved:.3g}")
         graphs = steps["train_step"].graphs
-        (program,) = graphs.programs.values()
+        (program,) = step_programs(graphs)
         got = replay_launches(graphs, program)
         expect_replay(got, want, f"{label} replayed train step")
         device += got
@@ -1998,6 +2056,91 @@ def jax_file_test(torch, port_test, cfg, model, root, argv, data_stream, out):
     port_test.main([write_config(cfg, os.path.join(root, "test_jax_file.yaml")), *argv])
     other = os.path.join(cfg["experiment"]["out_dir"], cfg["experiment"]["name"],
                          cfg["test"]["motion_split"])
+    compared = same_files(out, other, "test from the JAX-layout model file")
+    log(f"entry points: test from the same weights in the JAX package's model file layout wrote"
+        f" its {compared} meshes and point clouds byte for byte")
+
+
+def test_programs(steps, pairs, what) -> str:
+    """The evaluation programs of ``test`` / ``run`` after ``pairs`` pairs
+    of one shape: predict's two signatures a pair, each eager at its first
+    pair, captured at its second (each replay launching a full evaluation,
+    ``EVAL_LAUNCHES``) -> their description."""
+    graphs = steps["predict"].graphs
+    if graphs is None:
+        fail(f"{what}: predict is not captured on the card")
+    got = graphs.summary()
+    want = {"captured": 2 if pairs > 1 else 0, "eager": 0 if pairs > 1 else 2,
+            "replays": 2 * (pairs - 1)}
+    if got != want:
+        fail(f"{what}: predict's programs {got}, expected {want}")
+    for program in graphs.programs.values():
+        if program.graph is not None:
+            expect_replay(replay_launches(graphs, program), EVAL_LAUNCHES["predict"],
+                          f"{what}: a replayed evaluation")
+    return graphs.describe()
+
+
+ENTRY_TURNS = ("eager", "captured", "captured", "eager", "eager", "captured")
+
+
+def entry_turns(torch, port_test, port_run, make_steps, cfg, uh, root, argv, data_stream, out,
+                card):
+    """``test`` (its pairs from the same data stream) and ``run`` (on the
+    40,962-vertex mesh), each run anew in turns with its evaluations
+    captured (``make_steps``' default) and eager (``graphs=False``),
+    :data:`ENTRY_TURNS`, 3 of each: every ``test`` turn's meshes and point
+    clouds byte for byte the main path's run's written to ``out``; the
+    wall time per pair of each turn, each mode's median, and each stage's
+    mean per pair by mode."""
+    walls = {"test": collections.defaultdict(list), "run": collections.defaultdict(list)}
+    stages = {"test": collections.defaultdict(list), "run": collections.defaultdict(list)}
+    compared = 0
+    try:
+        for i, mode in enumerate(ENTRY_TURNS):
+            graphs = None if mode == "captured" else False
+            port_test.make_steps = lambda *a, **k: make_steps(*a, **k, graphs=graphs)
+            turn_cfg = dict(cfg, experiment=dict(cfg["experiment"],
+                                                 out_dir=os.path.join(root, f"test_turn{i}")))
+            np.random.set_state(data_stream)
+            times = port_test.main([write_config(turn_cfg, os.path.join(root, f"test_turn{i}.yaml")),
+                                    *argv])
+            other = os.path.join(turn_cfg["experiment"]["out_dir"], cfg["experiment"]["name"],
+                                 cfg["test"]["motion_split"])
+            compared = same_files(out, other, f"test, turn {i} ({mode})")
+            uh_turn = dict(uh, experiment=dict(uh["experiment"],
+                                               out_dir=os.path.join(root, f"run_turn{i}")))
+            times_run = port_run.main([write_config(uh_turn, os.path.join(root, f"run_turn{i}.yaml")),
+                                       *argv])
+            for what, t in (("test", times), ("run", times_run)):
+                pairs = len(t["writers"])
+                walls[what][mode].append(sum(map(sum, t.values())) / pairs)
+                for k, v in t.items():
+                    stages[what][mode].append((k, sum(v) / pairs))
+    finally:
+        port_test.make_steps = make_steps
+    rows = []
+    for what in ("test", "run"):
+        by_stage = {}
+        for mode in ("captured", "eager"):
+            for k, v in stages[what][mode]:
+                by_stage.setdefault(k, {}).setdefault(mode, []).append(v)
+        split = ", ".join(f"{k} {np.mean(v['captured']):.3f} / {np.mean(v['eager']):.3f}"
+                          for k, v in by_stage.items())
+        turns_s = ", ".join(f"{mode} {walls[what][mode][ENTRY_TURNS[:i + 1].count(mode) - 1]:.3f}"
+                            for i, mode in enumerate(ENTRY_TURNS))
+        med = {m: float(np.median(walls[what][m])) for m in ("captured", "eager")}
+        rows.append(f"{what}: a pair in turns {turns_s} s; medians captured {med['captured']:.3f}"
+                    f" / eager {med['eager']:.3f} s ({100 * (med['captured'] / med['eager'] - 1):+.1f}%);"
+                    f" by stage, mean per pair captured / eager: {split} s")
+    log(f"entry points: test (its {compared} meshes and point clouds byte for byte the main"
+        f" path's at every turn) and run on 40962 vertices, captured and eager in turns:"
+        f" {'; '.join(rows)} ({card})")
+
+
+def same_files(out, other, what) -> int:
+    """The meshes and point clouds under ``out`` and ``other`` byte for byte
+    equal -> how many were compared."""
     def files(root):
         return sorted(os.path.relpath(os.path.join(d, f), root)
                       for d, _, names in os.walk(root) for f in names)
@@ -2006,15 +2149,14 @@ def jax_file_test(torch, port_test, cfg, model, root, argv, data_stream, out):
     for folder in ("meshes", "pointclouds"):
         names = files(os.path.join(out, folder))
         if not names or names != files(os.path.join(other, folder)):
-            fail(f"test from the JAX-layout model file wrote other {folder}")
+            fail(f"{what} wrote other {folder}")
         for name in names:
             with open(os.path.join(out, folder, name), "rb") as a, \
                     open(os.path.join(other, folder, name), "rb") as b:
                 if a.read() != b.read():
-                    fail(f"test from the JAX-layout model file: {folder}/{name} differs")
+                    fail(f"{what}: {folder}/{name} differs")
             compared += 1
-    log(f"entry points: test from the same weights in the JAX package's model file layout wrote"
-        f" its {compared} meshes and point clouds byte for byte")
+    return compared
 
 
 def compare_nn_searches(searches, card):
@@ -2095,6 +2237,8 @@ def entry_points(torch, rows, card):
             return real_nn(query, points)
 
         port_metrics._nn_dists = recording_nn
+        made, real_make = [], port_test.make_steps
+        port_test.make_steps = lambda *a, **k: made.append(real_make(*a, **k)) or made[-1]
         reset_counts()  # ---- the main path: test, then run on each mesh
         t0 = time.perf_counter()
         try:
@@ -2103,7 +2247,12 @@ def entry_points(torch, rows, card):
             port_metrics._nn_dists = real_nn
         wall = time.perf_counter() - t0
         pairs = len(times["writers"])
-        expect_launches((0,) * 5, tuple(pairs * x for x in PAIR_LAUNCHES), f"test, {pairs} pairs")
+        # predict's two signatures a pair (the surface samples, the padded
+        # vertices): the first pair eager, the second's capture counted by
+        # the wrappers, each replay in its graph's kernel nodes
+        expect_launches((0,) * 5, tuple(min(pairs, 2) * x for x in PAIR_LAUNCHES),
+                        f"test, {pairs} pairs")
+        programs = test_programs(made[-1], pairs, "test")
         out = os.path.join(cfg["experiment"]["out_dir"], cfg["experiment"]["name"],
                            cfg["test"]["motion_split"])
         read_outputs(os.path.join(out, "meshes"), (40962, 3), pairs, "test mesh")
@@ -2111,7 +2260,7 @@ def entry_points(torch, rows, card):
         with open(out + ".txt") as f:
             if sum("loss:" in line for line in f) != pairs:
                 fail(f"test: {out}.txt lacks its {pairs} progress lines")
-        report_entry("test, deform4d arbitrary.yaml", times, wall, card)
+        report_entry(f"test, deform4d arbitrary.yaml ({programs})", times, wall, card)
         log(f"entry points: test's metrics stage (l2 / fnc / cd; cd through the native float32"
             f" KD-tree, {native.library_path().name}) by pair"
             f" {', '.join(f'{t:.3f}' for t in times['metrics'])} s ({card})")
@@ -2129,6 +2278,7 @@ def entry_points(torch, rows, card):
             times = port_run.main([path, *argv])
             wall = time.perf_counter() - t0
             expect_launches(before, PAIR_LAUNCHES, f"run on {n} vertices")
+            programs = test_programs(made[-1], 1, f"run on {n} vertices")
             n_cluster, n_global = (f.cluster_launches - variants_before[0],
                                    f.global_launches - variants_before[1])
             want = (4 if n > fps.SMEM_POINTS else 0, 0)  # 2 encoders x 2 evaluations
@@ -2140,8 +2290,14 @@ def entry_points(torch, rows, card):
                          (n, 3), 1, f"run mesh ({n} vertices)")
             kind, c = fps.variant(n)
             report_entry(f"run, tosca head.yaml on {n} vertices ({n_cluster} of the 8 FPS launches"
-                         f" by fps_cluster_kernel; FPS variant {kind}, C={c})", times, wall, card)
+                         f" by fps_cluster_kernel; FPS variant {kind}, C={c}; {programs})", times,
+                         wall, card)
         # ---- end of the main path (its launches checked run by run)
+        port_test.make_steps = real_make
+        uh["data"].update(dataset_dir=meshes[40962]["dataset_dir"],
+                          split_dir=meshes[40962]["split_dir"])
+        entry_turns(torch, port_test, port_run, real_make, cfg, uh, root, argv, data_stream,
+                    out, card)
 
         jax_file_test(torch, port_test, cfg, model, root, argv, data_stream, out)
         check_pair_reference(torch, model, cfg, first_pair(cfg), "test pair (40962 vertices)")
@@ -2233,7 +2389,7 @@ def recording_steps(torch, make_steps, record, label, graphs=None):
         captured = train.graphs is not None
         watched = 1 if captured else 0  # the sync window opens after this step
         record.update(model=model, optimizer=optimizer, steps=dict(steps), losses=[], val=0,
-                      syncs=[], captured=captured)
+                      val_counted=0, syncs=[], captured=captured)
 
         def train_step(batch, lr, fetch=True):
             n = len(record["losses"])
@@ -2261,16 +2417,38 @@ def recording_steps(torch, make_steps, record, label, graphs=None):
             return loss
 
         def validate_step_masked(batch, mask):
-            before = counts()
+            before, programs = counts(), evaluation_calls(validate.graphs)
             loss = validate(batch, mask)
-            expect_launches(before, VAL_LAUNCHES[label], f"{label} validation batch")
             record["val"] += 1
+            if validate.graphs is None:
+                expect_launches(before, VAL_LAUNCHES[label], f"{label} validation batch")
+                record["val_counted"] += 1
+                return loss
+            # captured: a signature's first call (eager) and its second
+            # (the capture) count on the wrappers, a replay only in its
+            # graph's kernel nodes
+            (program,) = [p for key, p in validate.graphs.programs.items()
+                          if p.calls != programs.get(key, 0)]
+            counted = program.calls <= 2
+            expect_launches(before, tuple(int(counted) * v for v in VAL_LAUNCHES[label]),
+                            f"{label} captured validation batch")
+            if program.graph is not None:
+                expect_replay(replay_launches(validate.graphs, program), VAL_LAUNCHES[label],
+                              f"{label} validation batch replayed")
+            record["val_counted"] += int(counted)
             return loss
 
+        train_step.graphs, validate_step_masked.graphs = train.graphs, validate.graphs
         steps.update(train_step=train_step, validate_step_masked=validate_step_masked)
         return steps
 
     return make
+
+
+def evaluation_calls(graphs):
+    """Each evaluation program's calls so far, by key (none without
+    ``graphs``)."""
+    return {} if graphs is None else {k: p.calls for k, p in graphs.programs.items()}
 
 
 def trace_idle(directory):
@@ -2366,29 +2544,60 @@ def same_state(torch, got, want, what):
         fail(f"{what}: {got} != {want}")
 
 
-def check_watch(torch, record):
-    """``watch_stats`` on the card, once, on the run's last batch: the
-    launches of a train step, and the model, its ``.grad`` and the
-    optimizer left bit for bit as they were."""
+def check_watch(torch, record, card):
+    """``watch_stats`` on the card on the run's last batch: its first call
+    (eager) and its second (the capture) each launching a train step's
+    kernels, the next replays launching them in the graph's kernel nodes
+    and none by the wrappers; the norms against the eager ``watch_stats``
+    on the same model (bit for bit, or the gradient norms by phase 10c's
+    rule where K2's float64 atomics reorder); the model, its ``.grad`` and
+    the optimizer left bit for bit as they were; captured and eager timed
+    in turns."""
+    from nsdp_tpu_torch.training import make_steps
     from nsdp_tpu_torch.training.async_ckpt import host_copy
 
-    model, opt = record["model"], record["optimizer"]
+    model, opt, batch = record["model"], record["optimizer"], record["batch"]
+    watch = record["steps"]["watch_stats"]
+    eager = make_steps(model, "forward", opt, graphs=False)["watch_stats"]
     state = host_copy(model.state_dict())
     grads = [None if p.grad is None else p.grad.clone() for p in model.parameters()]
     opt_state = host_copy(opt.state_dict())
+    want = TRAIN_LAUNCHES["forward"]
+    for what in ("its first call (eager)", "its capture"):
+        before = counts()
+        watch(batch)
+        expect_launches(before, want, f"watch_stats, {what}")
     before = counts()
-    t0 = time.perf_counter()
-    (p_top, _), (g_top, _) = record["steps"]["watch_stats"](record["batch"])
-    ms = (time.perf_counter() - t0) * 1e3
-    expect_launches(before, TRAIN_LAUNCHES["forward"], "watch_stats")
+    (p_top, p_leaves), (g_top, g_leaves) = replays([watch.graphs], lambda: watch(batch))[0]
+    expect_launches(before, (0,) * 5, "watch_stats replayed, the wrappers")
+    (program,) = [p for (name, _), p in watch.graphs.programs.items() if name == "watch_stats"]
+    expect_replay(replay_launches(watch.graphs, program), want, "watch_stats replayed")
+    (_, ep_leaves), (_, eg_leaves) = eager(batch)
+    rule = "bit for bit"
+    if not np.array_equal(p_leaves, ep_leaves):
+        fail("watch_stats: a parameter norm differs from the eager one")
+    if not np.array_equal(g_leaves, eg_leaves):
+        again = torch.as_tensor(eager(batch)[1][1])
+        err = rel_err(torch.as_tensor(g_leaves), torch.as_tensor(eg_leaves))
+        noise = rel_err(again, torch.as_tensor(eg_leaves))
+        if err > max(REMAT_RULE["factor"] * noise, REMAT_RULE["floor"]):
+            fail(f"watch_stats: gradient norms {err:.3g} from the eager ones (eager twice"
+                 f" {noise:.3g})")
+        rule = f"gradient norms within phase 4b's rule ({err:.3g}; eager twice {noise:.3g})"
     same_state(torch, host_copy(model.state_dict()), state, "watch_stats: the model")
     same_state(torch, host_copy(opt.state_dict()), opt_state, "watch_stats: the optimizer")
     for p, g in zip(model.parameters(), grads):
         if not ((p.grad is None and g is None) or torch.equal(p.grad, g)):
             fail("watch_stats changed a .grad")
+    ms = turns(torch, {"captured": lambda: watch(batch), "eager": lambda: eager(batch)},
+               ("captured", "eager", "eager", "captured"), 3)
     norms = ", ".join(f"{k} {v:.4g} / {g_top[k]:.4g}" for k, v in p_top.items())
-    log(f"train CLI: watch_stats on the card in {ms:.1f} ms: 8/8/2/0/0 launches, the model, its"
-        f" .grad and the optimizer unchanged bit for bit; parameter / gradient norms {norms}")
+    log(f"train CLI: watch_stats captured on the card (B={len(batch['space_samples_src'])}):"
+        f" {' / '.join(map(str, want))} K1 / K2 / K3 / K4 / gather kernel nodes a replay, as"
+        f" many by the wrappers at its first (eager) call and at its capture; against the eager watch_stats"
+        f" {rule}; the model, its .grad and the optimizer unchanged bit for bit; in turns"
+        f" (medians of 6) {ms['captured']:.1f} ms captured, {ms['eager']:.1f} ms eager; parameter"
+        f" / gradient norms {norms} ({card})")
 
 
 def cli_run(torch, label, path, cfg, record, ticks, argv, card):
@@ -2413,11 +2622,16 @@ def cli_run(torch, label, path, cfg, record, ticks, argv, card):
     n_steps = len(times["step"])
     # a captured step's wrappers count at its eager first step and its capture
     counted = min(n_steps, 2) if record["captured"] else n_steps
-    want = tuple(counted * t + record["val"] * v
+    # and a captured validation's at each signature's first (eager) call and capture
+    want = tuple(counted * t + record["val_counted"] * v
                  for t, v in zip(TRAIN_LAUNCHES[label], VAL_LAUNCHES[label]))
     if launches != want or n_steps != len(record["losses"]) or record["val"] == 0:
         fail(f"{label}: {launches} launches for {n_steps} steps and {record['val']} validation"
              f" batches, expected {want}")
+    evaluation = record["steps"]["validate_step_masked"].graphs
+    if record["captured"] != (evaluation is not None):
+        fail(f"{label}: the train step is {'' if record['captured'] else 'not '}captured, the"
+             f" validation {'is' if evaluation is not None else 'is not'}")
     lines = cli_losses(os.path.join(directory, "stats.txt"))
     losses = [float(x) for x in record["losses"]] + [x for _, x in lines]
     if not np.isfinite(losses).all():
@@ -2440,8 +2654,9 @@ def cli_run(torch, label, path, cfg, record, ticks, argv, card):
     rest = ", ".join(f"{k} {sum(times[k]) * 1e3:.1f} ms ({len(times[k])}x)"
                      for k in ("watch", "validation", "checkpoint"))
     mode = "captured" if record["captured"] else "eager"
+    programs = "" if evaluation is None else f" (the step's and validation's: {evaluation.describe()})"
     log(f"train CLI {label} ({mode}): {n_steps} steps (B={cfg['training']['batch_size']}) and"
-        f" {record['val']} validation batches in {wall:.2f} s; step interval (StepTimer's ticks"
+        f" {record['val']} validation batches{programs} in {wall:.2f} s; step interval (StepTimer's ticks"
         f" inside the loop) by epoch {'; '.join(', '.join(f'{x:.1f}' for x in e) for e in intervals)}"
         f" ms, the last epoch's median {float(np.median(intervals[-1])):.1f} ms; the last epoch"
         f" {epoch_ms:.1f} ms a step, per step data"
@@ -2452,7 +2667,8 @@ def cli_run(torch, label, path, cfg, record, ticks, argv, card):
         f" {'first replayed' if record['captured'] else 'second'} step ({card})")
     split = {k: float(np.mean(v)) for k, v in last.items()}
     return directory, epoch_ms, per_epoch, dict(split, interval_ms=float(np.median(intervals[-1])),
-                                                epoch_ms=epoch_ms, peak_gb=peak_gb)
+                                                epoch_ms=epoch_ms, peak_gb=peak_gb,
+                                                validation_ms=[x * 1e3 for x in times["validation"]])
 
 
 def jax_layout_copy(torch, cfg, model_file, names, root):
@@ -2518,17 +2734,19 @@ def check_jax_layout_resume(torch, record, want, tape, directory, jax_dir, card)
 
 def cli_turns(torch, fx, root, weights, record, ticks, make_steps, argv, card):
     """Phase 10's `train` in turns: stage 2 through ``python -m
-    nsdp_tpu_torch.train`` from the stage-1 files, untraced, eager
-    (``graphs=False``), captured, captured, eager, each in a fresh
+    nsdp_tpu_torch.train`` from the stage-1 files, 3 epochs, untraced,
+    eager (``graphs=False``), captured, captured, eager, each in a fresh
     directory: the last epoch's data / step / fetch split a step, the
-    median step interval and peak memory of each."""
+    median step interval, peak memory and both validation passes of each
+    (captured: the first runs its first batch eagerly and captures at the
+    second, the second pass replays)."""
     from nsdp_tpu_torch import train as port_train
 
     rows = []
     for i, graphs in enumerate((False, None, None, False)):
         turn = os.path.join(root, f"turn{i}")
         os.makedirs(turn)
-        path, cfg = cli_config("arbitrary", fx, turn, weights=weights)
+        path, cfg = cli_config("arbitrary", fx, turn, epochs=3, weights=weights)
         port_train.make_steps = recording_steps(torch, make_steps, record, "arbitrary",
                                                 graphs=graphs)
         *_, stats = cli_run(torch, "arbitrary", path, cfg, record, ticks, argv, card)
@@ -2537,7 +2755,8 @@ def cli_turns(torch, fx, root, weights, record, ticks, make_steps, argv, card):
         torch.cuda.empty_cache()
     log("graphs: train CLI stage 2 (B=8) in turns, the last epoch a step: " + "; ".join(
         f"{mode} interval {r['interval_ms']:.1f} ms, data {r['data']:.1f} / step {r['step']:.1f}"
-        f" / fetch {r['fetch']:.1f} ms, wall {r['epoch_ms']:.1f} ms, peak {r['peak_gb']:.2f} GB"
+        f" / fetch {r['fetch']:.1f} ms, wall {r['epoch_ms']:.1f} ms, peak {r['peak_gb']:.2f} GB,"
+        f" validation passes (2 batches of 8) {', '.join(f'{x:.1f}' for x in r['validation_ms'])} ms"
         for mode, r in rows) + f" ({card})")
 
 
@@ -2592,7 +2811,7 @@ def train_cli(torch, card):
                                    f"stage 2: {branch} before the first step")
                 n_dev, busy, window, idle = trace_idle(trace_dir)
                 graphs = record["steps"]["train_step"].graphs
-                for program in graphs.programs.values():  # the last batch's size has its own
+                for program in step_programs(graphs):  # the last batch's size has its own
                     expect_replay(replay_launches(graphs, program), TRAIN_LAUNCHES[label],
                                   f"{label}'s captured step through the CLI")
                 per_step = busy / per_epoch
@@ -2606,7 +2825,7 @@ def train_cli(torch, card):
                     f" kernel nodes at every replay);"
                     f" {best}; {card}")
                 if label == "forward":
-                    check_watch(torch, record)
+                    check_watch(torch, record, card)
                 names = [n for n, _ in record["model"].named_parameters()]
                 record.clear()
                 torch.cuda.empty_cache()
@@ -3123,15 +3342,88 @@ class K2Tape:
         return parted
 
 
-def rank_nccl(torch, rank, world, port, outdir):
-    """Phase 7b, one NCCL rank: the stage-2 step through
-    ``make_steps(group=...)`` against the step without a group from the same
-    weights on the same batches, bit for bit after each step (K2's outputs
-    of the step without a group replayed into the grouped one,
-    :class:`K2Tape`); no synchronising call from the end of the first
-    grouped step to the end of the second; then both steps timed in
-    turns."""
+def no_syncs(torch, fn, what):
+    """``fn()`` with ``torch.cuda.set_sync_debug_mode("warn")``: a call that
+    synchronises with the card fails."""
     import warnings
+
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    syncs = [f"{w.filename}:{w.lineno}: {w.message}" for w in caught
+             if "called a synchronizing" in str(w.message)]
+    if syncs:
+        fail(f"{what}: synchronised with the card {len(syncs)} times: {sorted(set(syncs))}")
+    return out
+
+
+def node_kinds(program):
+    """Counts of a captured graph's nodes: each non-kernel kind, NCCL's
+    kernels by name, and the other kernels in one count."""
+    kinds = collections.Counter()
+    for kind, name in graph_nodes(program):
+        kinds[name if kind == "KERNEL" and name.lower().startswith("nccl")
+              else "other kernels" if kind == "KERNEL" else kind] += 1
+    return dict(kinds)
+
+
+def capture_stress(torch, group, n=20):
+    """``n`` captures, each of a program with all-reduces that stays open
+    ~30 ms, each begun right after 50 eager all-reduces that nothing waits
+    for, landing at several phases of ProcessGroupNCCL's watchdog loop, in
+    ``torch.cuda.graph``'s default ``"global"`` capture mode (in which a
+    CUDA call of another thread that is unsafe during a capture breaks
+    it): each replay against the eager run -> (captures, failures)."""
+    from nsdp_tpu_torch.graphs import Graphs
+
+    x = torch.randn(256, 256, device="cuda")
+
+    def program(x):
+        y = x
+        for i in range(600):
+            y = torch.tanh(y * 1.0001)
+            if i % 50 == 0:
+                v = y.sum(0)
+                torch.distributed.all_reduce(v, group=group)
+                y = y + v * 1e-6
+        return y
+
+    graphs, failures = Graphs("cuda"), 0
+    for i in range(n):
+        for _ in range(50):
+            torch.distributed.all_reduce(torch.ones(1000, device="cuda"), group=group)
+        try:
+            out = graphs(f"stress {i}", program, x).clone()
+        except RuntimeError as e:
+            log(f"7b: capture {i} failed: {e}")
+            failures += 1
+            break
+        if not torch.equal(out, program(x)):
+            fail(f"7b: capture {i} replays other values than the eager run")
+        time.sleep(0.05 * (i % 4))
+    return n, failures
+
+
+def rank_nccl(torch, rank, world, port, outdir):
+    """Phase 7b, one NCCL rank.  Eager: the stage-2 step through
+    ``make_steps(group=..., graphs=False)`` against the step without a
+    group from the same weights on the same batches, bit for bit after
+    each step (K2's outputs of the step without a group replayed into the
+    grouped one, :class:`K2Tape`); no synchronising call from the end of
+    the first grouped step to the end of the second.  Captured (the
+    default under NCCL, the all-reduces inside the graph): its eager first
+    step and its capture, then from its state one replayed step against
+    the eager grouped step and the captured step without a group
+    (:func:`hold_step`, phase 10c's rule), the graph's kernel nodes (K1 /
+    K2 / K3 as the eager step launches them, and NCCL's by name) against
+    the graph without a group's, and no synchronising call from the end
+    of one replayed step to the end of the next.  Then the four steps
+    timed in turns and three traced."""
+    import copy
 
     from nsdp_tpu_torch.utils.profiling import trace_steps
 
@@ -3139,13 +3431,16 @@ def rank_nccl(torch, rank, world, port, outdir):
     # phase 3b's weights: their canonicalised clouds lie far from the
     # origin, where FPS takes points for padding, so FPS picks distinct
     # points and the gathers' backward (an atomic scatter-add where indices
-    # repeat) adds in a fixed order
-    _, model_g, schedule, opt_g, steps_g = train_setup(torch, "arbitrary", seed=MP_WEIGHT_SEED,
-                                                       group=group)
-    # the step without a group eager, as the grouped one is (K2Tape replays
-    # K2's outputs in Python, which a captured step would not run)
-    _, model_n, _, opt_n, steps_n = train_setup(torch, "arbitrary", seed=MP_WEIGHT_SEED,
-                                                graphs=False)
+    # repeat) adds in a fixed order; the eager steps for K2Tape, which
+    # replays K2's outputs in Python (a replayed graph runs no Python)
+    runs = {key: train_setup(torch, "arbitrary", seed=MP_WEIGHT_SEED,
+                             group=group if grouped else None, graphs=graphs)
+            for key, grouped, graphs in (("eager grouped", True, False),
+                                         ("eager", False, False),
+                                         ("captured grouped", True, None),
+                                         ("captured", False, None))}
+    (_, model_g, schedule, opt_g, steps_g), (_, model_n, _, opt_n, steps_n) = (
+        runs["eager grouped"], runs["eager"])
     lr = schedule.get_learning_rate(0)
     # the batches go up first, as the training entry point uploads them
     # before the step (a copy from pageable memory waits for the card)
@@ -3154,31 +3449,57 @@ def rank_nccl(torch, rank, world, port, outdir):
     for i, batch in enumerate((b1, b2)):
         with tape.run(replay=False):
             losses.append(steps_n["train_step"](batch, lr, fetch=False))
-        with tape.run(replay=True), warnings.catch_warnings(record=True) as caught:
-            warnings.simplefilter("always")
-            if i == 1:  # from the end of the first grouped step to the end of the second
-                torch.cuda.set_sync_debug_mode("warn")
-            losses.append(steps_g["train_step"](batch, lr, fetch=False))
-            torch.cuda.set_sync_debug_mode("default")
-        syncs = [f"{w.filename}:{w.lineno}: {w.message}" for w in caught
-                 if "called a synchronizing" in str(w.message)]
-        if i == 1 and syncs:
-            fail(f"one NCCL rank: a step synchronised with the card {len(syncs)} times:"
-                 f" {sorted(set(syncs))}")
+        with tape.run(replay=True):
+            step = lambda: losses.append(steps_g["train_step"](batch, lr, fetch=False))
+            # from the end of the first grouped step to the end of the second
+            no_syncs(torch, step, "one NCCL rank, the eager grouped step") if i else step()
         parted.append(tape.check(torch, f"one NCCL rank, step {i + 1}"))
         same_state(torch, model_state(torch, model_g, opt_g), model_state(torch, model_n, opt_n),
                    f"one NCCL rank against no group, step {i + 1}")
         if not torch.equal(losses[-2], losses[-1]):
             fail(f"one NCCL rank: loss {losses[-1]} differs from the step without a group's")
-    times = {"nccl": [], "none": []}
-    for _ in range(4):
-        for key, steps in (("nccl", steps_g), ("none", steps_n)):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            steps["train_step"](b2, lr)
-            torch.cuda.synchronize()
-            times[key].append((time.perf_counter() - t0) * 1e3)
-    # the collectives of a grouped step, and the cost of one alone
+
+    stress = capture_stress(torch, group)
+    # the captured steps: the eager first step, the capture
+    steps_c, steps_u = runs["captured grouped"][4], runs["captured"][4]
+    model_c, opt_c = runs["captured grouped"][1], runs["captured grouped"][3]
+    for steps in (steps_c, steps_u):
+        if steps["train_step"].graphs is None:
+            fail("one NCCL rank: make_steps left a step eager on the card")
+        for batch in (b1, b2):
+            before = counts()
+            steps["train_step"](batch, lr, fetch=False)
+            expect_launches(before, TRAIN_LAUNCHES["arbitrary"], "7b, the eager step or capture")
+    state = {n: t.clone() for n, t in model_c.state_dict().items()}
+    opt_state = copy.deepcopy(opt_c.state_dict())
+    held = {}
+    for key, (_, model, _, opt, steps) in runs.items():
+        if key != "captured grouped":
+            model.load_state_dict(state)
+            opt.load_state_dict(copy.deepcopy(opt_state))
+        before = counts()
+        held[key] = step_state(model, steps["train_step"](b1, lr))
+        if key.startswith("captured"):
+            expect_launches(before, (0,) * 5, f"7b, a replayed {key} step")
+    rules = {}
+    for other, again in (("eager grouped", "eager"), ("captured", "eager")):
+        rules[other] = hold_step(torch, f"one NCCL rank, captured grouped against {other}",
+                                 held["captured grouped"], held[other], held[again])
+    graphs = {key: runs[key][4]["train_step"].graphs for key in ("captured grouped", "captured")}
+    (program,) = step_programs(graphs["captured grouped"])
+    (ungrouped,) = step_programs(graphs["captured"])
+    names = graph_kernels(program)
+    expect_replay(launch_counts(names), TRAIN_LAUNCHES["arbitrary"],
+                  "one NCCL rank, the captured grouped step")
+    nodes = {"grouped": node_kinds(program), "ungrouped": node_kinds(ungrouped)}
+    # from the end of one replayed step to the end of the next
+    no_syncs(torch, lambda: steps_c["train_step"](b2, lr, fetch=False),
+             "one NCCL rank, a replayed captured grouped step")
+
+    fns = {key: (lambda steps=run[4]: steps["train_step"](b2, lr)) for key, run in runs.items()}
+    order = list(fns) + list(fns)[::-1]
+    times = turns(torch, fns, order, 2)
+    # the collectives of an eager grouped step, and the cost of one alone
     all_reduce, calls = torch.distributed.all_reduce, []
     torch.distributed.all_reduce = lambda *a, **k: calls.append(1) or all_reduce(*a, **k)
     steps_g["train_step"](b2, lr)
@@ -3189,21 +3510,24 @@ def rank_nccl(torch, rank, world, port, outdir):
     for _ in range(1000):
         all_reduce(x, group=group)
     torch.cuda.synchronize()
-    times["all_reduce_us"] = (time.perf_counter() - t0) * 1e3
+    all_reduce_us = (time.perf_counter() - t0) * 1e3
     # one step of each traced: window, device busy and idle share, and the
     # all-reduces' host and device time (the profiler's own cost included)
     traced = {}
-    for key, steps in (("nccl", steps_g), ("none", steps_n)):
+    for key in ("eager grouped", "eager", "captured grouped"):
         for attempt in range(3):  # a profiling session may deliver no device activity
-            directory = os.path.join(outdir, f"trace_{key}_{attempt}")
+            directory = os.path.join(outdir, f"trace_{key.replace(' ', '_')}_{attempt}")
             with trace_steps(directory):
-                steps["train_step"](b2, lr)
+                runs[key][4]["train_step"](b2, lr)
             if trace_has_device(directory):
                 break
         _, busy, window, idle = trace_idle(directory)
         traced[key] = dict(window_ms=window, busy_ms=busy, idle=idle, **trace_host(directory))
-    print("rank: " + json.dumps({"rank": rank, "k2_parted": parted, "all_reduces": len(calls),
-                                 "traced": traced, **times}), flush=True)
+    print("rank: " + json.dumps({
+        "rank": rank, "k2_parted": parted, "all_reduces": len(calls), "traced": traced,
+        "times": times, "all_reduce_us": all_reduce_us, "rules": rules, "nodes": nodes,
+        "kernel_nodes": len(names), "stress": stress}),
+        flush=True)
 
 
 def rank_cli(torch, rank, world, port, outdir, path):
@@ -3394,27 +3718,46 @@ def mp_steps(torch, root, card):
 
 
 def mp_nccl(torch, root, card):
-    """Phase 7b: one NCCL rank against the step without a group."""
+    """Phase 7b: one NCCL rank, eager and captured, against the step without
+    a group."""
     s = rank_summary(run_ranks("nccl", 1, [root], "7b, one NCCL rank")[0], "7b")
-    nccl, none = float(np.median(s["nccl"])), float(np.median(s["none"]))
-    log(f"multi-process 7b: one NCCL rank through make_steps(group=...) bit for bit the step"
-        f" without a group (two steps: parameters, gradients, Adam state, statistics, losses; K2's"
-        f" inputs bit for bit, its outputs replayed from the step without a group, its own parting"
-        f" from them in {' and '.join(map(str, s['k2_parted']))} elements: float64 atomics);"
-        f" no synchronising call from the end of its first step to the end of its second;"
-        f" stage-2 step (B = 8) {nccl:.2f} ms (median of 4; {', '.join(f'{x:.1f}' for x in s['nccl'])})"
-        f" against {none:.2f} ms without a group ({', '.join(f'{x:.1f}' for x in s['none'])}),"
-        f" in turns: {100 * (nccl / none - 1):+.1f}%; {s['all_reduces']} all-reduces a step, one of"
-        f" 256 floats {s['all_reduce_us']:.1f} us (1000 in a row); {card}")
-    g, n = s["traced"]["nccl"], s["traced"]["none"]
-    log(f"multi-process 7b traced (torch.profiler, one step each, its own cost included):"
-        f" grouped step window {g['window_ms']:.2f} ms, device busy {g['busy_ms']:.2f} ms, idle"
-        f" share {g['idle']:.3f}; without a group {n['window_ms']:.2f} ms, {n['busy_ms']:.2f} ms,"
-        f" {n['idle']:.3f}; {g['all_reduces']} all-reduce calls on the host {g['all_reduce_ms']:.2f}"
-        f" ms ({1e3 * g['all_reduce_ms'] / max(g['all_reduces'], 1):.1f} us each), NCCL kernels"
-        f" {g['nccl_device_ms']:.3f} ms on the device; host self time (all threads) in the"
-        f" collectives' spans {g['collective_self_ms']:.2f} ms, in every other operation"
-        f" {g['other_self_ms']:.2f} ms against {n['other_self_ms']:.2f} ms without a group; {card}")
+    t = s["times"]
+    log(f"multi-process 7b: one NCCL rank through make_steps(group=..., graphs=False) bit for bit"
+        f" the step without a group (two steps: parameters, gradients, Adam state, statistics,"
+        f" losses; K2's inputs bit for bit, its outputs replayed from the step without a group,"
+        f" its own parting from them in {' and '.join(map(str, s['k2_parted']))} elements:"
+        f" float64 atomics); no synchronising call from the end of its first step to the end of"
+        f" its second; {s['all_reduces']} all-reduces an eager grouped step, one of 256 floats"
+        f" {s['all_reduce_us']:.1f} us (1000 in a row); {card}")
+    (r_e, w_e), (r_u, w_u) = s["rules"]["eager grouped"], s["rules"]["captured"]
+    log(f"multi-process 7b: one NCCL rank captured (make_steps' default under NCCL, the"
+        f" all-reduces inside the graph): a replayed step from one state against the eager"
+        f" grouped step and against the captured step without a group, the loss and every"
+        f" BatchNorm buffer bit for bit, {r_e} and {r_u} gradients and parameters not bit for bit"
+        f" (K2's float64 atomics; within phase 4b's rule, largest ratios {w_e:.3g} and"
+        f" {w_u:.3g}); the graph's {s['kernel_nodes']} kernel nodes"
+        f" {' / '.join(map(str, TRAIN_LAUNCHES['arbitrary']))} K1 / K2 / K3 / K4 / gather as the"
+        f" eager step launches; nodes by kind (NCCL's kernels by name) grouped"
+        f" {s['nodes']['grouped']} against {s['nodes']['ungrouped']} without a group; no"
+        f" synchronising call from the end of one replayed step to the end of the next;"
+        f" {s['stress'][0]} captures of all-reduces in the default global mode right after"
+        f" unwaited eager all-reduces (the watchdog's work pending), {s['stress'][1]} broken")
+    if s["stress"][1]:
+        fail("7b: a capture broke while eager collectives were pending")
+    log(f"multi-process 7b in turns (each key twice a turn, the turns in order and reversed;"
+        f" medians of 4): stage-2 step (B = 8) " + ", ".join(f"{k} {v:.2f} ms" for k, v in t.items())
+        + f"; captured grouped against captured {100 * (t['captured grouped'] / t['captured'] - 1):+.1f}%,"
+        f" eager grouped against eager {100 * (t['eager grouped'] / t['eager'] - 1):+.1f}%; {card}")
+    rows = []
+    for key, g in s["traced"].items():
+        rows.append(f"{key}: window {g['window_ms']:.2f} ms, device busy {g['busy_ms']:.2f} ms,"
+                    f" idle share {g['idle']:.3f}, {g['all_reduces']} all-reduce calls on the host"
+                    f" ({g['all_reduce_ms']:.2f} ms), NCCL kernels {g['nccl_device_ms']:.3f} ms on"
+                    f" the device, host self time in the collectives' spans"
+                    f" {g['collective_self_ms']:.2f} ms and in every other operation"
+                    f" {g['other_self_ms']:.2f} ms")
+    log(f"multi-process 7b traced (torch.profiler, one step each, its own cost included): "
+        + "; ".join(rows) + f"; {card}")
 
 
 def mp_cli(torch, root, card):
@@ -4010,7 +4353,7 @@ def steps_against_eager(torch, card):
                 f" {reordered} (K2's float64 atomics) within phase 4b's rule, largest ratio"
                 f" {worst:.3g}")
         graphs = steps["train_step"].graphs
-        (program,) = graphs.programs.values()
+        (program,) = step_programs(graphs)
         got = replay_launches(graphs, program)
         expect_replay(got, want, f"graphs: {label} step")
         line += (f"; a replay of the step's graph: {'/'.join(map(str, got))} K1/K2/K3/K4/gather"
@@ -4030,7 +4373,15 @@ def steps_against_eager(torch, card):
 def train_memory(torch, card):
     """Phase 10d: peak memory of three steps (eager first, capture, replay)
     of the stage-1 ``forward`` (B = 16) and stage-2 ``arbitrary`` (B = 8)
-    steps, each model alone, captured and eager, and what stays held."""
+    steps, each model alone, captured and eager, and what stays held; then
+    of the same run after three calls each of ``validate_step_masked`` (at
+    the validation batch) and ``watch_stats`` (at the train batch): their
+    first call eager, the second captured, the third replayed, into the
+    step's pool, as in a run of ``train``.  "Held" is the live tensors (``memory_allocated``); a
+    graph's pool keeps its intermediates' blocks reserved for its replays
+    beyond them, so each row also gives what stays reserved after
+    ``empty_cache`` (the pools and the held tensors) and the peak
+    reserved."""
     import gc
 
     rs = np.random.RandomState(29)
@@ -4040,19 +4391,121 @@ def train_memory(torch, card):
             gc.collect()
             torch.cuda.synchronize()
             torch.cuda.empty_cache()
-            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            base, base_reserved = torch.cuda.memory_allocated(), torch.cuda.memory_reserved()
             cfg, model, schedule, opt, steps = train_setup(torch, model_type, 0, graphs=graphs)
-            B = cfg["training"]["batch_size"]
+            B, B_val = cfg["training"]["batch_size"], cfg["validation"]["batch_size"]
             torch.cuda.reset_peak_memory_stats()
             for _ in range(3):
                 steps["train_step"](train_batch(rs, B, 5000, 5000), schedule.get_learning_rate(0))
             torch.cuda.synchronize()
-            rows.append(f"{model_type} (B={B}) {'captured' if graphs is None else 'eager'} peak"
-                        f" {(torch.cuda.max_memory_allocated() - base) / 1e9:.2f} GB, held"
-                        f" {(torch.cuda.memory_allocated() - base) / 1e9:.2f} GB")
-            del model, opt, steps
+            gb = lambda x, b=base: f"{(x - b) / 1e9:.2f} GB"
+
+            def memory():
+                peak, held = torch.cuda.max_memory_allocated(), torch.cuda.memory_allocated()
+                peak_reserved = torch.cuda.max_memory_reserved()
+                torch.cuda.empty_cache()
+                return (f"peak {gb(peak)}, held {gb(held)}, reserved"
+                        f" {gb(torch.cuda.memory_reserved(), base_reserved)} (peak"
+                        f" {gb(peak_reserved, base_reserved)})")
+
+            row = f"{model_type} (B={B}) {'captured' if graphs is None else 'eager'}: steps {memory()}"
+            val, watch = train_batch(rs, B_val, 5000, 5000), train_batch(rs, B, 5000, 5000)
+            mask = np.ones(B_val, np.float32)
+            mask[-1] = 0.0
+            for _ in range(3):
+                steps["validate_step_masked"](val, mask)
+                steps["watch_stats"](watch)
+            torch.cuda.synchronize()
+            evaluation = steps["validate_step_masked"].graphs
+            programs = "" if evaluation is None else f" (all: {evaluation.describe()})"
+            rows.append(f"{row}; with validation (B={B_val}) and watch_stats{programs} {memory()}")
+            del model, opt, steps, evaluation
     torch.cuda.empty_cache()
     log(f"graphs: training memory, each model alone: {'; '.join(rows)} ({card})")
+
+
+# (K1, K2, K3, K4, gather) launches of one call of each evaluation program
+# of the shipped stage-2 model: a full evaluation; watch_stats a train
+# step's forward and backward
+EVAL_LAUNCHES = {"validate_step": (17, 0, 4, 0, 0), "validate_step_masked": (17, 0, 4, 0, 0),
+                 "watch_stats": (17, 17, 4, 0, 0), "predict": (17, 0, 4, 0, 0)}
+
+
+def evaluation_against_eager(torch, card):
+    """Phase 10e: ``make_steps``' evaluation programs of the shipped
+    stage-2 model (weights with O(1) outputs, as phase 5's) against the
+    eager steps on the same weights, at ``train``'s validation batch (B =
+    8, N = Q = 5000; masked with a padded last row) and ``test``'s shapes
+    (``predict`` on a pair's 5000 surface samples and on its 40,962
+    vertices padded to 45,056): every output bit for bit (``watch_stats``'
+    gradient norms by phase 10c's rule where K2's float64 atomics reorder),
+    a held ``predict`` output unchanged by the next call, the model
+    unchanged; each program's kernel nodes exactly its eager launches, the
+    counters still under replay; each program timed in turns against the
+    eager call."""
+    from nsdp_tpu_torch.utils.padding import next_bucket
+
+    cfg, model, _, opt, steps = train_setup(torch, "arbitrary", 0, out_scale=MP_OUT_SCALE)
+    eager = train_setup(torch, "arbitrary", 0, out_scale=MP_OUT_SCALE, graphs=False)[4]
+    rs = np.random.RandomState(37)
+    B = cfg["validation"]["batch_size"]
+    batch = train_batch(rs, B, 5000, 5000)
+    sample_mask = np.ones(B, np.float32)
+    sample_mask[-1] = 0.0
+    surface = train_batch(rs, 1, 5000, 16)["surface_samples_inputs"]
+    verts = rs.uniform(-1, 1, (1, next_bucket(40962), 3)).astype(np.float32)
+    norms = lambda out: np.concatenate([out[0][1], out[1][1]])
+    calls = {
+        "validate_step": lambda s: s["validate_step"](batch),
+        "validate_step_masked": lambda s: s["validate_step_masked"](batch, sample_mask),
+        "watch_stats": lambda s: norms(s["watch_stats"](batch)),
+        "predict surface": lambda s: s["predict"](surface[..., 0:3], surface).cpu().numpy(),
+        "predict vertices": lambda s: s["predict"](verts, surface).cpu().numpy(),
+    }
+    state = {k: v.clone() for k, v in model.state_dict().items()}
+    graphs = steps["predict"].graphs
+    for call in calls.values():  # an eager call, then the capture
+        for _ in range(2):
+            call(steps)
+    held = steps["predict"](surface[..., 0:3], surface)
+    first = held.clone()
+    steps["predict"](verts, surface)
+    if not torch.equal(held, first):
+        fail("10e: a held predict output changed under the next call")
+    rows, reordered = [], []
+    for name, call in calls.items():
+        before = counts()
+        got, nodes = replays([graphs], lambda: call(steps))
+        expect_launches(before, (0,) * 5, f"10e: {name} replayed, the wrappers")
+        expect_replay(launch_counts(nodes), EVAL_LAUNCHES[name.split()[0]], f"10e: {name}")
+        want = call(eager)
+        if not np.array_equal(got, want):
+            again = call(eager)
+            err, noise = rel_err(torch.as_tensor(got), torch.as_tensor(want)), rel_err(
+                torch.as_tensor(again), torch.as_tensor(want))
+            if name != "watch_stats" or err > max(REMAT_RULE["factor"] * noise, REMAT_RULE["floor"]):
+                fail(f"10e: {name}: captured against eager relative L2 {err:.3g} (two eager"
+                     f" calls {noise:.3g})")
+            reordered.append(f"{name} within phase 4b's rule ({err:.3g}; eager twice {noise:.3g})")
+        rows.append(f"{name} {'/'.join(map(str, launch_counts(nodes)))} of {len(nodes)}")
+    for k, v in model.state_dict().items():
+        if not torch.equal(v, state[k]):
+            fail(f"10e: the evaluation programs changed {k}")
+    ms = {}
+    for name, call in calls.items():
+        t = turns(torch, {"captured": lambda: call(steps), "eager": lambda: call(eager)},
+                  ("captured", "eager", "eager", "captured"), 3)
+        ms[name] = f"{name} {t['captured']:.2f} / {t['eager']:.2f} ms"
+    log(f"graphs: evaluation programs (shipped stage-2 model, validation B={B} at N = Q = 5000,"
+        f" test's predict at 5000 surface points and {verts.shape[1]} padded vertices):"
+        f" {graphs.describe()}; every output bit for bit the eager one"
+        f"{' but ' + '; '.join(reordered) if reordered else ''}, a held predict output unchanged"
+        f" by the next call, the model unchanged; K1/K2/K3/K4/gather of each replay's kernel nodes:"
+        f" {'; '.join(rows)}; captured / eager in turns (medians of 6): {'; '.join(ms.values())}"
+        f" ({card})")
+    del model, opt, steps, eager
+    torch.cuda.empty_cache()
 
 
 def graphs_phase(torch, card):
@@ -4070,6 +4523,7 @@ def graphs_phase(torch, card):
             predict_against_eager(torch, model, rng, surf, card)
         del model
     steps_against_eager(torch, card)
+    evaluation_against_eager(torch, card)
     train_memory(torch, card)
     log(f"graphs: phase 10 took {time.perf_counter() - t_phase:.1f} s")
 
@@ -4079,6 +4533,9 @@ def rank_main(argv) -> None:
     import torch
 
     sys.path.insert(0, REPO)
+    from nsdp_tpu_torch import graphs
+
+    graphs.KEEP_GRAPHS = True  # the launch checks read each graph's kernel nodes
     role, rank, world, port, *args = argv
     run = {"step": rank_step, "nccl": rank_nccl, "cli": rank_cli}[role]
     run(torch, int(rank), int(world), port, *args)

@@ -176,7 +176,11 @@ class BatchNorm(nn.BatchNorm1d):
     count is the world size times the local rows, a host number, so no
     step waits for the device; the ranks' rows are equal in number.  The
     statistics are sums over the count with or without a group, so one
-    rank's result is the unsynced one bit for bit.
+    rank's result is the unsynced one bit for bit.  Nothing here reads a
+    device value on the host or makes a tensor from a Python number (the
+    Bessel factor and the momentum enter as kernel arguments), so a train
+    step under an NCCL group is captured with these all-reduces inside
+    its graph (``training.steps.make_steps``).
 
     ``dtype`` (flax's ``BatchNorm(dtype=)``, ``nsdp_tpu/nn/blocks.py:148-199``):
     the statistics and the normalisation are taken in the parameters'

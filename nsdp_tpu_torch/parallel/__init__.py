@@ -3,7 +3,8 @@
 
 * :mod:`~nsdp_tpu_torch.parallel.dist`: the process group (one process per
   device under ``torch.distributed``), the rank's device, the batch rule,
-  and the all-reduces of the train step and of synced BatchNorm;
+  the all-reduces of the train step and of synced BatchNorm, and whether
+  a group's collectives can be captured in a CUDA graph;
 * :mod:`~nsdp_tpu_torch.parallel.multihost`: per-rank loader slices.
 
 Serving splits the query axis over several devices of one process
@@ -14,6 +15,7 @@ from nsdp_tpu_torch.parallel.dist import (
     all_reduce_flat,
     all_reduce_sum,
     broadcast_module,
+    capturable,
     check_train_batch,
     initialize_distributed,
     local_rank,
@@ -26,6 +28,7 @@ __all__ = [
     "all_reduce_flat",
     "all_reduce_sum",
     "broadcast_module",
+    "capturable",
     "check_train_batch",
     "initialize_distributed",
     "is_main_process",

@@ -18,7 +18,7 @@ local rows.
 """
 
 import os
-from typing import List, Sequence
+from typing import List, Optional, Sequence
 
 import torch
 import torch.distributed as dist
@@ -108,7 +108,9 @@ def check_train_batch(batch_size: int) -> None:
 
 class _AllReduceSum(torch.autograd.Function):
     """A sum over the ranks whose gradient is the sum of the cotangents
-    over the ranks (the transpose of a sum over ranks is itself)."""
+    over the ranks (the transpose of a sum over ranks is itself).  Safe to
+    capture in a CUDA graph (:func:`capturable`): a copy and a collective
+    queued on the current stream, no host read of a device value."""
 
     @staticmethod
     def forward(ctx, tensor, group):
@@ -133,20 +135,30 @@ def all_reduce_sum(tensor: torch.Tensor, group) -> torch.Tensor:
 
 
 def all_reduce_flat(tensors: Sequence[torch.Tensor], group,
-                    average: bool = False) -> List[torch.Tensor]:
-    """Several tensors of one dtype and device summed (or, with
-    ``average``, averaged) over the ranks of ``group`` through ONE
-    all-reduce of a flat buffer -> the results, shaped as given (views of
-    the buffer).  Not differentiable."""
+                    world: Optional[int] = None) -> List[torch.Tensor]:
+    """Several tensors of one dtype and device summed over the ranks of
+    ``group`` through ONE all-reduce of a flat buffer, then divided by
+    ``world`` where it is given (the mean: the group's size, a Python
+    number the caller reads before any capture) -> the results, shaped as
+    given (views of the buffer).  Not differentiable.  Safe to capture
+    (:func:`capturable`): the concatenation, the collective and the
+    division are queued on the current stream; nothing reads the device."""
     flat = torch.cat([t.reshape(-1) for t in tensors])
     dist.all_reduce(flat, group=group)
-    if average:
-        flat /= dist.get_world_size(group)
+    if world is not None:
+        flat /= world
     out, start = [], 0
     for t in tensors:
         out.append(flat[start:start + t.numel()].view(t.shape))
         start += t.numel()
     return out
+
+
+def capturable(group) -> bool:
+    """Whether ``group``'s collectives can run inside a CUDA graph: NCCL's
+    are kernels on a stream, which a capture records; gloo's run on the
+    host, which a capture cannot hold."""
+    return dist.get_backend(group) == dist.Backend.NCCL
 
 
 def broadcast_module(module: torch.nn.Module) -> None:

@@ -9,7 +9,9 @@ configured user handle, no metrics are computed, and the outputs go to a
 folder named after the handle and its translation
 (``<out_dir>/<name>/drag_head_x-0.15y-0.20z-0.20_ratio0.10/``), meshes and
 point clouds only where the config asks for them.  These datasets condition
-on every mesh vertex, so the encoders see the whole mesh.
+on every mesh vertex, so the encoders see the whole mesh.  On the card a
+signature seen once (a mesh's own shapes) runs eagerly and captures
+nothing; one seen again replays a CUDA graph (``make_steps``' ``predict``).
 """
 
 import os
@@ -20,7 +22,13 @@ from typing import Dict, List
 import numpy as np
 
 from nsdp_tpu_torch.data import split_batch
-from nsdp_tpu_torch.test import output_dirs, parse_args, prepare, report_times
+from nsdp_tpu_torch.test import (
+    output_dirs,
+    parse_args,
+    prepare,
+    report_programs,
+    report_times,
+)
 from nsdp_tpu_torch.training.steps import test_on_batch
 from nsdp_tpu_torch.utils.generation import (
     define_userhandle_folder_name,
@@ -63,6 +71,7 @@ def main(argv) -> Dict[str, List[float]]:
     logger.clear()
     print("====> Interactive Editing ====>")
     report_times(times, len(times["writers"]))
+    report_programs(steps)
     return times
 
 

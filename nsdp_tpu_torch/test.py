@@ -11,7 +11,11 @@ meshes and point clouds.  Files go where ``test.py`` writes them:
 and ``<out_dir>/<name>/<motion_split>/<mesh_folder|pointcloud_folder>/``.
 
 The model runs on ``cuda`` (every kNN attention and FPS a hand-written
-kernel) unless ``--device cpu`` asks for the plain PyTorch path.  Weights
+kernel) unless ``--device cpu`` asks for the plain PyTorch path.  On the
+card each evaluation is ``make_steps``' ``predict``: a signature's first
+call runs eagerly, its second captures a CUDA graph, later ones replay it,
+and the outputs are the eager ones bit for bit; the report names the
+programs captured and the signatures that stayed eager.  Weights
 come from ``test.weight_file`` (a model file of ``training/checkpoints.py``,
 the reference's torch format, or a JAX package ``model_*`` file), or are
 seeded random (``models.init_random``, seed 0) when the key is absent.
@@ -114,6 +118,20 @@ def output_dirs(config, directory: str):
     return dirs
 
 
+def report_programs(steps, names=("predict",)) -> None:
+    """One line: the captured programs of the step functions ``names`` (a
+    ``Graphs`` shared by several is reported once; a function without one,
+    such as a caller's wrapper, none), their replays and the signatures
+    that ran only eagerly."""
+    seen, parts = set(), []
+    for name in names:
+        graphs = getattr(steps[name], "graphs", None)
+        if graphs is not None and id(graphs) not in seen:
+            seen.add(id(graphs))
+            parts.append(f"{name}: {graphs.describe()}")
+    print(f"Programs: {'; '.join(parts) if parts else 'none (eager)'}")
+
+
 def report_times(times: Dict[str, List[float]], pairs: int) -> None:
     """One line: the wall time per pair of each stage of the loop."""
     split = ", ".join(f"{k} {sum(v) / max(pairs, 1):.4f} s" for k, v in times.items())
@@ -167,6 +185,7 @@ def main(argv) -> Dict[str, List[float]]:
         logger.clear()
     print("====> Inference / Test ====>")
     report_times(times, len(times["metrics"]))
+    report_programs(steps)
     return times
 
 

@@ -23,8 +23,11 @@ on a background thread.  On one card each train step is a captured CUDA
 graph (``make_steps``' ``graphs``, the counterpart of ``train.py``'s
 compiled step): its first step runs eagerly, the second captures, the rest
 replay, each batch copied from its upload into the graph's static inputs;
-a last batch of another size captures a graph of its own.  Validation, the
-watch norms and several processes stay eager.  The model runs on ``cuda`` (every kNN attention,
+a last batch of another size captures a graph of its own.  Validation and
+the watch norms run as captured graphs too (from a signature's second
+call, in the step's memory pool), and so does every rank's step under NCCL, its all-reduces inside the graph;
+under gloo the steps stay eager.  The report names the programs and their
+replays.  The model runs on ``cuda`` (every kNN attention,
 its backward and every FPS a hand-written kernel) unless ``--device cpu``
 asks for the plain PyTorch path.  Weights start from
 ``models.init_random(model, seed)``, then ``training.weight_file`` or the
@@ -70,7 +73,7 @@ from nsdp_tpu_torch.parallel import (
     rank,
     world_size,
 )
-from nsdp_tpu_torch.test import MATMUL_PRECISION
+from nsdp_tpu_torch.test import MATMUL_PRECISION, report_programs
 from nsdp_tpu_torch.training import (
     load_best_checkpoints,
     load_checkpoints,
@@ -327,6 +330,7 @@ def main(argv) -> Dict[str, List[float]]:
         checkpointer.wait()
         times["checkpoint"].append(time.perf_counter() - t0)
     report_times(times)
+    report_programs(steps, ("train_step", "validate_step"))
     return times
 
 

@@ -13,11 +13,13 @@ tensors):
 The model and the optimizer hold the state and are updated in place.  On
 the card every kNN attention of a train step runs K1 forward and K2
 backward, every FPS K3; nothing carries gradients through a selection.
-On one card the train step's device work up to the update -- forward,
-loss, backward, the BatchNorm snapshot and the stage-2 running-statistics
-update -- runs as a captured CUDA graph per batch shape (``graphs.Graphs``,
-the counterpart of the JAX step's one compiled program), the optimizer's
-update eagerly after it.
+On the card every program that the JAX package compiles runs as a
+captured CUDA graph per input signature (``graphs.Graphs``, the
+counterpart of ``jax.jit``): the train step's device work up to the
+update -- forward, loss, backward, the BatchNorm snapshot, the stage-2
+running-statistics update and, under an NCCL group, its all-reduces --
+with the optimizer's update eagerly after it; validation, ``watch_stats``
+and ``predict``.
 """
 
 import math
@@ -25,12 +27,13 @@ from typing import Any, Callable, Dict, List, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch import nn
 
 from nsdp_tpu_torch import resolve_device
 from nsdp_tpu_torch.graphs import Graphs
 from nsdp_tpu_torch.nn.blocks import BatchNorm, bn_sync
-from nsdp_tpu_torch.parallel.dist import all_reduce_flat
+from nsdp_tpu_torch.parallel.dist import all_reduce_flat, capturable
 from nsdp_tpu_torch.training.optim import set_learning_rate
 from nsdp_tpu_torch.utils.padding import predict_padded
 
@@ -104,25 +107,42 @@ def make_steps(model: nn.Module, model_type: str, optimizer: torch.optim.Optimiz
         the ranks.  Every step but ``predict`` is then a collective that
         every rank must call.  The parameters must start equal on every
         rank (``parallel.broadcast_module``).  None: this process alone.
-      graphs: run the train step's device work up to the update -- the
-        train-mode forward and loss, the gradients (every parameter's, as
-        ``full_grads`` makes them), the BatchNorm snapshot and the stage-2
-        double update -- as a captured CUDA graph per batch shape
-        (``graphs.Graphs``, the counterpart of the JAX step's
-        ``jax.jit``).  Its first call at a shape is a real step run eagerly
-        on a side stream, the next captures and replays, later ones replay,
-        so a captured run's trajectory is the eager run's step for step.
-        ``set_learning_rate`` and ``optimizer.step()`` stay eager, after
-        the replay: the parameters are the eager step's bit for bit, a new
-        learning rate needs no new capture, and the optimizer's state
-        keeps its checkpoint format.  ``.grad`` holds the program's static
-        gradients, overwritten by its next replay (which hands them back to
-        ``.grad`` after a ``nan_guard`` skip set it to None).  None (the
-        default): on for a card without a group; False: eager; True on the
-        CPU keeps the static-buffer contract, for the tests.  Under a group
-        the step stays eager (its all-reduces are not captured), and
-        ``graphs=True`` raises ``ValueError``.  Validation, ``watch_stats``
-        and ``predict`` stay eager.
+      graphs: run each step's device work as a captured CUDA graph per
+        input signature (``graphs.Graphs``, the counterpart of the JAX
+        steps' ``jax.jit``).  The train step's program is the train-mode
+        forward and loss, the gradients (every parameter's, as
+        ``full_grads`` makes them), the BatchNorm snapshot, the stage-2
+        double update and, under a group, synced BatchNorm's and the flat
+        gradient and loss all-reduces.  Its first call at a shape is a real
+        step run eagerly on a side stream, the next captures and replays,
+        later ones replay, so a captured run's trajectory is the eager
+        run's step for step.  ``set_learning_rate`` and
+        ``optimizer.step()`` stay eager, after the replay: the parameters
+        are the eager step's bit for bit, a new learning rate needs no new
+        capture, and the optimizer's state keeps its checkpoint format.
+        ``.grad`` holds gradient buffers of the steps' own, outside the
+        programs' memory pool, which each step writes (one multi-tensor
+        copy inside the graph) and hands back to ``.grad`` after a
+        ``nan_guard`` skip set it to None.  ``validate_step``,
+        ``validate_step_masked``, ``watch_stats`` (the train-mode forward
+        and backward, the BatchNorm buffers snapshotted and put back
+        inside the graph) and ``predict`` run their first call of a
+        signature eagerly and capture at the second, so a signature seen
+        once (``run``'s per-mesh shapes, a short run's one validation
+        batch) captures nothing and costs what an eager call costs.
+        All five share one ``Graphs`` (one memory pool, so a program
+        captured later reuses what an earlier capture freed): every output
+        of theirs is read (a loss, the norms, ``nan_guard``'s snapshot),
+        copied (``predict``'s, an unfetched loss) or held outside the pool
+        (``.grad``) before the next call of any of them.  Under a group
+        every rank makes the same calls at the same signatures, so the
+        ranks capture at the same call and replay each collective
+        together.  None (the default): on for a card, without a group or
+        with an NCCL one; False: eager; True on the CPU keeps the
+        static-buffer contract, for the tests (with a gloo group too).  A
+        gloo group's collectives cannot be captured
+        (``parallel.capturable``): on the card its steps stay eager and
+        ``graphs=True`` raises ``ValueError``.
 
     Returns:
       ``train_step(batch, lr, fetch=True) -> loss``,
@@ -135,22 +155,30 @@ def make_steps(model: nn.Module, model_type: str, optimizer: torch.optim.Optimiz
       without ``nan_guard``: a 0-d tensor on ``device`` that the caller
       owns (a copy of a captured step's static loss), so that the host
       queues the step without waiting for the device.  ``train_step.graphs``
-      is the :class:`~nsdp_tpu_torch.graphs.Graphs` of the captured step,
-      or None.  Under a group every
+      is the :class:`~nsdp_tpu_torch.graphs.Graphs` of the captured steps,
+      or None; the other four functions' ``.graphs`` is the same one.
+      ``predict`` returns a tensor the caller owns.  Under a group every
       loss is the mean over the whole batch, and ``watch_stats`` reports
       the averaged gradients.
     """
     device = resolve_device(device)
-    if graphs and group is not None:
-        raise ValueError("a grouped train step is not captured (its all-reduces stay eager): "
-                         "pass graphs=None or False with a group")
+    if group is not None and device.type == "cuda" and not capturable(group):
+        if graphs:
+            raise ValueError(f"a {dist.get_backend(group)} group's collectives cannot be captured "
+                             "(an NCCL group's can): pass graphs=None or False")
+        graphs = False
     if graphs is None:
-        graphs = device.type == "cuda" and group is None
-    captured = Graphs(device) if graphs else None
+        graphs = device.type == "cuda"
+    captured = Graphs(device) if graphs else None  # every step's programs, one pool
+    world = None if group is None else dist.get_world_size(group)  # read before any capture
     arbitrary = model_type == "arbitrary"
     all_bns = _batch_norms(model)
     cano_bns = _batch_norms(model.model_canonicalize.encoder) if arbitrary else []
     params = list(model.parameters())
+    # captured, the gradients live in buffers of their own, outside the
+    # programs' pool: each train step writes them, so ``.grad`` outlives the
+    # calls of every other program of the pool
+    grad_bufs = [torch.zeros_like(p) for p in params] if captured is not None else None
     dtype = params[0].dtype
     # each top-level module with the positions of its parameters in ``params``
     position = {id(p): i for i, p in enumerate(params)}
@@ -191,7 +219,8 @@ def make_steps(model: nn.Module, model_type: str, optimizer: torch.optim.Optimiz
     def forward_backward(points, inputs, target, point_mask):
         """A train step's device work up to the update -> (loss, every
         parameter's gradient, the BatchNorm buffers before the forward
-        that ``nan_guard`` restores).  The stage-2 encoder's second
+        that ``nan_guard`` restores); under a group the loss and the
+        gradients averaged over the ranks.  The stage-2 encoder's second
         running-statistics update is made here: a non-finite loss restores
         every buffer from the snapshot, that update included."""
         saved_all = _snapshot(all_bns) if nan_guard else []
@@ -199,7 +228,13 @@ def make_steps(model: nn.Module, model_type: str, optimizer: torch.optim.Optimiz
         loss = train_loss(points, inputs, target, point_mask)
         grads = full_grads(torch.autograd.grad(loss, params, allow_unused=True))
         _double_bn_update(cano_bns, saved_cano)
-        return loss.detach(), grads, saved_all
+        loss = loss.detach()
+        if group is not None:
+            *grads, loss = all_reduce_flat([*grads, loss], group, world)
+        if grad_bufs is not None:
+            torch._foreach_copy_(grad_bufs, grads)
+            grads = grad_bufs
+        return loss, grads, saved_all
 
     def train_step(batch: Dict[str, Any], lr: float, fetch: bool = True):
         args = step_inputs(batch)
@@ -210,8 +245,6 @@ def make_steps(model: nn.Module, model_type: str, optimizer: torch.optim.Optimiz
         else:
             loss, grads, saved_all = captured("train_step", forward_backward, *args,
                                               eager_calls=1)
-        if group is not None:
-            *grads, loss = all_reduce_flat([*grads, loss], group, average=True)
         for p, g in zip(params, grads):
             if p.grad is not g:
                 p.grad = g
@@ -233,6 +266,31 @@ def make_steps(model: nn.Module, model_type: str, optimizer: torch.optim.Optimiz
 
     train_step.graphs = captured
 
+    def program(name, fn, *args, copy=False):
+        """``fn(*args)``, through its captured program where the
+        evaluation steps are captured: a signature's first call runs
+        eagerly, its second captures (``eager_calls=1``)."""
+        if captured is None:
+            return fn(*args)
+        return captured(name, fn, *args, eager_calls=1, copy=copy)
+
+    def watch_norms(points, inputs, target, point_mask) -> torch.Tensor:
+        """(2, parameters): each parameter's L2 norm and its gradient's
+        (averaged over the ranks under a group) after one train-mode
+        forward and backward, the BatchNorm buffers put back."""
+        saved = _snapshot(all_bns)
+        try:
+            grads = torch.autograd.grad(train_loss(points, inputs, target, point_mask), params,
+                                        allow_unused=True)
+        finally:
+            _restore(all_bns, saved)
+        grads = full_grads(grads)
+        if group is not None:
+            grads = all_reduce_flat(grads, group, world)
+        with torch.no_grad():
+            return torch.stack([torch.stack([torch.linalg.vector_norm(t) for t in leaves])
+                                for leaves in (params, grads)])
+
     def watch_stats(batch: Dict[str, Any]):
         """Parameter and gradient norms of one train-mode forward and
         backward on ``batch`` (``nsdp_tpu/training/steps.py:268-287``, the
@@ -242,23 +300,13 @@ def make_steps(model: nn.Module, model_type: str, optimizer: torch.optim.Optimiz
         clipping; under a group the averaged gradients, and every rank
         must call it).  The top-level modules are the model's children, as
         the JAX variables' top-level keys are.  The model is left as it was:
-        parameters, running statistics, train/eval mode, ``.grad``; the
-        optimizer is not touched."""
+        parameters, running statistics, train/eval mode (set here, since a
+        replay sets none), ``.grad``; the optimizer is not touched."""
         was_training = model.training
-        saved = _snapshot(all_bns)
         try:
-            grads = torch.autograd.grad(train_loss(*step_inputs(batch)), params,
-                                        allow_unused=True)
+            host = program("watch_stats", watch_norms, *step_inputs(batch)).cpu()
         finally:
-            _restore(all_bns, saved)
             model.train(was_training)
-        grads = full_grads(grads)
-        if group is not None:
-            grads = all_reduce_flat(grads, group, average=True)
-        with torch.no_grad():
-            p_leaves = torch.stack([torch.linalg.vector_norm(p) for p in params])
-            g_leaves = torch.stack([torch.linalg.vector_norm(g) for g in grads])
-            host = torch.stack([p_leaves, g_leaves]).cpu()
         out = []
         for leaves in host:
             top = {name: float(torch.sqrt(torch.sum(leaves[idx] ** 2)))
@@ -266,36 +314,48 @@ def make_steps(model: nn.Module, model_type: str, optimizer: torch.optim.Optimiz
             out.append((top, leaves.numpy()))
         return tuple(out)
 
+    def validation_loss(points, inputs, target, point_mask) -> torch.Tensor:
+        loss = compute_l2_error(forward(points, inputs, point_mask), target)
+        if group is not None:
+            (loss,) = all_reduce_flat([loss], group, world)
+        return loss
+
     @torch.no_grad()
     def validate_step(batch: Dict[str, Any]) -> float:
         model.eval()
-        points, inputs, target, point_mask = step_inputs(batch)
-        loss = compute_l2_error(forward(points, inputs, point_mask), target)
+        return float(program("validate_step", validation_loss, *step_inputs(batch)))
+
+    def masked_validation_loss(points, inputs, target, point_mask, sample_mask) -> torch.Tensor:
+        delta = forward(points, inputs, point_mask) - target
+        per_sample = torch.mean(0.5 * torch.sum(delta * delta, dim=-1), dim=-1)
+        num, den = torch.sum(per_sample * sample_mask), sample_mask.sum()
         if group is not None:
-            (loss,) = all_reduce_flat([loss], group, average=True)
-        return float(loss)
+            num, den = all_reduce_flat([num, den], group)
+        return num / torch.clamp(den, min=1.0)
 
     @torch.no_grad()
     def validate_step_masked(batch: Dict[str, Any], sample_mask) -> float:
         """Validation loss over real samples only: padded batch rows have a
         zero ``sample_mask`` (B,)."""
         model.eval()
-        pred = forward(batch["space_samples_src"], batch["surface_samples_inputs"],
-                       batch.get("surface_valid_mask"))
-        delta = pred - tensor(batch["space_samples_tgt"])
-        per_sample = torch.mean(0.5 * torch.sum(delta * delta, dim=-1), dim=-1)
-        sample_mask = tensor(sample_mask)
-        num, den = torch.sum(per_sample * sample_mask), sample_mask.sum()
-        if group is not None:
-            num, den = all_reduce_flat([num, den], group)
-        return float(num / torch.clamp(den, min=1.0))
+        return float(program("validate_step_masked", masked_validation_loss,
+                             *step_inputs(batch), tensor(sample_mask)))
+
+    def prediction(points, inputs, point_mask) -> torch.Tensor:
+        return forward(points, inputs, point_mask).float()
 
     @torch.no_grad()
     def predict(points, surface_samples_inputs, point_mask: Optional[Any] = None) -> torch.Tensor:
         """The deformation field at ``points`` (eval mode), in float32 (a
-        model of a narrow ``compute_dtype`` returns its values widened)."""
+        model of a narrow ``compute_dtype`` returns its values widened),
+        a tensor the caller owns: a captured program's output is
+        overwritten by the next call of any of the four."""
         model.eval()
-        return forward(points, surface_samples_inputs, point_mask).float()
+        return program("predict", prediction, tensor(points), tensor(surface_samples_inputs),
+                       tensor(point_mask), copy=True)
+
+    for fn in (watch_stats, validate_step, validate_step_masked, predict):
+        fn.graphs = captured
 
     return {
         "train_step": train_step,

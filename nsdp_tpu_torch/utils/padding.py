@@ -65,7 +65,8 @@ def predict_padded(steps, points, surface_samples_inputs, bucket=4096,
     """Evaluate the deformation field with query-axis bucket padding.
 
     ``steps`` is either the dict from ``training.steps.make_steps`` (its
-    ``predict`` turns numpy into tensors on the steps' device) or a bare
+    ``predict`` turns numpy into tensors on the steps' device and, on the
+    card, replays a captured program per padded shape) or a bare
     ``predict(points, inputs[, point_mask])`` callable, which then receives
     the padded numpy arrays.  ``point_mask`` marks real conditioning rows of
     padded partial shapes.  Returns the (B, Q, 3) numpy prediction for the

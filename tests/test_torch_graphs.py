@@ -3,15 +3,17 @@
 On the CPU a program keeps the captured path's static-buffer contract
 (its outputs are overwritten by the next call of any program of its
 ``Graphs``) and runs the function directly, so these tests show that the
-serving and training paths keep nothing a later call overwrites, and that
-the captured-contract step is the eager step bit for bit.  The ``gpu``
-tests hold the captured programs against the eager path on the card, at a
-small size.  The module imports nothing of JAX, so it also runs on the
-card:
+serving, training and evaluation paths keep nothing a later call
+overwrites, and that the captured-contract steps (with a gloo group too)
+are the eager steps bit for bit.  The ``gpu`` tests hold the captured
+programs against the eager path on the card, at a small size: serving,
+the train step, the evaluation programs, a gloo group's rule and one NCCL
+rank.  The module imports nothing of JAX, so it also runs on the card:
 
     python -m pytest --noconftest -m gpu tests/test_torch_graphs.py
 """
 
+import contextlib
 import copy
 import re
 import socket
@@ -136,6 +138,21 @@ def test_program_keeps_static_buffers_and_one_entry_per_signature():
     assert graphs.programs[("f", (((3,), torch.float32), None))].calls == 2
     with pytest.raises(TypeError):
         graphs("f", fn, np.zeros(3), None)
+
+
+def test_copy_gives_outputs_the_caller_owns():
+    """``copy=True`` returns a copy of the static outputs: the next call
+    overwrites the static outputs and leaves the copy."""
+    graphs = Graphs("cpu")
+    fn = lambda x: (x + 1.0, [x * 2.0, None])
+    x = torch.arange(3.0)
+    held = graphs("f", fn, x, copy=True)
+    static = graphs("f", fn, x + 10.0)
+    assert held[0] is not static[0] and held[1][0] is not static[1][0] and held[1][1] is None
+    torch.testing.assert_close(held[0], x + 1.0)
+    torch.testing.assert_close(held[1][0], x * 2.0)
+    graphs("f", fn, x + 20.0)
+    torch.testing.assert_close(static[0], x + 21.0)  # the static output, overwritten
 
 
 # ---------------------------------------------------------------- serving
@@ -288,19 +305,124 @@ def _free_port() -> int:
         return s.getsockname()[1]
 
 
-def test_grouped_step_stays_eager():
-    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{_free_port()}",
+@contextlib.contextmanager
+def _group(backend, device=None):
+    """A one-rank process group of ``backend`` on a free local port."""
+    if device is not None:
+        torch.cuda.set_device(device.index or 0)
+    dist.init_process_group(backend, init_method=f"tcp://127.0.0.1:{_free_port()}",
                             world_size=1, rank=0)
     try:
-        model = init_random(build_model(config("forward"), device="cpu"), 0)
-        _, opt = optimizer_factory({"lr": 1e-3}, model.parameters())
-        with pytest.raises(ValueError, match="group"):
-            make_steps(model, "forward", opt, device="cpu", group=dist.group.WORLD, graphs=True)
-        steps = make_steps(model, "forward", opt, device="cpu", group=dist.group.WORLD)
-        assert steps["train_step"].graphs is None
-        assert np.isfinite(steps["train_step"](_batches(4, 1)[0], 1e-3))
+        yield dist.group.WORLD
     finally:
         dist.destroy_process_group()
+
+
+@pytest.mark.parametrize("graphs", [True, None])
+def test_grouped_steps_under_gloo_on_the_cpu(graphs):
+    """A gloo group on the CPU: ``graphs=True`` keeps the captured
+    contract for every step (the tests hold it), ``graphs=None`` stays
+    eager; either way the steps equal the eager steps without a group."""
+    with _group("gloo") as group:
+        model, opt, steps = _trainer(config("arbitrary"), "cpu", None)
+        twin = init_random(build_model(config("arbitrary"), device="cpu"), 0)
+        _, twin_opt = optimizer_factory({"optimizer": "Adam", "lr": 1e-3}, twin.parameters())
+        grouped = make_steps(twin, "arbitrary", twin_opt, device="cpu", group=group,
+                             graphs=graphs)
+        assert steps["train_step"].graphs is None
+        for name in ("train_step", "validate_step", "watch_stats", "predict"):
+            assert (grouped[name].graphs is not None) == bool(graphs), name
+        for batch in _batches(4, 3):
+            assert grouped["train_step"](batch, 1e-3) == steps["train_step"](batch, 1e-3)
+        _assert_same_state(_state(twin, twin_opt), _state(model, opt))
+        _assert_same_evaluation(grouped, steps, _batches(8, 2, masked=True))
+    if graphs:
+        (program,) = [p for (name, _), p in grouped["train_step"].graphs.programs.items()
+                      if name == "train_step"]
+        assert program.calls == 3
+
+
+def _evaluate(steps, batch, other):
+    """Every evaluation step on ``batch`` (``other``: a batch of the same
+    signature, called in between) -> host copies of their outputs; the
+    first ``predict`` output is held across the second call."""
+    sample_mask = np.array([1.0, 0.0], np.float32)
+    held = steps["predict"](batch["space_samples_src"], batch["surface_samples_inputs"],
+                            batch.get("surface_valid_mask"))
+    steps["predict"](other["space_samples_src"], other["surface_samples_inputs"],
+                     other.get("surface_valid_mask"))
+    (p_top, p_leaves), (g_top, g_leaves) = steps["watch_stats"](batch)
+    return dict(validate=steps["validate_step"](batch),
+                masked=steps["validate_step_masked"](batch, sample_mask),
+                predict=held.clone(), watch=(p_top, p_leaves, g_top, g_leaves))
+
+
+def _assert_same_evaluation(steps, eager, batches):
+    for batch, other in zip(batches, batches[1:] + batches[:1]):
+        for _ in range(2):  # the capture and a replay at each signature
+            got, want = _evaluate(steps, batch, other), _evaluate(eager, batch, other)
+            assert got["validate"] == want["validate"] and got["masked"] == want["masked"]
+            torch.testing.assert_close(got["predict"], want["predict"], rtol=0, atol=0)
+            for a, b in zip(got["watch"], want["watch"]):
+                if isinstance(a, dict):
+                    assert a == b
+                else:
+                    np.testing.assert_array_equal(a, b)
+
+
+EVAL_CASES = ["stage1", "stage2", "stage2_masked", "stage1_pointnet", "stage2_bf16"]
+
+
+@pytest.mark.parametrize("case", EVAL_CASES)
+def test_captured_contract_evaluation_equals_eager(case):
+    """``validate_step``, ``validate_step_masked``, ``watch_stats`` and
+    ``predict`` on the captured contract, bit for bit the eager ones at
+    each call, after two train steps (so ``.grad`` and Adam's moments
+    exist): a ``predict`` output held across the next call keeps its
+    values, and ``watch_stats`` leaves the parameters, every buffer,
+    ``.grad``, the optimizer and the train/eval mode as they were."""
+    cfg, _, batch_kw = STEP_CASES[case]
+    runs = [_trainer(cfg, "cpu", graphs) for graphs in (True, False)]
+    for batch in _batches(11, 2, **batch_kw):
+        for _, _, steps in runs:
+            steps["train_step"](batch, 1e-3)
+    evaluation = runs[0][2]["predict"].graphs
+    assert evaluation is not None and evaluation is runs[0][2]["train_step"].graphs
+    assert all(runs[0][2][k].graphs is evaluation
+               for k in ("validate_step", "validate_step_masked", "watch_stats"))
+    model, opt, steps = runs[0]
+    for training in (True, False):
+        model.train(training)
+        before = _state(model, opt)
+        steps["watch_stats"](_batches(12, 1, **batch_kw)[0])
+        assert model.training == training
+        _assert_same_state(before, _state(model, opt))
+    _assert_same_evaluation(steps, runs[1][2], _batches(13, 2, **batch_kw))
+    names = sorted({name for name, _ in evaluation.programs})
+    assert names == ["predict", "train_step", "validate_step", "validate_step_masked",
+                     "watch_stats"]
+
+
+def test_evaluation_replays_leave_the_train_steps_outputs():
+    """One pool for every step: between captured train steps, every
+    evaluation step (its capture and replays) leaves ``.grad`` bit for bit
+    as the step left it, and a ``nan_guard`` skip after them restores the
+    BatchNorm buffers the step snapshotted: the whole run bit for bit the
+    eager run's."""
+    cfg = config("arbitrary")
+    runs = [_trainer(cfg, "cpu", graphs, nan_guard=True) for graphs in (True, False)]
+    batches = _batches(14, 5, masked=True)
+    batches[3]["space_samples_tgt"][1, 2, 0] = np.nan
+    for i, batch in enumerate(batches):
+        losses = [steps["train_step"](batch, 1e-3) for _, _, steps in runs]
+        np.testing.assert_array_equal(*losses)
+        assert np.isnan(losses[0]) == (i == 3)
+        after = [_state(model, opt) for model, opt, _ in runs]
+        for (model, opt, steps), state in zip(runs, after):
+            _evaluate(steps, batches[(i + 1) % 5], batches[(i + 2) % 5])
+            _assert_same_state(state, _state(model, opt))
+        _assert_same_state(*after)
+    assert runs[0][2]["train_step"].graphs is runs[0][2]["validate_step"].graphs
 
 
 def _stats_losses(path):
@@ -420,3 +542,126 @@ def test_captured_step_equals_eager_on_the_card(cuda, model_type):
             noise = float(torch.linalg.vector_norm((again - want).double())
                           / torch.linalg.vector_norm(want.double()))
             assert gap <= max(4 * noise, 1e-4)
+
+
+def _assert_evaluation_on_the_card(steps, eager, batches):
+    """:func:`_assert_same_evaluation` on the card: every output bit for
+    bit, but the gradient norms of ``watch_stats``, whose K2 sums in
+    float64 atomics in no fixed order (relative 1e-5)."""
+    for batch, other in zip(batches, batches[1:] + batches[:1]):
+        for _ in range(2):
+            got, want = _evaluate(steps, batch, other), _evaluate(eager, batch, other)
+            assert got["validate"] == want["validate"] and got["masked"] == want["masked"]
+            torch.testing.assert_close(got["predict"], want["predict"], rtol=0, atol=0)
+            (p_top, p_leaves, g_top, g_leaves), (wp_top, wp_leaves, wg_top, wg_leaves) = (
+                got["watch"], want["watch"])
+            assert p_top == wp_top
+            np.testing.assert_array_equal(p_leaves, wp_leaves)
+            np.testing.assert_allclose(g_leaves, wg_leaves, rtol=1e-5, atol=0)
+            np.testing.assert_allclose([g_top[k] for k in wg_top], list(wg_top.values()),
+                                       rtol=1e-5)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("model_type", ["forward", "arbitrary"])
+def test_captured_evaluation_equals_eager_on_the_card(cuda, model_type):
+    """The evaluation programs against the eager steps with the same
+    weights; then, after captured train steps (``nan_guard``) in the same
+    pool, captured after them, so that the step's outputs may lie in what
+    their captures freed, their replays leave ``.grad`` and every buffer
+    bit for bit, and a NaN step restores the buffers it snapshotted."""
+    cfg = config(model_type)
+    model, opt, steps = _trainer(cfg, cuda, None, nan_guard=True)
+    _, _, eager = _trainer(cfg, cuda, False, nan_guard=True)
+    assert steps["predict"].graphs is not None
+    _assert_evaluation_on_the_card(steps, eager, _batches(21, 2, masked=True))
+    assert all(p.graph is not None for (name, _), p in steps["predict"].graphs.programs.items()
+               if name != "predict")
+    batches = _batches(22, 4)
+    batches[3]["space_samples_tgt"][0, 0, 0] = np.nan
+    for batch in batches[:3]:
+        steps["train_step"](batch, 1e-3)
+    (program,) = [p for (name, _), p in steps["train_step"].graphs.programs.items()
+                  if name == "train_step"]
+    assert program.graph is not None and program.calls == 3
+    before = _state(model, opt)
+    _evaluate(steps, batches[0], batches[1])
+    _evaluate(steps, batches[1], batches[0])
+    _assert_same_state(before, _state(model, opt))
+    assert np.isnan(steps["train_step"](batches[3], 1e-3))
+    for a, b in zip(before[0], _state(model, opt)[0]):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+
+
+@pytest.mark.gpu
+def test_eager_calls_hold_no_buffers_on_the_card(cuda):
+    """A signature's ``eager_calls`` return the function's own results on
+    arguments moved to the card (from the host too), copy nothing and
+    hold no static buffer; the next call captures, and ``copy=True``
+    copies only a replay's outputs."""
+    graphs, made = Graphs(cuda), []
+    fn = lambda x: made.append(x * 2.0) or made[-1]
+    x = torch.arange(6.0).reshape(2, 3)
+    out = graphs("f", fn, x, eager_calls=1, copy=True)
+    (program,) = graphs.programs.values()
+    assert out is made[-1] and out.device.type == "cuda"
+    assert program.inputs is None and program.graph is None and program.outputs is None
+    assert graphs.summary() == {"captured": 0, "eager": 1, "replays": 0}
+    again = graphs("f", fn, x.to(cuda) + 1.0, eager_calls=1, copy=True)
+    assert program.graph is not None and again is not program.outputs
+    torch.testing.assert_close(again, (x.to(cuda) + 1.0) * 2.0, rtol=0, atol=0)
+    assert graphs.summary() == {"captured": 1, "eager": 0, "replays": 1}
+
+
+@pytest.mark.gpu
+def test_gloo_group_stays_eager_on_the_card(cuda):
+    with _group("gloo") as group:
+        model = init_random(build_model(config("forward"), device=cuda), 0)
+        _, opt = optimizer_factory({"lr": 1e-3}, model.parameters())
+        with pytest.raises(ValueError, match="gloo"):
+            make_steps(model, "forward", opt, device=cuda, group=group, graphs=True)
+        steps = make_steps(model, "forward", opt, device=cuda, group=group)
+        assert all(steps[k].graphs is None
+                   for k in ("train_step", "validate_step", "watch_stats", "predict"))
+        assert np.isfinite(steps["train_step"](_batches(4, 1)[0], 1e-3))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("model_type", ["forward", "arbitrary"])
+def test_nccl_rank_captured_equals_eager_on_the_card(cuda, model_type):
+    """One NCCL rank: the grouped step captured by default, its all-reduces
+    inside the graph.  From one state a replayed step against the eager
+    grouped step and a second eager one (the rule of
+    :func:`test_captured_step_equals_eager_on_the_card`); the evaluation
+    programs under the group against the eager ones."""
+    cfg = config(model_type)
+    with _group("nccl", cuda) as group:
+        def grouped(graphs):
+            model = init_random(build_model(cfg, device=cuda), 0)
+            _, opt = optimizer_factory({"optimizer": "Adam", "lr": 1e-3}, model.parameters())
+            return model, opt, make_steps(model, model_type, opt, device=cuda, group=group,
+                                          graphs=graphs)
+
+        model, opt, steps = grouped(None)
+        twins = [grouped(False) for _ in range(2)]
+        assert steps["train_step"].graphs is not None
+        batches = _batches(23, 3)
+        steps["train_step"](batches[0], 1e-3)
+        steps["train_step"](batches[1], 1e-3)
+        for m, o, _ in twins:
+            m.load_state_dict(model.state_dict())
+            o.load_state_dict(copy.deepcopy(opt.state_dict()))
+        losses = [s["train_step"](batches[2], 1e-3) for s in (steps, twins[0][2], twins[1][2])]
+        assert losses[0] == losses[1]
+        for a, b in zip(model.buffers(), twins[0][0].buffers()):
+            torch.testing.assert_close(a, b, rtol=0, atol=0)
+        (c, _, _), (e, _, _), (e2, _, _) = (_state(m, o) for m, o, _ in [(model, opt, 0), *twins])
+        for got, want, again in [*zip(c[0], e[0], e2[0]), *zip(c[1], e[1], e2[1])]:
+            if not torch.equal(got, want):
+                gap = float(torch.linalg.vector_norm((got - want).double())
+                            / torch.linalg.vector_norm(want.double()))
+                noise = float(torch.linalg.vector_norm((again - want).double())
+                              / torch.linalg.vector_norm(want.double()))
+                assert gap <= max(4 * noise, 1e-4)
+        twins[0][0].load_state_dict(model.state_dict())
+        _assert_evaluation_on_the_card(steps, twins[0][2], _batches(24, 2, masked=True))

@@ -16,6 +16,8 @@ launched with torchrun's environment on a free port, each launch within
   float64 within ``F64_TOL`` -- a missing cross-rank gradient term errs by
   1e-3 or more -- and in float32 within ``F32_TOL``; the ranks' states
   bit for bit equal;
+* the same two ranks on the captured contract (``make_steps(graphs=True)``):
+  train steps, validations and ``watch_stats`` bit for bit the eager ones;
 * ``nan_guard`` with a non-finite target on one rank's rows: both skip;
 * the validation steps over padded, per-rank-sliced batches;
 * the loader's ``batch_slice`` against ``nsdp_tpu.data.loader``, bit for bit;
@@ -48,7 +50,7 @@ from nsdp_tpu_torch.data.synthetic import generate_synthetic_dataset, synthetic_
 from nsdp_tpu_torch.serving import DeformationService
 from nsdp_tpu_torch.utils.padding import pad_batch
 from tests.test_torch_train_cli import LINES_TOL, _progress, _weight_file
-from tests.torch_parallel_runner import _model, _state
+from tests.torch_parallel_runner import CAPTURED_RUNS, _model, _state
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TIMEOUT = 120  # seconds for one launch of the ranks
@@ -279,6 +281,29 @@ def test_two_rank_step_equals_single_process_step(ranks, name):
                 err = float((got[k] - want[k]).norm())
                 limit = F32_TOL["rel"] * float(want[k].norm()) + F32_TOL["floor"] * scale
                 assert err <= limit, f"{k}: error {err:.3g} beyond {limit:.3g}"
+
+
+@pytest.mark.parametrize("name", CAPTURED_RUNS)
+def test_two_ranks_on_the_captured_contract_equal_eager(ranks, name):
+    """Two gloo ranks with ``graphs=True`` (the captured contract on the
+    CPU, the collectives inside each program): three train steps (the
+    eager first step, the capture, a replay), both validations and
+    ``watch_stats`` twice, bit for bit the eager two-rank run on each rank."""
+    for r in ranks:
+        captured, eager = dict(r["captured"][name][True]), dict(r["captured"][name][False])
+        assert captured.pop("captured") and not eager.pop("captured")
+        assert captured["losses"] == eager["losses"] and np.isfinite(eager["losses"]).all()
+        for (val, masked, watch), (val_e, masked_e, watch_e) in zip(captured["evaluation"],
+                                                                    eager["evaluation"]):
+            assert (val, masked) == (val_e, masked_e)
+            for (top, leaves), (top_e, leaves_e) in zip(watch, watch_e):
+                assert top == top_e
+                np.testing.assert_array_equal(leaves, leaves_e)
+        assert sorted(captured) == sorted(eager)
+        for k, v in eager.items():
+            if isinstance(v, torch.Tensor):
+                assert torch.equal(captured[k], v), k
+    assert ranks[0]["captured"][name][True]["losses"] == ranks[1]["captured"][name][True]["losses"]
 
 
 # ---------------------------------------------------------------- (iii), (iv)

@@ -12,7 +12,9 @@ reads the inputs that the test wrote to ``OUTDIR/inputs.pt`` and writes
 this rank's results to ``OUTDIR/rank<r>.pt``: synced BatchNorm (output,
 running statistics, gradients), one train step of each model and dtype
 through ``make_steps(group=...)``, ``nan_guard`` with a non-finite target
-on rank 1's rows, the validation steps, and the per-rank helpers.
+on rank 1's rows, the validation steps, three train steps, both
+validations and ``watch_stats`` on the captured contract beside the eager
+ones (``CAPTURED_RUNS``), and the per-rank helpers.
 
 ``cli`` runs ``nsdp_tpu_torch.train.main(TRAIN_ARGS)`` with every item of
 the datasets drawn from a generator of its own index and the training pair
@@ -31,6 +33,11 @@ import sys
 import numpy as np
 import torch
 import torch.distributed as dist
+
+
+# the step runs that ``parts`` also takes on the captured contract
+# (``make_steps(graphs=True)`` on the CPU) beside the eager steps
+CAPTURED_RUNS = ("stage1_float32", "stage2_float32")
 
 
 def _rank_file(outdir, name):
@@ -113,6 +120,24 @@ def parts(outdir):
         masked=steps["validate_step_masked"](parallel.local_slice(batch, target),
                                              run["sample_mask"][parallel.process_batch_slice(target)]),
         mean=steps["validate_step"](parallel.local_slice(batch, target)))
+
+    out["captured"] = {}
+    for name in CAPTURED_RUNS:
+        run, results = inputs["steps"][name], {}
+        rows = len(run["batch"]["space_samples_src"])
+        local = parallel.local_slice(run["batch"], rows)
+        sample_mask = np.array([1.0] * (rows - 1) + [0.0], np.float32)
+        sample_mask = sample_mask[parallel.process_batch_slice(rows)]
+        for graphs in (True, False):
+            model, opt, steps = _model(run["config"], torch.float32, group=group, graphs=graphs)
+            losses = [steps["train_step"](local, run["lr"]) for _ in range(3)]
+            evaluation = [(steps["validate_step"](local),
+                           steps["validate_step_masked"](local, sample_mask),
+                           steps["watch_stats"](local)) for _ in range(2)]
+            results[graphs] = dict(losses=losses, evaluation=evaluation, **_state(model, opt),
+                                   captured=steps["train_step"].graphs is not None
+                                   and steps["watch_stats"].graphs is not None)
+        out["captured"][name] = results
 
     errors = {}
     for what, call in (("check_train_batch", lambda: parallel.check_train_batch(7)),
