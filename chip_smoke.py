@@ -286,6 +286,11 @@ Phases (any failure exits non-zero and prints no result line):
    program's kernel nodes its eager launches (``EVAL_LAUNCHES``), timed in
    turns.  Every timing is printed beside the card's name and power
    limit.
+11. the benchmark (``python -m nsdp_tpu_torch.bench``): its child mode for
+   ``qps``, ``drag_ms`` and ``train_step_ms_stage2_b8``, one measurement
+   each (``NSDP_BENCH_REPEATS=1``), each in a process of its own: the
+   line parses, its value is finite and positive, and its process launched
+   K1 and K3 (and K2 for the step); the phase's seconds are printed.
 
 The second-to-last lines are the card (``nvidia-smi``) and a ``kernels``
 JSON object (K1's and K2's entries also carry ``bound_tc_ms``, their bound
@@ -4528,6 +4533,44 @@ def graphs_phase(torch, card):
     log(f"graphs: phase 10 took {time.perf_counter() - t_phase:.1f} s")
 
 
+# phase 11: the bench's metrics run (child mode), each with the kernels its
+# process must have launched (eager runs and captures; replays do not count)
+BENCH_METRICS = (("qps", "query points/s", ("K1", "K3")), ("drag_ms", "ms", ("K1", "K3")),
+                 ("train_step_ms_stage2_b8", "ms", ("K1", "K2", "K3")))
+BENCH_TIMEOUT = 300  # seconds for one metric's process
+
+
+def bench_phase(card):
+    """Phase 11: ``python -m nsdp_tpu_torch.bench --metric NAME`` (one
+    measurement, ``NSDP_BENCH_REPEATS=1``) for the headline, the drag and
+    the stage-2 step, each in a process of its own as the bench runs it: its
+    line parses, its value is finite and positive, and its process launched
+    the kernels of its path."""
+    t_phase = time.perf_counter()
+    env = dict(os.environ, NSDP_BENCH_REPEATS="1")
+    for name, unit, kernels in BENCH_METRICS:
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-m", "nsdp_tpu_torch.bench", "--metric", name],
+                              cwd=REPO, env=env, capture_output=True, text=True,
+                              timeout=BENCH_TIMEOUT)
+        if proc.returncode != 0:
+            fail(f"bench --metric {name}: exit {proc.returncode}: {proc.stderr.strip()[-2000:]}")
+        try:
+            line = json.loads(proc.stdout.strip().splitlines()[-1])
+        except (IndexError, json.JSONDecodeError):
+            fail(f"bench --metric {name}: no JSON line in {proc.stdout[-500:]!r}")
+        value = line.get("value")
+        if (line.get("metric") != name or not isinstance(value, float) or not np.isfinite(value)
+                or value <= 0):
+            fail(f"bench --metric {name}: bad line {line}")
+        idle = [k for k in kernels if not line.get("launches", {}).get(k)]
+        if idle:
+            fail(f"bench --metric {name}: {', '.join(idle)} never launched ({line.get('launches')})")
+        log(f"bench: {name} {value!r} {unit} (one measurement), launches {line['launches']},"
+            f" {time.perf_counter() - t0:.1f} s of process ({card})")
+    log(f"bench: phase 11 took {time.perf_counter() - t_phase:.1f} s")
+
+
 def rank_main(argv) -> None:
     """A rank of phase 7: ``--rank ROLE RANK WORLD PORT ARGS...``."""
     import torch
@@ -4647,6 +4690,8 @@ def main() -> None:
     multi_process(torch, card)
     narrow_launches = narrow_and_remat(torch, rng, surf, f32_stats)
     host_tools(card, native_build)
+    torch.cuda.empty_cache()
+    bench_phase(card)
 
     k1 = kernel_entry("fused_knn_vector_attention", "nsdp_tpu_torch/csrc/attention.cu",
                       "nsdp_tpu/ops/attention_pallas.py:134", rows["k1"], launches[0])

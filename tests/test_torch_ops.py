@@ -93,9 +93,12 @@ def _imported_modules(path):
 
 
 def test_port_imports_no_jax_and_nothing_of_the_jax_package():
-    banned = ("jax", "jaxlib", "flax", "optax", "joblib", "nsdp_tpu")
+    # the JAX package, and the repository's JAX entry points at its root
+    banned = ("jax", "jaxlib", "flax", "optax", "joblib", "nsdp_tpu", "bench", "__graft_entry__",
+              "scripts")
     sources = _port_sources()
     assert len(sources) > 10 and all(p.exists() for p in sources)
+    assert REPO / "nsdp_tpu_torch" / "bench.py" in set(sources)
     assert {REPO / "nsdp_tpu_torch" / "training" / f"{m}.py"
             for m in ("optim", "steps", "checkpoints", "partial_load")} <= set(sources)
     assert {REPO / "nsdp_tpu_torch" / "ops" / f"{m}.py"
