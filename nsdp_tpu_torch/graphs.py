@@ -83,6 +83,8 @@ from typing import Any, Callable, Dict, Optional, Sequence, Tuple
 
 import torch
 
+from nsdp_tpu_torch.utils.profiling import span
+
 # Keep each captured graph's node list (``CUDAGraph(keep_graph=True)`` in
 # debug mode), so that ``program.graph.debug_dump(path)`` can write it out:
 # the exact list of the kernels every replay launches.  Off by default.
@@ -116,8 +118,8 @@ class Program:
     back, so dropping the ``Graphs`` frees its graphs and memory at
     once)."""
 
-    def __init__(self, fn: Callable, eager_calls: int):
-        self.fn, self.eager_calls = fn, eager_calls
+    def __init__(self, fn: Callable, eager_calls: int, name: str):
+        self.fn, self.eager_calls, self.name = fn, eager_calls, name
         self.inputs: Optional[list] = None  # made at the capture (on the CPU, the first call)
         self.graph: Optional[torch.cuda.CUDAGraph] = None
         self.outputs: Any = None
@@ -127,25 +129,31 @@ class Program:
         self.calls += 1
         device = graphs.device
         if device.type == "cuda" and self.calls <= self.eager_calls:
-            return graphs.eager(self.fn, [None if a is None else a.to(device, non_blocking=True)
-                                          for a in args])
-        if self.inputs is None:
-            self.inputs = [None if a is None else torch.empty(a.shape, dtype=a.dtype, device=device)
-                           for a in args]
-        for buf, a in zip(self.inputs, args):
-            if buf is not None:
-                buf.copy_(a, non_blocking=True)
+            with span("graphs.eager", self.name):
+                return graphs.eager(self.fn, [None if a is None else a.to(device, non_blocking=True)
+                                              for a in args])
+        with span("graphs.stage", self.name):
+            if self.inputs is None:
+                self.inputs = [None if a is None else
+                               torch.empty(a.shape, dtype=a.dtype, device=device) for a in args]
+            for buf, a in zip(self.inputs, args):
+                if buf is not None:
+                    buf.copy_(a, non_blocking=True)
         if device.type != "cuda":
-            out = self.fn(*self.inputs)
-            if self.outputs is None:
-                self.outputs = _tree(torch.empty_like, out)
-            _tree(lambda buf, t: buf.copy_(t), self.outputs, out)
+            with span("graphs.eager", self.name):
+                out = self.fn(*self.inputs)
+                if self.outputs is None:
+                    self.outputs = _tree(torch.empty_like, out)
+                _tree(lambda buf, t: buf.copy_(t), self.outputs, out)
         else:
             if self.graph is None:
                 if self.eager_calls == 0:
-                    graphs.eager(self.fn, self.inputs)  # the warm-up run, thrown away
-                self.graph, self.outputs = graphs.capture(self.fn, self.inputs)
-            self.graph.replay()
+                    with span("graphs.eager", self.name):
+                        graphs.eager(self.fn, self.inputs)  # the warm-up run, thrown away
+                with span("graphs.capture", self.name):
+                    self.graph, self.outputs = graphs.capture(self.fn, self.inputs)
+            with span("graphs.replay", self.name):
+                self.graph.replay()
         return _tree(torch.clone, self.outputs) if copy else self.outputs
 
 
@@ -172,7 +180,7 @@ class Graphs:
         key = (name, _signature(args))
         program = self.programs.get(key)
         if program is None:
-            program = self.programs[key] = Program(fn, eager_calls)
+            program = self.programs[key] = Program(fn, eager_calls, name)
         return program(self, *args, copy=copy)
 
     def summary(self) -> Dict[str, int]:

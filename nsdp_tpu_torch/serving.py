@@ -39,6 +39,7 @@ from nsdp_tpu_torch.graphs import Graphs
 from nsdp_tpu_torch.models import build_model, evaluation_config, init_random
 from nsdp_tpu_torch.training.checkpoints import read_state_dict
 from nsdp_tpu_torch.utils.padding import pad_queries
+from nsdp_tpu_torch.utils.profiling import count, span
 
 WARM_SURFACE_POINTS = 256  # the surface size the JAX service warms at
 
@@ -46,8 +47,14 @@ WARM_SURFACE_POINTS = 256  # the surface size the JAX service warms at
 def _host(t: torch.Tensor) -> np.ndarray:
     """A float32 host copy the caller owns (never a view of a program's
     static output, which the next call overwrites -- ``.cpu()`` of a CPU
-    tensor copies nothing)."""
-    return t.to("cpu", torch.float32, copy=True).numpy()
+    tensor copies nothing).  The copy from the card blocks the host until
+    the card has finished the work queued before it, and then until the
+    copy is done: the span ``serve.wait``.  (A synchronise of the stream
+    before the copy, to time the two apart, slowed a request by 0.3-0.6 ms
+    at the median and more in the tail on the H100: ``PERF.md``.)"""
+    with span("serve.wait"):
+        t = t.to("cpu", torch.float32, copy=True)
+    return t.numpy()
 
 
 class DeformationService:
@@ -193,20 +200,27 @@ class DeformationService:
         Returns:
           deformed positions, same leading shape as ``points``.
         """
-        squeeze = points.ndim == 2
-        if squeeze:
-            points = points[None]
-            surface_samples_inputs = surface_samples_inputs[None]
-            if point_mask is not None:
-                point_mask = np.asarray(point_mask)[None]
-        q = points.shape[1]
-        padded, _ = pad_queries(np.asarray(points), self._bucket(q))
-        with torch.inference_mode():
-            # every replica's work is queued before the first result is read
-            outs = [self._call(i, "deform", model.predict, share, surface_samples_inputs, point_mask)
-                    for i, (model, share) in enumerate(zip(self.replicas, self._shares(padded)))]
-            out = _host(self._joined(outs)[:, :q])
-        return out[0] if squeeze else out
+        with span("serve.deform"):
+            with span("serve.pad"):
+                squeeze = points.ndim == 2
+                if squeeze:
+                    points = points[None]
+                    surface_samples_inputs = surface_samples_inputs[None]
+                    if point_mask is not None:
+                        point_mask = np.asarray(point_mask)[None]
+                b, q = points.shape[:2]
+                padded, _ = pad_queries(np.asarray(points), self._bucket(q))
+                shares = self._shares(padded)
+            count("serve.rows_valid", b * q)
+            count("serve.rows_padded", b * padded.shape[1])
+            with torch.inference_mode():
+                # every replica's work is queued before the first result is read
+                outs = [self._call(i, "deform", model.predict, share, surface_samples_inputs,
+                                   point_mask)
+                        for i, (model, share) in enumerate(zip(self.replicas, shares))]
+                with span("serve.fetch"):
+                    out = _host(self._joined(outs)[:, :q])
+            return out[0] if squeeze else out
 
     def edit_session(self, points: np.ndarray, surface_samples_src: np.ndarray,
                      point_mask: Optional[np.ndarray] = None) -> "EditSession":
@@ -228,23 +242,28 @@ class DeformationService:
             raise ValueError(
                 f"edit sessions need the 'arbitrary' composition (got {self.model_type!r})"
             )
-        q = points.shape[0]
-        padded, _ = pad_queries(np.asarray(points)[None], self._bucket(q))
-        src = np.asarray(surface_samples_src, np.float32)[None]
-        shares = []
-        with torch.inference_mode():
-            for i, (model, d, share) in enumerate(zip(self.replicas, self.devices,
-                                                      self._shares(padded))):
-                pm = None if point_mask is None else self._tensor(point_mask, d).reshape(1, -1)
-                space_cano, surf_cano = self._call(i, "canonicalize", model.canonicalize,
-                                                   share, src, pm)
-                if self.graphs is not None:
-                    # the session owns its canonical pose: the program's
-                    # outputs are overwritten by the next call (another
-                    # session's at the same bucket)
-                    space_cano, surf_cano = space_cano.clone(), surf_cano.clone()
-                shares.append((space_cano, surf_cano, pm))
-        return EditSession(self, shares, q)
+        with span("serve.open"):
+            with span("serve.pad"):
+                q = points.shape[0]
+                padded, _ = pad_queries(np.asarray(points)[None], self._bucket(q))
+                src = np.asarray(surface_samples_src, np.float32)[None]
+                queries = self._shares(padded)
+            count("serve.rows_valid", q)
+            count("serve.rows_padded", padded.shape[1])
+            shares = []
+            with torch.inference_mode():
+                for i, (model, d, share) in enumerate(zip(self.replicas, self.devices, queries)):
+                    pm = None if point_mask is None else self._tensor(point_mask, d).reshape(1, -1)
+                    space_cano, surf_cano = self._call(i, "canonicalize", model.canonicalize,
+                                                       share, src, pm)
+                    if self.graphs is not None:
+                        # the session owns its canonical pose: the program's
+                        # outputs are overwritten by the next call (another
+                        # session's at the same bucket)
+                        with span("serve.fetch"):
+                            space_cano, surf_cano = space_cano.clone(), surf_cano.clone()
+                    shares.append((space_cano, surf_cano, pm))
+            return EditSession(self, shares, q)
 
 
 class EditSession:
@@ -270,10 +289,15 @@ class EditSession:
           (Q, 3) deformed query positions.
         """
         svc = self._service
-        tgt = np.asarray(surface_samples_tgt, np.float32)[None]
-        mask = np.asarray(handle_mask, np.float32).reshape(1, -1, 1)
-        with torch.inference_mode():
-            outs = [svc._call(i, "drag", model.deform, space_cano, surf_cano, tgt, mask, pm)
-                    for i, (model, (space_cano, surf_cano, pm))
-                    in enumerate(zip(svc.replicas, self._shares))]
-            return _host(svc._joined(outs)[0, : self._q])
+        with span("serve.drag"):
+            with span("serve.pad"):
+                tgt = np.asarray(surface_samples_tgt, np.float32)[None]
+                mask = np.asarray(handle_mask, np.float32).reshape(1, -1, 1)
+            count("serve.rows_valid", self._q)
+            count("serve.rows_padded", sum(space.shape[1] for space, _, _ in self._shares))
+            with torch.inference_mode():
+                outs = [svc._call(i, "drag", model.deform, space_cano, surf_cano, tgt, mask, pm)
+                        for i, (model, (space_cano, surf_cano, pm))
+                        in enumerate(zip(svc.replicas, self._shares))]
+                with span("serve.fetch"):
+                    return _host(svc._joined(outs)[0, : self._q])

@@ -36,6 +36,7 @@ from nsdp_tpu_torch.nn.blocks import BatchNorm, bn_sync
 from nsdp_tpu_torch.parallel.dist import all_reduce_flat, capturable
 from nsdp_tpu_torch.training.optim import set_learning_rate
 from nsdp_tpu_torch.utils.padding import predict_padded
+from nsdp_tpu_torch.utils.profiling import span
 
 BN_DECAY = 0.9  # the running statistics' EMA decay, 1 - BatchNorm momentum
 
@@ -237,32 +238,37 @@ def make_steps(model: nn.Module, model_type: str, optimizer: torch.optim.Optimiz
         return loss, grads, saved_all
 
     def train_step(batch: Dict[str, Any], lr: float, fetch: bool = True):
-        args = step_inputs(batch)
-        if not model.training:  # as the eager forward leaves it (a replay sets no mode)
-            model.train()
-        if captured is None:
-            loss, grads, saved_all = forward_backward(*args)
-        else:
-            loss, grads, saved_all = captured("train_step", forward_backward, *args,
-                                              eager_calls=1)
-        for p, g in zip(params, grads):
-            if p.grad is not g:
-                p.grad = g
-        if nan_guard:  # the update depends on the loss: read it now
-            value = float(loss)
-            if not math.isfinite(value):
-                _restore(all_bns, saved_all)
-                optimizer.zero_grad(set_to_none=True)
+        with span("train.step"):
+            with span("train.inputs"):
+                args = step_inputs(batch)
+            if not model.training:  # as the eager forward leaves it (a replay sets no mode)
+                model.train()
+            if captured is None:
+                loss, grads, saved_all = forward_backward(*args)
+            else:
+                loss, grads, saved_all = captured("train_step", forward_backward, *args,
+                                                  eager_calls=1)
+            for p, g in zip(params, grads):
+                if p.grad is not g:
+                    p.grad = g
+            if nan_guard:  # the update depends on the loss: read it now
+                with span("train.loss"):
+                    value = float(loss)
+                if not math.isfinite(value):
+                    _restore(all_bns, saved_all)
+                    optimizer.zero_grad(set_to_none=True)
+                    return value
+            with span("train.optimizer"):
+                set_learning_rate(optimizer, lr)
+                optimizer.step()
+            if nan_guard:
                 return value
-        set_learning_rate(optimizer, lr)
-        optimizer.step()
-        if nan_guard:
-            return value
-        if fetch:
-            return float(loss)
-        # a captured step's loss is its program's output, which the next
-        # step overwrites: the caller gets its own copy
-        return loss if captured is None else loss.clone()
+            with span("train.loss"):
+                if fetch:
+                    return float(loss)
+                # a captured step's loss is its program's output, which the
+                # next step overwrites: the caller gets its own copy
+                return loss if captured is None else loss.clone()
 
     train_step.graphs = captured
 
