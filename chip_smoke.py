@@ -9,8 +9,10 @@ Phases (any failure exits non-zero and prints no result line):
    from ``nsdp_tpu_torch/csrc`` (one ``nvcc`` per source, in parallel) and
    the host library from ``nsdp_tpu_torch/native`` (``c++``); per
    kernel ptxas's registers, shared memory and spills, and the count of
-   tensor-core (``HMMA``) instructions in its SASS -- none in K2's
-   ``bwd_rows_kernel`` or ``wgrad_kernel`` fails;
+   tensor-core instructions in its SASS: warpgroup ``HGMMA`` (``wgmma``)
+   and warp ``HMMA`` (``mma.sync``) -- K2's ``bwd_rows_kernel`` without
+   ``HGMMA``, or its ``wgrad_kernel`` or K1's ``attn_mma16_kernel``
+   without ``HMMA``, fails;
 2. kernels: each hand-written forward kernel held against its plain PyTorch
    version at every shape the main path gives it -- fused kNN attention
    (K1) within rtol 1e-4 / atol 1e-5 and bit for bit against the output
@@ -46,9 +48,12 @@ Phases (any failure exits non-zero and prints no result line):
    on the card at most twice the float32 plain version's (floor 1e-6);
    ``gamma_b1``'s gradient, analytically zero, absolutely (at most 1e-4 of
    the largest ``gamma_w1`` gradient); then K2 and the plain backward timed
-   at the training batch, K2's device time split by CUDA kernel, and
-   ``wgrad_cublas_ms``: cuBLAS's time for the four weight-gradient products
-   at the same shapes, a yardstick the port never calls;
+   at the training batch, K2's device time split by CUDA kernel (the row
+   kernel's beside the 32-row ``mma.sync`` design's, ``K2_ROWS_MS_32``),
+   and ``wgrad_cublas_ms``: cuBLAS's time for the four weight-gradient
+   products at the same shapes, a yardstick the port never calls; the row
+   kernel's shared-memory sizing held against the wrapper's
+   (``nsdp_attention_bwd_smem``);
 3. serving: the shipped full-width ``configs/deform4d/arbitrary.yaml``
    model with seeded random weights, captured (``DeformationService``'s
    default on the card): ``warmup`` captures every entry at every bucket
@@ -1110,8 +1115,34 @@ def check_backward(torch, rng, surf, fps_500, fps_100):
             f" (d {worst[1]})"
             f"  max_abs_err vs float32 plain {worst_abs:.3g}")
         log(f"   device by kernel (ms): {format_split(split)}; wgrad_cublas_ms {cublas_ms:.4f}")
+        before = K2_ROWS_MS_32.get(site[0])
+        log(f"   bwd_rows_kernel {split.get('bwd_rows_kernel', 0.0):.4f} ms (64-row wgmma tiles);"
+            f" the 32-row mma.sync kernel: {'not read' if before is None else f'{before:.2f} ms'}")
         del ops, idx, g, a
+    check_backward_sizing()
     return rows
+
+
+# bwd_rows_kernel's device time per call at phase 2b's sites and batches on
+# the 32-row mma.sync design it replaced (PERF.md, §6)
+K2_ROWS_MS_32 = {"bwd_encoder_begin": 3.93, "fwd_encoder_begin": 5.66, "set_abstraction_0": 0.93,
+                 "transformer_downs_0": 0.78, "set_abstraction_1": 0.86, "decoder": 8.90,
+                 "fwd_encoder_begin_stage1": 11.22}
+
+
+def check_backward_sizing():
+    """K2's row kernel's shared memory against ``ops/attention.py``'s mirror
+    of it (which the CPU tests hold under the card's 227 KB), at every D of
+    phase 2b and at each warpgroup width's edges."""
+    from nsdp_tpu_torch.ops import _build, attention
+
+    lib = _build.load("attention_bwd", attention._SIGNATURES_BWD)
+    for d in sorted({site[6] for site in k2_sites()} | {1, 8, 36, 64, 128, 130, 208}):
+        got, want = lib.nsdp_attention_bwd_smem(d), attention.backward_smem_bytes(d)
+        if got != want:
+            fail(f"K2 at D={d}: the row kernel takes {got} bytes of shared memory, the"
+                 f" wrapper's mirror says {want}")
+    log("K2: the row kernel's shared memory equals the wrapper's mirror at every D")
 
 
 def wgrad_cublas_ms(torch, n_rows: int, D: int) -> float:
@@ -4602,15 +4633,18 @@ def short_name(mangled: str) -> str:
                            if args else "")
 
 
-# kernels whose products run on the tensor cores (K2; K1's narrow mode)
-TENSOR_CORE_KERNELS = ("bwd_rows_kernel", "wgrad_kernel", "attn_mma16_kernel")
+# kernels whose products run on the tensor cores, by the instruction they
+# must use: K2's row kernel on wgmma (HGMMA), K2's weight gradients and K1's
+# narrow mode on mma.sync (HMMA)
+TENSOR_CORE_KERNELS = {"bwd_rows_kernel": "HGMMA", "wgrad_kernel": "HMMA",
+                       "attn_mma16_kernel": "HMMA"}
 
 
 def report_build(build) -> None:
     """Phase 1's build lines: per kernel, ptxas's registers, shared memory
-    and spills, and the count of tensor-core (HMMA) instructions in the
-    library's SASS (``cuobjdump --dump-sass``); fails if a kernel of
-    ``TENSOR_CORE_KERNELS`` has none."""
+    and spills, and the count of tensor-core instructions in the library's
+    SASS (``cuobjdump --dump-sass``), HGMMA and HMMA apart; fails if a
+    kernel of ``TENSOR_CORE_KERNELS`` has none of its instruction."""
     cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     for name in build.SOURCES:
         fn = "?"
@@ -4621,18 +4655,21 @@ def report_build(build) -> None:
                 log(f"  {name}: {fn}: {line.strip()}")
         sass = subprocess.run([cuobjdump, "--dump-sass", str(build.library_path(name))],
                               capture_output=True, text=True, timeout=300, check=True).stdout
-        hmma, fn = {}, None
+        tc, fn = {}, None
         for line in sass.splitlines():
             if "Function : " in line:
                 fn = short_name(line.split("Function : ")[1].strip())
-                hmma[fn] = 0
-            elif fn is not None and "HMMA" in line:
-                hmma[fn] += 1
-        log(f"  {name}: HMMA instructions by kernel: "
-            + ", ".join(f"{k} {v}" for k, v in sorted(hmma.items())))
-        for fn, n in hmma.items():
-            if fn.split("<")[0] in TENSOR_CORE_KERNELS and n == 0:
-                fail(f"{fn} has no tensor-core instruction")
+                tc[fn] = {"HGMMA": 0, "HMMA": 0}
+            elif fn is not None:
+                for op in ("HGMMA", "HMMA"):
+                    if op in line:
+                        tc[fn][op] += 1
+        log(f"  {name}: HGMMA / HMMA instructions by kernel: "
+            + ", ".join(f"{k} {v['HGMMA']} / {v['HMMA']}" for k, v in sorted(tc.items())))
+        for fn, n in tc.items():
+            op = TENSOR_CORE_KERNELS.get(fn.split("<")[0])
+            if op is not None and n[op] == 0:
+                fail(f"{fn} has no {op} instruction")
 
 
 def main() -> None:

@@ -29,22 +29,28 @@
 // rows of compulsory traffic.  The TPU kernel's devices (saved residuals,
 // one-hot scatter matmuls, VMEM-resident weight-gradient accumulators) do
 // not carry over; on the card, the products run on the tensor cores in
-// 3xTF32 (rows_mma.cuh), but for the two that decide the fc_gamma ReLU
-// mask (rows_ffma, below):
-//   * weight_frags_kernel lays the weights of the four tensor-core products
-//     out in the engine's fragment order, once per call;
-//   * bwd_rows_kernel does everything per row.  A block owns 32 rows (all
-//     slots of 32 / S queries, so the slot softmax and the per-query sums
-//     stay in the block) and runs the six products, four on the shared
-//     row-block engine, with two row-major activation buffers in shared memory reused
-//     as the pass goes (hidden -> u -> fc_gamma hidden -> logits -> dlogits
-//     -> dz_gamma -> du; values -> dvalue -> dpos -> dz_delta) and the two
-//     ReLU masks as bits in a register of each thread (the engine gives a
-//     thread the same elements in every product), beside the engine's lo
-//     buffer.  Two blocks fit an SM up to D = 224 (111.9 KB each at D = 200),
-//     one at D = 256.  The kv gradients are scatter-added with f64 atomics into
-//     f64 buffers: their order varies from run to run, but their rounding
-//     stays far below the f32 products' (the decoder's 100 anchors each take
+// 3xTF32 (rows_mma.cuh, wgmma), but for the two that decide the fc_gamma
+// ReLU mask (rows_ffma, below):
+//   * weight_frags_kernel lays the weights out once per call: the four
+//     tensor-core products' in wgmma's K-major order, the two FFMA
+//     products' as row-major B = w^T;
+//   * bwd_rows_kernel does everything per row.  A block owns 64 rows, one
+//     wgmma M (all slots of 64 / S queries, so the slot softmax and the
+//     per-query sums stay in the block), and runs the six products, four on
+//     the shared row-tile engine, with two row-major activation buffers in
+//     shared memory reused as the pass goes (hidden -> u -> fc_gamma hidden
+//     -> logits -> dlogits -> dz_gamma -> du; values -> dvalue -> dpos ->
+//     dz_delta) and the two ReLU masks as bits in registers of each thread
+//     (the engine gives a thread the same elements in every product).  Each
+//     product's weight streams through one ring of slots, a bulk copy (the
+//     TMA) a slot, staged once per 64 rows.  Up to D = 128 a block is two
+//     warpgroups and two blocks share an SM (103.5 KB each at D = 120); above,
+//     a second 64-row tile's activations would leave no room for the ring,
+//     so one block of four warpgroups takes the SM (201.6 KB at D = 200,
+//     211.5 KB at D = 256).
+//     The kv gradients are scatter-added with f64 atomics into f64 buffers:
+//     their order varies from run to run, but their rounding stays far
+//     below the f32 products' (the decoder's 100 anchors each take
 //     thousands of adds; compiled out, they saved ~0.2 ms of 24 at the
 //     decoder); the global slot's sums over all queries take one f64 atomic
 //     per channel and block.
@@ -69,7 +75,7 @@ namespace {
 
 using namespace rows;
 
-constexpr int kKMax = 32;  // largest k
+constexpr int kKMax = 32;  // largest k, and most slots (k and the global slot)
 constexpr int kDMax = 256; // largest channel width
 constexpr int kWT = 64;    // output tile edge of the weight-gradient reduction
 constexpr int kWR = 32;    // rows per staged chunk of the reduction
@@ -92,10 +98,10 @@ struct Params {
   const float* k_glob;   // (B, D) or null
   const float* v_glob;   // (B, D) or null
   const float* dw0; const float* db0;  // (D, 3), (D)   (out, in) layout
-  const float* dw1; const float* gw0;  // (D, D) (out, in), for the FFMA products
   const float* db1; const float* gb0; const float* gb1;  // (D)
-  const float* gw1f;                   // fragments for x w^T
-  const float* gw1t; const float* gw0t; const float* dw1t;  // fragments for dy w
+  const float* dw1f; const float* gw0f;  // B = w^T row-major, for the FFMA products
+  const float* gw1f;                   // engine order, for x w^T
+  const float* gw1t; const float* gw0t; const float* dw1t;  // engine order, for dy w
   const float* g;        // (B, Nq, D) output gradient
   float* dxyz_q;         // (B, Nq, 3) written
   double* dkv_xyz;       // (B, M, 3) zeroed, scatter-added
@@ -121,81 +127,74 @@ __device__ __forceinline__ void kahan_add(float& sum, float& c, float x) {
 // chain over k in order from zero, as the f32 engine did: the ReLU decision
 // hg > 0 then falls as that engine's did.  Under 3xTF32 these products met
 // near-ties that the float32 plain version did not, and a flipped decision
-// moves a gradient far beyond rounding (PERF.md).  A thread owns kFR
-// rows and NT columns 64 apart; the weight streams through two kFK-row
-// tiles, and the rows are read from a transposed copy (two 16-byte loads
-// for a thread's kFR rows of one k, the same for the whole warp).
-constexpr int kFX = 64;                       // threads across the channels
-constexpr int kFR = kRows / (kThreads / kFX);  // rows per thread: 8
-constexpr int kFK = 16;                       // weight rows per staged tile
-// Row pitch of a staged tile: odd, so the kFK rows of one column fall in
-// distinct banks.
-__host__ __device__ __forceinline__ int ffma_pitch(int D) { return D | 1; }
-// Floats of shared memory the products' weights stream through: the
-// engine's ring or the two FFMA tiles, whichever is larger.
-__host__ __device__ __forceinline__ int bwd_ring_floats(int D) {
-  const int tiles = 2 * kFK * ffma_pitch(D);
-  return ring_floats(D) > tiles ? ring_floats(D) : tiles;
-}
+// moves a gradient far beyond rounding (PERF.md).  A thread owns kFR rows
+// and NT columns 64 apart; B = w^T (weight_frags_kernel's row-major copy)
+// streams through the ring kFK rows a slot, one bulk copy each, and a
+// thread reads 4 k of each of its rows as one 16-byte load (the same rows
+// for the whole warp).
+constexpr int kFX = 64;  // threads across the channels
+constexpr int kFK = 16;  // B rows per slot
 
-// acc[i][j] = sum_k x[(ty kFR + i) P + k] w[(tx + 64 j) D + k], k ascending;
-// x row-major in shared memory (pitch act_pitch(D)), w (out, in) in global
-// memory, xt D x kRows floats of scratch.  Starts and ends with a barrier.
-template <int NT>
-__device__ __forceinline__ void rows_ffma(const float* x, float* xt, const float* __restrict__ w,
-                                          int D, float* tile, float (&acc)[kFR][NT]) {
-  const int tx = threadIdx.x % kFX, ty = threadIdx.x / kFX;
-  const int P = act_pitch(D), TP = ffma_pitch(D), n_tiles = (D + kFK - 1) / kFK;
+// acc[i][j] = sum_k x[(ty kFR + i) P + k] B[k][tx + 64 j], k ascending from
+// zero; x row-major in shared memory (pitch act_pitch(D)), B pad8(D) x
+// pad8(D) row-major in global memory, ring ring_floats(D) floats of shared
+// memory (kStages slots and their mbarriers); kT threads, kFR = kRows /
+// (kT / kFX).  Starts and ends with a barrier.
+template <int kT, int kFR, int NT, int kStages>
+__device__ __forceinline__ void rows_ffma(const float* x, const float* __restrict__ wt, int D,
+                                          float* ring, float (&acc)[kFR][NT]) {
+  const int tid = threadIdx.x, tx = tid % kFX, ty = tid / kFX;
+  const int P = act_pitch(D), Dp = pad8(D), n_tiles = (D + kFK - 1) / kFK, slot = slot_floats(D);
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring + kStages * slot);
 #pragma unroll
   for (int i = 0; i < kFR; ++i)
 #pragma unroll
     for (int j = 0; j < NT; ++j) acc[i][j] = 0.0f;
-  // tile[kk][d] = w[d][c kFK + kk]: kFK threads down each channel's inputs
-  auto stage = [&](int c) {
-    float* dst = tile + (c & 1) * kFK * TP;
-    const int kk = threadIdx.x % kFK;
-    if (c * kFK + kk < D)
-      for (int d = threadIdx.x / kFK; d < D; d += kThreads / kFK)
-        cp_async4(dst + kk * TP + d, w + (size_t)d * D + c * kFK + kk);
-    cp_async_commit();
+  auto fetch = [&](int c) {  // by thread 0: B rows [c kFK, c kFK + kFK) below pad8(D)
+    if (c < n_tiles)
+      bulk_load(ring + (c % kStages) * slot, wt + (size_t)c * kFK * Dp,
+                min(kFK, Dp - c * kFK) * Dp * 4, full + c % kStages);
   };
-  __syncthreads();  // the caller's rows are written; tile and xt are free
-  stage(0);
-  for (int e = threadIdx.x; e < D * kRows; e += kThreads) {  // xt[k][r] = x[r][k]
-    const int k = e / kRows, r = e % kRows;
-    xt[k * kRows + r] = x[r * P + k];
+  __syncthreads();  // the caller's rows are written; the ring is free
+  if (tid == 0) {
+    mbar_init(full, kStages);
+    for (int s = 0; s < kStages - 1; ++s) fetch(s);
   }
+  __syncthreads();
+  const float* xr = x + ty * kFR * P;
   for (int c = 0; c < n_tiles; ++c) {
-    if (c + 1 < n_tiles) {
-      stage(c + 1);
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    const float* t = tile + (c & 1) * kFK * TP;
-    const int kn = min(kFK, D - c * kFK);
-    for (int kk = 0; kk < kn; ++kk) {
-      const float4* x4 = reinterpret_cast<const float4*>(xt + (c * kFK + kk) * kRows + ty * kFR);
-      const float4 x_lo = x4[0], x_hi = x4[1];
-      const float xr[kFR] = {x_lo.x, x_lo.y, x_lo.z, x_lo.w, x_hi.x, x_hi.y, x_hi.z, x_hi.w};
-      float wc[NT];
+    if (tid == 0) fetch(c + kStages - 1);  // into the slot of c - 1
+    mbar_wait(full + c % kStages, (c / kStages) & 1);
+    const float* t = ring + (c % kStages) * slot;
+    // k past D up to a multiple of 4 adds fmaf(0, 0, acc): x's padding
+    // columns and B's padding rows are zeros, and acc is never -0, so the
+    // sum keeps its bits and the loop needs no test
+    const int k0 = c * kFK, kn = min(kFK, ((D + 3) & ~3) - k0);
+    for (int kq = 0; kq < kn; kq += 4) {
+      float wc[4][NT];
 #pragma unroll
-      for (int j = 0; j < NT; ++j) {
-        const int d = tx + kFX * j;
-        wc[j] = d < D ? t[kk * TP + d] : 0.0f;
+      for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+        for (int j = 0; j < NT; ++j) {
+          const int d = tx + kFX * j;
+          wc[kk][j] = d < Dp ? t[(kq + kk) * Dp + d] : 0.0f;
+        }
+#pragma unroll
+      for (int i = 0; i < kFR; ++i) {
+        const float4 x4 = *reinterpret_cast<const float4*>(xr + i * P + k0 + kq);
+        const float xs[4] = {x4.x, x4.y, x4.z, x4.w};
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+          for (int j = 0; j < NT; ++j) acc[i][j] = fmaf(xs[kk], wc[kk][j], acc[i][j]);
       }
-#pragma unroll
-      for (int i = 0; i < kFR; ++i)
-#pragma unroll
-        for (int j = 0; j < NT; ++j) acc[i][j] = fmaf(xr[i], wc[j], acc[i][j]);
     }
-    __syncthreads();  // the tile is consumed before it is refilled
+    __syncthreads();  // every thread is done with slot c
   }
 }
 
 // f(i, j, row, column) for each element of rows_ffma's acc (columns below pad8(D)).
-template <int NT, class F>
+template <int kFR, int NT, class F>
 __device__ __forceinline__ void for_each_ffma(int D, F&& f) {
   const int tx = threadIdx.x % kFX, ty = threadIdx.x / kFX;
 #pragma unroll
@@ -207,8 +206,16 @@ __device__ __forceinline__ void for_each_ffma(int D, F&& f) {
   }
 }
 
-template <int NT>
-__global__ void __launch_bounds__(kThreads, 2) bwd_rows_kernel(const Params p) {
+// (NW, NWG) = (wg_tiles(D), row_groups(D)).  Two warpgroups up to D = 128,
+// where two blocks share an SM, so one's softmax, epilogues and stores run
+// beside the other's products; above, the activations of a second 64-row
+// tile would leave no room for the weights' ring, so one block of four
+// warpgroups takes the SM and its 16 warps hide the row work's latency.
+template <int NW, int NWG>
+__global__ void __launch_bounds__(128 * NWG, NWG == 2 ? 2 : 1) bwd_rows_kernel(const Params p) {
+  constexpr int kT = 128 * NWG, kWarps = kT / 32;
+  constexpr int kFR = kRows / (kT / kFX), NT = (8 * NW * NWG + kFX - 1) / kFX;  // FFMA tiles
+  constexpr int kStages = ring_stages(NW, NWG);
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
   const int D = p.D, M = p.M, k = p.k, Dp = pad8(D), P = act_pitch(D);
@@ -218,9 +225,8 @@ __global__ void __launch_bounds__(kThreads, 2) bwd_rows_kernel(const Params p) {
   const int R = TQ * S;                      // rows in use
   float* x0 = smem;                          // (kRows, P) hd, u, hg, logits, dlogits, dzg, du
   float* x1 = x0 + kRows * P;                // (kRows, P) values, dvalue, dpos, dz_delta
-  float* xl = x1 + kRows * P;                // (kRows, P) lo parts of a product's rows
-  float* ring = xl + kRows * P;              // weight fragments or FFMA tiles
-  float* dxs = ring + bwd_ring_floats(D);    // (kRows, 4) position delta, then ddx
+  float* ring = x1 + kRows * P;              // the products' weights (rows_mma.cuh)
+  float* dxs = ring + ring_floats(D);        // (kRows, 4) position delta, then ddx
   int* nbr = reinterpret_cast<int*>(dxs + kRows * 4);  // (kRows) kv index per row
   int* wrow = nbr + kRows;                   // (kRows) workspace row, -1 past the end
 
@@ -235,7 +241,7 @@ __global__ void __launch_bounds__(kThreads, 2) bwd_rows_kernel(const Params p) {
   // fragment layout were scattered 4-byte writes.
   auto to_ws = [&](const float* src, int a) {
     const int q4 = Dp / 4;
-    for (int e = tid; e < kRows * q4; e += kThreads) {
+    for (int e = tid; e < kRows * q4; e += kT) {
       const int r = e / q4, c = (e - r * q4) * 4;
       if (wrow[r] < 0) continue;
       *reinterpret_cast<float4*>(wsd + a * RD + (size_t)wrow[r] * Dp + c) =
@@ -244,7 +250,7 @@ __global__ void __launch_bounds__(kThreads, 2) bwd_rows_kernel(const Params p) {
   };
 
   // ---- neighbours and position deltas --------------------------------------
-  for (int r = tid; r < kRows; r += kThreads) {
+  for (int r = tid; r < kRows; r += kT) {
     const int t = r / S, s = r - t * S, n = t0 + t;
     const bool valid = r < R && n < p.Nq;
     const bool nb = valid && s < k;
@@ -263,23 +269,23 @@ __global__ void __launch_bounds__(kThreads, 2) bwd_rows_kernel(const Params p) {
   __syncthreads();
 
   // ---- forward recomputation: fc_delta ----------------------------------------
-  uint32_t hd_mask = 0, hg_mask = 0;  // ReLU masks, bit elem_bit(mt, j, c)
-  for_each_elem<NT>(D, [&](int mt, int j, int c, int r, int d) {
+  uint64_t hd_mask = 0, hg_mask = 0;  // ReLU masks, bit elem_bit(e)
+  for_each_elem<NW>(D, [&](int e, int r, int d) {
     float h = 0.0f;
     if (d < D) {
       const float* dx = dxs + r * 4;
       h = fmaxf(fmaf(dx[0], p.dw0[3 * d], fmaf(dx[1], p.dw0[3 * d + 1],
                 fmaf(dx[2], p.dw0[3 * d + 2], p.db0[d]))), 0.0f);
     }
-    if (h > 0.0f) hd_mask |= elem_bit(mt, j, c);
+    if (h > 0.0f) hd_mask |= elem_bit(e);
     x0[r * P + d] = h;
   });
   __syncthreads();
   to_ws(x0, kWsHd);
   {
     float facc[kFR][NT];
-    rows_ffma<NT>(x0, xl, p.dw1, D, ring, facc);
-    for_each_ffma<NT>(D, [&](int i, int j, int r, int d) {
+    rows_ffma<kT, kFR, NT, kStages>(x0, p.dw1f, D, ring, facc);
+    for_each_ffma<kFR, NT>(D, [&](int i, int j, int r, int d) {
       const float pos = facc[i][j] + (d < D ? p.db1[d] : 0.0f);
       float u = pos, v = pos;
       if (!pos_only && r < R && d < D) {
@@ -305,26 +311,26 @@ __global__ void __launch_bounds__(kThreads, 2) bwd_rows_kernel(const Params p) {
   // ---- forward recomputation: fc_gamma ----------------------------------------
   {
     float facc[kFR][NT];
-    rows_ffma<NT>(x0, xl, p.gw0, D, ring, facc);
-    for_each_ffma<NT>(D, [&](int i, int j, int r, int d) {
+    rows_ffma<kT, kFR, NT, kStages>(x0, p.gw0f, D, ring, facc);
+    for_each_ffma<kFR, NT>(D, [&](int i, int j, int r, int d) {
       const float h = fmaxf(facc[i][j] + (d < D ? p.gb0[d] : 0.0f), 0.0f);
       x0[r * P + d] = h;
     });
   }
   __syncthreads();
   to_ws(x0, kWsHg);
-  for_each_elem<NT>(D, [&](int mt, int j, int c, int r, int d) {  // the mask in engine order
-    if (x0[r * P + d] > 0.0f) hg_mask |= elem_bit(mt, j, c);
+  for_each_elem<NW>(D, [&](int e, int r, int d) {  // the mask in engine order
+    if (x0[r * P + d] > 0.0f) hg_mask |= elem_bit(e);
   });
-  float acc[kMT][NT][4];
-  rows_mma<NT>(x0, xl, p.gw1f, D, ring, acc);
-  for_each_elem<NT>(D, [&](int mt, int j, int c, int r, int d) {
-    x0[r * P + d] = acc[mt][j][c] + (d < D ? p.gb1[d] : 0.0f);
+  float acc[4 * NW];
+  rows_mma<NW, NWG>(x0, p.gw1f, D, ring, acc);
+  for_each_elem<NW>(D, [&](int e, int r, int d) {
+    x0[r * P + d] = acc[e] + (d < D ? p.gb1[d] : 0.0f);
   });
   __syncthreads();
 
   // ---- slot softmax and its backward: dlogits, dvalue -------------------------
-  for (int e = tid; e < TQ * Dp; e += kThreads) {
+  for (int e = tid; e < TQ * Dp; e += kT) {
     const int t = e / Dp, d = e - t * Dp, n = t0 + t;
     if (n >= p.Nq) continue;
     float* l = x0 + t * S * P + d;
@@ -366,7 +372,7 @@ __global__ void __launch_bounds__(kThreads, 2) bwd_rows_kernel(const Params p) {
   __syncthreads();
   to_ws(x0, kWsDl);
   if (has_glob) {  // dv_glob: one atomic per channel and block
-    for (int d = tid; d < D; d += kThreads) {
+    for (int d = tid; d < D; d += kT) {
       double sum = 0.0;
       for (int t = 0; t < TQ && t0 + t < p.Nq; ++t) sum += x1[(t * S + k) * P + d];
       atomicAdd(p.dglob + ((size_t)b * 2 + 1) * D + d, sum);
@@ -374,18 +380,18 @@ __global__ void __launch_bounds__(kThreads, 2) bwd_rows_kernel(const Params p) {
   }
 
   // ---- fc_gamma backward: dz_gamma, du ----------------------------------------
-  rows_mma<NT>(x0, xl, p.gw1t, D, ring, acc);
-  for_each_elem<NT>(D, [&](int mt, int j, int c, int r, int d) {
-    const float h = hg_mask & elem_bit(mt, j, c) ? acc[mt][j][c] : 0.0f;
+  rows_mma<NW, NWG>(x0, p.gw1t, D, ring, acc);
+  for_each_elem<NW>(D, [&](int e, int r, int d) {
+    const float h = hg_mask & elem_bit(e) ? acc[e] : 0.0f;
     x0[r * P + d] = h;
   });
   __syncthreads();
   to_ws(x0, kWsDzg);
-  rows_mma<NT>(x0, xl, p.gw0t, D, ring, acc);
-  for_each_elem<NT>(D, [&](int mt, int j, int c, int r, int d) {
+  rows_mma<NW, NWG>(x0, p.gw0t, D, ring, acc);
+  for_each_elem<NW>(D, [&](int e, int r, int d) {
     const int s = r % S;
     const bool nb = wrow[r] >= 0 && s < k;
-    const float du = acc[mt][j][c], dv = x1[r * P + d];
+    const float du = acc[e], dv = x1[r * P + d];
     const float dp = nb ? du + dv : 0.0f;
     if (nb && !pos_only && d < D) {
       const size_t row = ((size_t)b * M + nbr[r]) * D + d;
@@ -398,7 +404,7 @@ __global__ void __launch_bounds__(kThreads, 2) bwd_rows_kernel(const Params p) {
   __syncthreads();
   to_ws(x1, kWsDpos);
   if (!pos_only) {  // dq = sum over the query's slots of du
-    for (int e = tid; e < TQ * D; e += kThreads) {
+    for (int e = tid; e < TQ * D; e += kT) {
       const int t = e / D, d = e - t * D, n = t0 + t;
       if (n >= p.Nq) continue;
       const float* du = x0 + t * S * P + d;
@@ -408,7 +414,7 @@ __global__ void __launch_bounds__(kThreads, 2) bwd_rows_kernel(const Params p) {
     }
   }
   if (has_glob) {  // dk_glob = -sum du over the global slots
-    for (int d = tid; d < D; d += kThreads) {
+    for (int d = tid; d < D; d += kT) {
       double sum = 0.0;
       for (int t = 0; t < TQ && t0 + t < p.Nq; ++t) sum += x0[(t * S + k) * P + d];
       atomicAdd(p.dglob + (size_t)b * 2 * D + d, -sum);
@@ -416,9 +422,9 @@ __global__ void __launch_bounds__(kThreads, 2) bwd_rows_kernel(const Params p) {
   }
 
   // ---- fc_delta backward: dz_delta, ddx ---------------------------------------
-  rows_mma<NT>(x1, xl, p.dw1t, D, ring, acc);
-  for_each_elem<NT>(D, [&](int mt, int j, int c, int r, int d) {
-    const float h = hd_mask & elem_bit(mt, j, c) ? acc[mt][j][c] : 0.0f;
+  rows_mma<NW, NWG>(x1, p.dw1t, D, ring, acc);
+  for_each_elem<NW>(D, [&](int e, int r, int d) {
+    const float h = hd_mask & elem_bit(e) ? acc[e] : 0.0f;
     x1[r * P + d] = h;
   });
   __syncthreads();
@@ -447,7 +453,7 @@ __global__ void __launch_bounds__(kThreads, 2) bwd_rows_kernel(const Params p) {
     }
   }
   __syncthreads();
-  for (int e = tid; e < TQ * 3; e += kThreads) {
+  for (int e = tid; e < TQ * 3; e += kT) {
     const int t = e / 3, c = e - t * 3, n = t0 + t;
     if (n >= p.Nq) continue;
     float sum = 0.0f;
@@ -607,24 +613,26 @@ __global__ void wgrad_sum_kernel(const float* __restrict__ partial, int splits, 
   out[e] = sum;
 }
 
+// Shared memory of bwd_rows_kernel: two activation buffers, the ring, and
+// per row a position delta, a kv index and a workspace row.
 size_t rows_smem_bytes(int D) {
-  return (size_t)(3 * kRows * act_pitch(D) + bwd_ring_floats(D) + 4 * kRows) * sizeof(float) +
+  return (size_t)(2 * kRows * act_pitch(D) + ring_floats(D) + 4 * kRows) * sizeof(float) +
          2 * kRows * sizeof(int);
 }
 
-template <int NT>
+template <int NW, int NWG>
 cudaError_t launch_rows(const Params& p, int device, cudaStream_t stream) {
   static bool opted_in[kMaxDevices];
-  if (!opted_in[device]) {
+  if (!opted_in[device]) {  // the widest D of this shape takes the most
     const cudaError_t err = cudaFuncSetAttribute(
-        bwd_rows_kernel<NT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)rows_smem_bytes(64 * NT));
+        bwd_rows_kernel<NW, NWG>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)rows_smem_bytes(8 * NW * NWG));
     if (err != cudaSuccess) return failed(err);
     opted_in[device] = true;
   }
   const int tq = kRows / (p.k + (p.k_glob ? 1 : 0));
   const dim3 grid((p.Nq + tq - 1) / tq, p.B);
-  bwd_rows_kernel<NT><<<grid, kThreads, rows_smem_bytes(p.D), stream>>>(p);
+  bwd_rows_kernel<NW, NWG><<<grid, 128 * NWG, rows_smem_bytes(p.D), stream>>>(p);
   return cudaGetLastError();
 }
 
@@ -673,9 +681,13 @@ extern "C" {
 
 const char* nsdp_error_string(int err) { return cudaGetErrorString((cudaError_t)err); }
 
+// Bytes of shared memory bwd_rows_kernel takes at width D.
+long long nsdp_attention_bwd_smem(int D) { return (long long)rows_smem_bytes(D); }
+
 // dw0, dw1, gw0, gw1: (out, in) weights, contiguous.  dkv_xyz, dK, dV and
-// dglob are float64 and must be zeroed; wfrag holds 4 frag_floats(D)
-// floats, ws B * Nq * S * (7 pad8(D) + 4) and partial splits * (3 D + 7) * D.
+// dglob are float64 and must be zeroed; wfrag holds 4 frag_floats(D) +
+// 2 pad8(D)^2 floats, ws B * Nq * S * (7 pad8(D) + 4) and partial
+// splits * (3 D + 7) * D.
 // wgrads (3 D + 7, D) receives, in the (in, out) layout, [ddw0 (3 rows) |
 // ddb0 | ddw1 (D) | ddb1 | dgw0 (D) | dgb0 | dgw1 (D) | dgb1].
 int nsdp_fused_attention_bwd(
@@ -688,7 +700,7 @@ int nsdp_fused_attention_bwd(
     double* dglob, float* wfrag, float* ws, float* partial, float* wgrads,
     int B, int Nq, int M, int D, int k, int splits, int device, void* stream) {
   if (B < 1 || Nq < 1 || M < 1 || D < 1 || D > kDMax || k < 1 || k > kKMax || k > M ||
-      k + (k_glob ? 1 : 0) > kRows || splits < 1 || device < 0 || device >= kMaxDevices)
+      k + (k_glob ? 1 : 0) > kKMax || splits < 1 || device < 0 || device >= kMaxDevices)
     return (int)cudaErrorInvalidValue;
   const bool featured = q != nullptr;
   if ((K != nullptr) != featured || (V != nullptr) != featured || (dq != nullptr) != featured ||
@@ -699,23 +711,26 @@ int nsdp_fused_attention_bwd(
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)failed(err);
   const cudaStream_t s = (cudaStream_t)stream;
-  const size_t w = frag_floats(D);
+  const size_t w = frag_floats(D), wf = (size_t)pad8(D) * pad8(D);
+  float* wff = wfrag + 4 * w;  // the FFMA products' two weights
   FragParams fp{};
   const float* src[4] = {gw1, gw1, gw0, dw1};
-  for (int j = 0; j < 4; ++j) fp.job[j] = {src[j], wfrag + j * w, j >= 1};
-  fp.n_jobs = 4;
+  for (int j = 0; j < 4; ++j) fp.job[j] = {src[j], wfrag + j * w, j >= 1, 0};
+  fp.job[4] = {dw1, wff, 0, 1};
+  fp.job[5] = {gw0, wff + wf, 0, 1};
+  fp.n_jobs = 6;
   fp.D = D;
   err = weight_frags(fp, s);
   if (err != cudaSuccess) return (int)err;
   const Params p{xyz_q, kv_xyz, idx, q, q_sb, q_sn, K, V, k_glob, v_glob, dw0, db0,
-                 dw1, gw0, db1, gb0, gb1, wfrag,
+                 db1, gb0, gb1, wff, wff + wf, wfrag,
                  wfrag + w, wfrag + 2 * w, wfrag + 3 * w, g,
                  dxyz_q, dkv_xyz, dq, dK, dV, dglob, ws, B, Nq, M, D, k};
-  switch (n_tiles_per_warp(D)) {
-    case 1: err = launch_rows<1>(p, device, s); break;
-    case 2: err = launch_rows<2>(p, device, s); break;
-    case 3: err = launch_rows<3>(p, device, s); break;
-    default: err = launch_rows<4>(p, device, s); break;
+  switch (100 * row_groups(D) + wg_tiles(D)) {
+    case 204: err = launch_rows<4, 2>(p, device, s); break;
+    case 208: err = launch_rows<8, 2>(p, device, s); break;
+    case 407: err = launch_rows<7, 4>(p, device, s); break;
+    default: err = launch_rows<8, 4>(p, device, s); break;
   }
   if (err != cudaSuccess) return (int)err;
   const int R = B * Nq * (k + (k_glob ? 1 : 0));

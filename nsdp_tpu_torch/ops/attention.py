@@ -180,13 +180,18 @@ _SIGNATURES = {
     "nsdp_attention_bcast": (ctypes.c_int, [ctypes.c_int, ctypes.c_longlong, ctypes.c_int]),
     "nsdp_attention_narrow_smem": (ctypes.c_longlong, [ctypes.c_int]),
 }
-_SIGNATURES_BWD = {"nsdp_fused_attention_bwd": (ctypes.c_int, (
-    [ctypes.c_void_p] * 4 + [ctypes.c_longlong] * 2 + [ctypes.c_void_p] * 23
-    + [ctypes.c_int] * 7 + [ctypes.c_void_p]
-))}
+_SIGNATURES_BWD = {
+    "nsdp_fused_attention_bwd": (ctypes.c_int, (
+        [ctypes.c_void_p] * 4 + [ctypes.c_longlong] * 2 + [ctypes.c_void_p] * 23
+        + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+    )),
+    "nsdp_attention_bwd_smem": (ctypes.c_longlong, [ctypes.c_int]),
+}
 
 
-# ---- the tensor-core row-block engine of K2 (csrc/rows_mma.cuh), host side
+# ---- the tensor-core row-tile engine of K2 (csrc/rows_mma.cuh), host side
+
+BWD_ROWS = 64  # (query, slot) rows of a block of K2's row kernel: one wgmma M
 
 
 def pad8(D: int) -> int:
@@ -208,25 +213,73 @@ def split_tf32(x: torch.Tensor):
     return hi, tf32_round(x - hi)
 
 
+def row_groups(D: int) -> int:
+    """Warpgroups of a block of K2's row kernel (``rows_mma.cuh::row_groups``):
+    two up to D = 128, where two blocks share an SM, four above."""
+    return 2 if pad8(D) <= 128 else 4
+
+
+def wg_tiles(D: int) -> int:
+    """n-tiles (8 columns) each warpgroup of the row kernel owns: its share
+    of pad8(D)'s, rounded up to an instantiated width (``wg_tiles``)."""
+    groups = row_groups(D)
+    t = -(-(pad8(D) // 8) // groups)
+    return next(w for w in ((4, 8) if groups == 2 else (7, 8)) if t <= w)
+
+
+def tc_cols(D: int) -> int:
+    """Columns of B the row kernel's warpgroups cover (``tc_cols``)."""
+    return 8 * wg_tiles(D) * row_groups(D)
+
+
+def backward_ring_stages(D: int) -> int:
+    """Slots of the row kernel's weight ring (``rows_mma.cuh::ring_stages``)."""
+    return 7 if (wg_tiles(D), row_groups(D)) == (7, 4) else 5
+
+
 def weight_frags_plain(w: torch.Tensor, trans: bool) -> torch.Tensor:
     """A D x D (out, in) weight laid out as ``weight_frags_kernel`` writes
     it for the engine: the product's B operand (``B = w^T`` for ``x w^T``,
-    ``B = w`` for ``dy w`` when ``trans``), zero-padded to pad8(D), as
-    (k-step, n-tile, lane, 2) float32 ``[b0, b1]`` with
-    ``b0 = B[8 kc + l % 4][8 nt + l // 4]`` and ``b1`` four rows below."""
+    ``B = w`` for ``dy w`` when ``trans``), zero-padded to pad8(D) x
+    tc_cols(D), split into its TF32 hi and lo parts, in wgmma's K-major
+    order without swizzle, as (k-step, part, column group g, k-half h, row
+    i, element x) float32 with ``[kc, q, g, h, i, x] = part q of B[8 kc + 4
+    h + x][8 g + i]``: per k-step and part, two 8 x 4 core matrices of 128
+    bytes per column group."""
     D = w.shape[0]
-    Dp = pad8(D)
-    B = torch.zeros((Dp, Dp), dtype=torch.float32, device=w.device)
+    Dp, Np = pad8(D), tc_cols(D)
+    B = torch.zeros((Dp, Np), dtype=torch.float32, device=w.device)
     B[:D, :D] = w if trans else w.t()
-    lane = torch.arange(32, device=w.device)
-    k = 8 * torch.arange(Dp // 8, device=w.device)[:, None, None] + lane % 4
-    n = 8 * torch.arange(Dp // 8, device=w.device)[None, :, None] + lane // 4
-    return torch.stack([B[k, n], B[k + 4, n]], dim=-1)
+    parts = torch.stack(split_tf32(B))  # (2, Dp, Np)
+    return parts.reshape(2, Dp // 8, 2, 4, Np // 8, 8).permute(1, 0, 4, 2, 5, 3).contiguous()
 
 
 def weight_frag_floats(D: int) -> int:
-    """Floats of one weight in fragment order (``rows_mma.cuh::frag_floats``)."""
-    return pad8(D) ** 2
+    """Floats of one weight in the engine's order (``rows_mma.cuh::frag_floats``)."""
+    return 2 * pad8(D) * tc_cols(D)
+
+
+def backward_weight_floats(D: int) -> int:
+    """Floats of K2's weight scratch: the four tensor-core products' weights
+    in the engine's order and the two FFMA products' as pad8(D) x pad8(D)
+    row-major ``B = w^T``."""
+    return 4 * weight_frag_floats(D) + 2 * pad8(D) ** 2
+
+
+def backward_tile_queries(slots: int) -> int:
+    """Queries of a block of K2's row kernel: all slots of each."""
+    return BWD_ROWS // slots
+
+
+def backward_smem_bytes(D: int) -> int:
+    """Shared memory of K2's row kernel (``attention_bwd.cu::rows_smem_bytes``):
+    two activation buffers of 64 rows (pitch pad8(D) + 4), the weights' ring
+    (per slot a k-step's tc_cols(D) x 8 floats, hi and lo, and an 8-byte
+    mbarrier), and per row a 4-float position delta, a kv index and a
+    workspace row."""
+    act = 2 * BWD_ROWS * (pad8(D) + 4)
+    ring = backward_ring_stages(D) * (16 * tc_cols(D) + 2)  # slots, and an mbarrier each
+    return 4 * (act + ring + 4 * BWD_ROWS) + 8 * BWD_ROWS
 
 
 # ---- the 16-bit tensor-core engine of K1's narrow mode (csrc/rows_mma16.cuh),
@@ -430,14 +483,20 @@ def backward_workspace_floats(B: int, Nq: int, k: int, D: int, has_global: bool)
 
 def _launch_bwd(xyz_q, kv_xyz, q_feats, K_a, V_a, delta_w0, delta_b0, delta_w1,
                 delta_b1, gamma_w0, gamma_b0, gamma_w1, gamma_b1, k_glob, v_glob,
-                idx, g):
-    """K2 on the card: every operand's gradient, in the operands' order."""
+                idx, g, ws=None):
+    """K2 on the card: every operand's gradient, in the operands' order.
+    ``ws``: the workspace to fill (``backward_workspace_floats`` float32 on
+    the card), for a caller that reads the weight gradients' operand rows;
+    allocated here when None."""
     weights = (delta_w0, delta_b0, delta_w1, delta_b1, gamma_w0, gamma_b0, gamma_w1, gamma_b1)
     k = idx.shape[-1]
     B, Nq, M, D = _check_operands(xyz_q, kv_xyz, q_feats, K_a, V_a, weights, k,
                                   k_glob, v_glob, g=g)
     if idx.dtype != torch.int32 or tuple(idx.shape) != (B, Nq, k) or idx.device != xyz_q.device:
         raise ValueError(f"attention backward: idx must be ({B}, {Nq}, {k}) int32 on {xyz_q.device}")
+    if backward_smem_bytes(D) > MAX_SMEM:
+        raise ValueError(f"attention backward: D={D} takes {backward_smem_bytes(D)} bytes of shared"
+                         f" memory, more than a block's {MAX_SMEM}")
     f32 = dict(dtype=torch.float32, device=xyz_q.device)
     f64 = dict(dtype=torch.float64, device=xyz_q.device)
     featured, has_global = q_feats is not None, k_glob is not None
@@ -455,8 +514,14 @@ def _launch_bwd(xyz_q, kv_xyz, q_feats, K_a, V_a, delta_w0, delta_b0, delta_w1,
     if rows:
         sms = torch.cuda.get_device_properties(xyz_q.device).multi_processor_count
         splits = _backward_splits(rows, D, sms)
-        wfrag = torch.empty(4 * weight_frag_floats(D), **f32)
-        ws = torch.empty(backward_workspace_floats(B, Nq, k, D, has_global), **f32)
+        wfrag = torch.empty(backward_weight_floats(D), **f32)
+        n_ws = backward_workspace_floats(B, Nq, k, D, has_global)
+        if ws is None:
+            ws = torch.empty(n_ws, **f32)
+        elif (ws.dtype != torch.float32 or ws.numel() < n_ws or ws.device != xyz_q.device
+              or not ws.is_contiguous()):
+            raise ValueError(f"attention backward: ws must hold {n_ws} contiguous float32 on"
+                             f" {xyz_q.device}")
         partial = torch.empty(backward_partial_floats(splits, D), **f32)
         ptr = _Pointers()
         q_ptr, q_sb, q_sn = ptr.query(q_feats)

@@ -408,6 +408,76 @@ def test_attention_kernels_at_the_engines_edges(mode, D, k, M, nq, cuda, rng):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("mode,D,k,M,nq", [
+    ("table", 8, 10, 301, 0), ("global", 36, 7, 300, 77), ("pos_only", 120, 10, 301, 0),
+    ("global", 130, 31, 300, 9), ("global", 200, 7, 300, 1), ("global", 200, 31, 300, 77),
+    ("table", 256, 16, 301, 0), ("proj", 256, 10, 300, 1),
+])
+def test_attention_backward_kernel_row_tiles(mode, D, k, M, nq, cuda, rng):
+    """K2's 64-row tiles at their edges, B = 2: every warpgroup width the
+    row kernel is built for (D = 8, 36, 120, 130, 200, 256), slot counts
+    that do not divide 64 (k = 10; k = 7 and k = 31 with the global slot),
+    Nq = 1, and a ragged last tile (301 of 6 or 4 queries, 77 of 8, 9 of 2)."""
+    a, w = _attention_case(rng, mode, False, B=2, M=M, D=D, k=k, nq=nq)
+    _k2_against_plain(a, w, rng, cuda)
+
+
+@pytest.mark.gpu
+def test_backward_shared_memory_mirror(cuda):
+    """K2's row kernel's shared memory equals the wrapper's mirror of it,
+    which the CPU tests hold under the card's 227 KB."""
+    from nsdp_tpu_torch.ops import _build
+
+    lib = _build.load("attention_bwd", port_attention._SIGNATURES_BWD)
+    for D in (1, 8, 12, 36, 37, 64, 100, 120, 128, 130, 200, 208, 256):
+        assert lib.nsdp_attention_bwd_smem(D) == port_attention.backward_smem_bytes(D)
+
+
+@pytest.mark.gpu
+def test_attention_backward_ffma_masks_match_plain(cuda, rng):
+    """The row kernel's fc_delta and fc_gamma ReLU masks, read from its
+    workspace (the hidden rows it hands the weight gradients), equal the
+    plain version's zero for zero at the decoder's shape (D = 200, k = 7
+    and the global slot, M = 100 anchors), away from near-ties: entries
+    whose float64 pre-activation lies within 1e-5 of zero, where float32
+    rounding in another summation order may decide either way."""
+    B, Nq, M, D, k = 2, 1000, 100, 200, 7
+    a, w = _attention_case(rng, "global", False, B=B, M=M, D=D, k=k, nq=Nq)
+    t = lambda x: torch.as_tensor(x, device=cuda)
+    ops = [t(a[n]) for n in ("xyz_q", "kv_xyz", "q_feats", "K_a", "V_a")] + [t(x) for x in w]
+    ops += [t(a["k_glob"]), t(a["v_glob"])]
+    idx = port_attention._launch(*ops[:13], k, ops[13], ops[14], None)[1]
+    g = t(rng.randn(B, Nq, D).astype(np.float32))
+    ws = torch.empty(port_attention.backward_workspace_floats(B, Nq, k, D, True),
+                     dtype=torch.float32, device=cuda)
+    port_attention._launch_bwd(*ops, idx, g, ws=ws)
+    torch.cuda.synchronize()
+    S, Dp = k + 1, port_attention.pad8(D)
+    rows = ws[: 7 * B * Nq * S * Dp].view(7, B, Nq, S, Dp)[..., :D]
+    hd_k, hg_k = rows[0], rows[4]  # the workspace's hd and hg arrays
+
+    def hidden(dtype):
+        xyz_q, kv, q, K, V, w0d, b0d, w1d, b1d, w0g, b0g = [x.to(dtype) for x in ops[:11]]
+        k_glob = ops[13].to(dtype)
+        gather = lambda x: torch.stack([x[b][idx[b].long()] for b in range(B)])
+        dx = xyz_q[:, :, None] - gather(kv)
+        hd_pre = dx @ w0d + b0d
+        pos = torch.relu(hd_pre) @ w1d + b1d
+        u = torch.cat([q[:, :, None] - gather(K) + pos, (q - k_glob[:, None])[:, :, None]], dim=2)
+        hg_pre = u @ w0g + b0g
+        hd_pre = torch.cat([hd_pre, torch.ones_like(hd_pre[:, :, :1])], dim=2)  # no global row
+        return hd_pre, hg_pre
+
+    h32, h64 = hidden(torch.float32), hidden(torch.float64)
+    for name, got, pre32, pre64 in zip(("hd", "hg"), (hd_k, hg_k), h32, h64):
+        if name == "hd":
+            got, pre32, pre64 = got[:, :, :k], pre32[:, :, :k], pre64[:, :, :k]
+        clear = pre64.abs() > 1e-5
+        assert int(clear.sum()) > 0.99 * clear.numel(), name
+        assert torch.equal((got > 0)[clear], (pre32 > 0)[clear]), name
+
+
+@pytest.mark.gpu
 def test_attention_backward_never_runs_plain_on_the_card(cuda, rng, monkeypatch):
     def refuse(*args):
         raise AssertionError("the plain backward ran on CUDA tensors")
