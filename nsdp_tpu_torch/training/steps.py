@@ -238,7 +238,7 @@ def make_steps(model: nn.Module, model_type: str, optimizer: torch.optim.Optimiz
         return loss, grads, saved_all
 
     def train_step(batch: Dict[str, Any], lr: float, fetch: bool = True):
-        with span("train.step"):
+        with span("train.step", model_type):
             with span("train.inputs"):
                 args = step_inputs(batch)
             if not model.training:  # as the eager forward leaves it (a replay sets no mode)

@@ -159,6 +159,22 @@ def test_train_step_spans(steps):
         < first("train.loss")
 
 
+@pytest.mark.parametrize("model_type", ["forward", "arbitrary"])
+def test_train_step_span_names_the_model_type(model_type):
+    """A trace of ``python -m nsdp_tpu_torch.train`` tells stage-1 steps
+    from stage-2 steps by the ``train.step`` span's detail."""
+    cfg = {**CONFIG, "model": {**CONFIG["model"], "type": model_type}}
+    model = init_random(build_model(cfg, device="cpu"), 0)
+    _, opt = optimizer_factory(cfg["training"], model.parameters())
+    step = make_steps(model, model_type, opt, device="cpu")["train_step"]
+    profiling.start_tracing()
+    step(batch(np.random.RandomState(5)), 1e-3)
+    spans, _ = profiling.drain()
+    (root,) = by_name(spans)["train.step"]
+    assert root.detail == model_type
+    assert {s.detail for s in spans if s.name.startswith("train.") and s is not root} == {None}
+
+
 def test_threads_keep_their_own_roots():
     profiling.start_tracing()
     with profiling.span("outer"):
