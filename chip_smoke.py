@@ -12,7 +12,9 @@ Phases (any failure exits non-zero and prints no result line):
    tensor-core instructions in its SASS: warpgroup ``HGMMA`` (``wgmma``)
    and warp ``HMMA`` (``mma.sync``) -- K2's ``bwd_rows_kernel`` without
    ``HGMMA``, or its ``wgrad_kernel`` or K1's ``attn_mma16_kernel``
-   without ``HMMA``, fails;
+   without ``HMMA``, a tensor-core instantiation of K1's
+   ``attn_bcast_kernel`` (``<0, NW, NWG>``) without ``HGMMA`` or an FFMA one
+   (``<RT, 0, 0>``) with any tensor-core instruction, fails;
 2. kernels: each hand-written forward kernel held against its plain PyTorch
    version at every shape the main path gives it -- fused kNN attention
    (K1) within rtol 1e-4 / atol 1e-5 and bit for bit against the output
@@ -308,9 +310,11 @@ mode's bound; ``bound_share``: the bound over the kernel's time), and
 last line is ``{"ok": true, "device": {...}}``.
 
 K1's digests: ``K1_DIGESTS`` holds the SHA-256 of K1's output bytes at each
-phase-2 site, recorded from the kernel as it was before the decoder's
-broadcast path (``attn_kernel`` at every site) on the phase's own inputs,
-so any change to K1 must keep every output bit.  Record them again
+phase-2 site on the phase's own inputs, recorded from ``attn_kernel`` at
+every site but the decoder's three (``decoder_queries``,
+``decoder_surface``, ``decoder_queries_4096``), whose broadcast query runs
+the broadcast path's tensor-core engine where no backward follows, as in
+phase 2; so any change to K1 must keep every output bit.  Record them again
 (``python3 ab_k1.py .`` on the card prints the table) only after a
 deliberate change to K1's arithmetic, or when the card's machine gets a
 new CUDA toolkit (``expf`` and the compiler's code may round
@@ -538,8 +542,10 @@ def k1_inputs(torch, rng, surf, fps_500, fps_100, site, B=1):
 
 
 # SHA-256 of K1's output bytes at each phase-2 site (``k1_digest``), recorded
-# from ``attn_kernel`` at every site on an NVIDIA H100 80GB HBM3 (700 W),
-# nvcc 12.9, PyTorch 2.11.0+cu128 (module docstring, "K1's digests").
+# on an NVIDIA H100 80GB HBM3 (700 W), nvcc 12.9, PyTorch 2.11.0+cu128
+# (module docstring, "K1's digests"): from ``attn_kernel`` at every site but
+# the three decoder sites, whose broadcast query takes the broadcast path's
+# tensor-core engine there (phase 2 runs K1 with no backward to follow).
 K1_DIGESTS = {
     "bwd_encoder_begin":
         "0f813f2e526850b2645e4a4f8b64f53827365780cd70f2a6b678761a47d0906a",
@@ -554,9 +560,9 @@ K1_DIGESTS = {
     "transformer_downs_1":
         "4f09aba4f2c94fea3778bc8e47db535c5348afd84d5787b75e143ea5cca4b65a",
     "decoder_queries":
-        "bcc1377df9fa961a90c5ce5a8fc37373de7c117ee3f58f033af6c336da4b047d",
+        "25177285924b90cf6a2b6534160d20b28961b20c537a27adc5a81bfb43258e78",
     "decoder_surface":
-        "5c9459c58cf0258d554c5f5ee6c0c3505e0bd9111e19cdd18a5bc83a8f0cf399",
+        "feca5302b66dc086a944f3a473078a9b3b383ee6088389a3dff4a9f188597d94",
     "bwd_encoder_begin_masked":
         "a9a9f25aa2e26c03526915c457edfebb2367e0ba07d36994341b649496e3a6d9",
     "fwd_encoder_begin_masked":
@@ -564,7 +570,7 @@ K1_DIGESTS = {
     "set_abstraction_0_masked":
         "14f6bd24d40db98eae96a69fa85132afadd66dff2f2dd4603535153f1840fbb5",
     "decoder_queries_4096":
-        "c1d591916798fdd2a6db3d87daa3be9a96c28bbeaae8b9ce25f85e9cd23fe26a",
+        "b223ffcf4d8d7c78b5192a11bf6af32b00e9a26c1fec2be48182608e428a113c",
 }
 
 
@@ -4640,11 +4646,22 @@ TENSOR_CORE_KERNELS = {"bwd_rows_kernel": "HGMMA", "wgrad_kernel": "HMMA",
                        "attn_mma16_kernel": "HMMA"}
 
 
+def bcast_engine(fn: str):
+    """K1's broadcast kernel's engine by its instantiation
+    (``attn_bcast_kernel<RT, NW, NWG>``): ``"tc"`` where NW > 0 (3xTF32 on
+    wgmma, where no backward follows), ``"ffma"`` where NW = 0 (where one
+    does); None for any other kernel."""
+    m = re.fullmatch(r"attn_bcast_kernel<(-?\d+), (-?\d+), (-?\d+)>", fn)
+    return None if m is None else "tc" if int(m.group(2)) > 0 else "ffma"
+
+
 def report_build(build) -> None:
     """Phase 1's build lines: per kernel, ptxas's registers, shared memory
     and spills, and the count of tensor-core instructions in the library's
     SASS (``cuobjdump --dump-sass``), HGMMA and HMMA apart; fails if a
-    kernel of ``TENSOR_CORE_KERNELS`` has none of its instruction."""
+    kernel of ``TENSOR_CORE_KERNELS`` has none of its instruction, if a
+    tensor-core instantiation of K1's ``attn_bcast_kernel`` has no HGMMA,
+    or if an FFMA one has any tensor-core instruction."""
     cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     for name in build.SOURCES:
         fn = "?"
@@ -4670,6 +4687,14 @@ def report_build(build) -> None:
             op = TENSOR_CORE_KERNELS.get(fn.split("<")[0])
             if op is not None and n[op] == 0:
                 fail(f"{fn} has no {op} instruction")
+            engine = bcast_engine(fn)
+            if engine == "tc" and n["HGMMA"] == 0:
+                fail(f"{fn} (the tensor-core broadcast engine) has no HGMMA instruction")
+            if engine == "ffma" and n["HGMMA"] + n["HMMA"] > 0:
+                fail(f"{fn} (the FFMA broadcast engine) has tensor-core instructions")
+        engines = [bcast_engine(fn) for fn in tc]
+        if name == "attention" and not ("tc" in engines and "ffma" in engines):
+            fail("attention: attn_bcast_kernel lacks its tensor-core or its FFMA instantiations")
 
 
 def main() -> None:

@@ -56,6 +56,36 @@
 // ascending order, from 0, then + bias; the slot softmax in slot order, the
 // global slot last -- so both give the same bits.
 //
+// That FFMA broadcast engine runs only where a backward follows
+// (_FusedAttention's forward, attn_bcast_kernel<RT, 0, 0>): a training
+// forward's rounding moves every later activation of the step, K2's FFMA
+// recompute of the products (attention_bwd.cu) must give the bits this
+// forward gave, and the full-width step checks pin batch seeds chosen for
+// them.  A call that no backward follows -- serving, edit sessions,
+// predict, validation: no operand requires grad -- runs the broadcast
+// path's D x D products on the tensor cores instead (attn_bcast_kernel<0,
+// NW, NWG>, mode 3 of the C entry), in 3xTF32 (rows_mma.cuh's arithmetic:
+// float32-accurate, each 8-deep k-step summed apart and added to the
+// float32 running sum), where the CUDA cores' float32 rate could not reach
+// the products' bound (PERF.md):
+//   * weights_in_out_kernel<1> lays the three weights out once per call,
+//     split and in the engine's K-major order, back to back;
+//   * a block is NWG warpgroups of NW n-tiles (5 x 5 at D = 200, no padded
+//     column) and a producer warp, one an SM (two of two warpgroups up to D
+//     = 128), running 64-row tiles of whole queries (9 at k = 7: 63 rows)
+//     one after another until they are done; the three products' k-steps
+//     stream through one ring of slots in shared memory that runs on across
+//     products and tiles, staged by the producer warp (a bulk copy a slot)
+//     as each slot's empty mbarrier reports every warp done with it, so
+//     the warpgroups never wait for one another within a product;
+//   * per tile the neighbours and deltas, fc_delta's 3-wide first layer in
+//     f32 FMA chains, then each product's epilogue writing the next one's
+//     input in place (u = (q - K[n]) + pos with the values V[n] + pos kept
+//     in f32 beside it; the hidden layer; the logits over the spent
+//     activations) and the slot softmax in slot order, the global slot's
+//     logits (glob_logits_kernel) last.  Biases, the query row and the
+//     global slot's logits and value sit in shared memory.
+//
 // The narrow-operand mode (mode 1 bfloat16, 2 float16) is the TPU kernel's
 // compute_dtype (attention_pallas.py:113-119, 757-814): every MLP layer's
 // input is rounded to the narrow type to nearest even -- dx before
@@ -98,11 +128,12 @@
 
 #include "knn_select.cuh"
 #include "rows_gemm.cuh"
+#include "rows_mma.cuh"
 #include "rows_mma16.cuh"
 
 namespace {
 
-using namespace rows;
+using namespace gemm;
 
 constexpr int kKMax = knnsel::kKMax;  // largest k
 constexpr int kDMax = 256;            // largest channel width
@@ -332,15 +363,37 @@ __global__ void __launch_bounds__(kThreads) glob_logits_kernel(const Params p) {
   }
 }
 
-// wt[m][kk][d] = w_m[d][kk] for the three D x D products (m: dw1, gw0, gw1),
-// columns D .. dp - 1 zero.
+// The three D x D products' weights (m: dw1, gw0, gw1) laid out once per
+// call.  TC = 0 (the FFMA engine): wt[m][kk][d] = w_m[d][kk], columns D ..
+// dp - 1 zero.  TC = 1 (the tensor-core engine, rows_mma.cuh): each weight's
+// B = w^T zero-padded to pad8(D) x dp and split into TF32 hi and lo parts
+// in the engine's K-major order, as weight_frags_kernel lays out K2's
+// (dp = tc_cols(D) there); the three back to back, the ring's cycle.
+template <int TC>
 __global__ void weights_in_out_kernel(const Params p, int dp, float* wt) {
-  const size_t n = (size_t)3 * p.D * dp;
-  for (size_t e = blockIdx.x * (size_t)blockDim.x + threadIdx.x; e < n;
-       e += (size_t)gridDim.x * blockDim.x) {
-    const int d = (int)(e % dp), kk = (int)(e / dp % p.D), m = (int)(e / dp / p.D);
-    const float* w = m == 0 ? p.dw1 : m == 1 ? p.gw0 : p.gw1;
-    wt[e] = d < p.D ? w[(size_t)d * p.D + kk] : 0.0f;
+  if constexpr (TC == 0) {
+    const size_t n = (size_t)3 * p.D * dp;
+    for (size_t e = blockIdx.x * (size_t)blockDim.x + threadIdx.x; e < n;
+         e += (size_t)gridDim.x * blockDim.x) {
+      const int d = (int)(e % dp), kk = (int)(e / dp % p.D), m = (int)(e / dp / p.D);
+      const float* w = m == 0 ? p.dw1 : m == 1 ? p.gw0 : p.gw1;
+      wt[e] = d < p.D ? w[(size_t)d * p.D + kk] : 0.0f;
+    }
+  } else {
+    const int D = p.D;
+    const size_t per = (size_t)2 * rows::pad8(D) * dp, n = 3 * per;
+    for (size_t e = blockIdx.x * (size_t)blockDim.x + threadIdx.x; e < n;
+         e += (size_t)gridDim.x * blockDim.x) {
+      // per weight: e = kc 16 dp + q 8 dp + g 64 + h 32 + i 4 + x, part q
+      // of B[8 kc + 4 h + x][8 g + i]
+      const int m = (int)(e / per), f = (int)(e % per);
+      const int kc = f / (16 * dp), q = (f / (8 * dp)) % 2, r = f % (8 * dp);
+      const int kk = 8 * kc + 4 * ((r / 32) % 2) + r % 4, d = 8 * (r / 64) + (r / 4) % 8;
+      const float* w = m == 0 ? p.dw1 : m == 1 ? p.gw0 : p.gw1;
+      uint32_t hi, lo;
+      rows::split_tf32(kk < D && d < D ? w[(size_t)d * D + kk] : 0.0f, hi, lo);
+      wt[e] = __uint_as_float(q ? lo : hi);
+    }
   }
 }
 
@@ -392,10 +445,261 @@ size_t bcast_smem_bytes(int nx, int ny) {
          ny * kRT * sizeof(int);
 }
 
-// Thread (tx, ty) owns query blockIdx.x * ny + ty of batch item blockIdx.y:
-// its rows 0 .. k-1 (RT >= k; rows k .. RT-1 idle) by channels 4 tx .. 4 tx + 3.
-template <int RT>
-__global__ void __launch_bounds__(kBcastThreads, 1) attn_bcast_kernel(const Params p) {
+// ---- the broadcast path on the tensor cores, where no backward follows ----
+
+// The tensor-core kernel's shape at width D: NWG warpgroups of NW n-tiles (8
+// columns) each, covering pad8(D) with as little padding as the wgmma widths
+// it is instantiated for allow (exactly at D = 200: 5 x 5); a block of two
+// warpgroups shares its SM with a second.
+__host__ __device__ inline int tc_groups(int D) {
+  const int t = rows::pad8(D) / 8;
+  return t <= 16 ? 2 : t <= 20 ? 4 : t <= 25 ? 5 : 4;
+}
+__host__ __device__ inline int tc_tiles(int D) {
+  const int t = rows::pad8(D) / 8;
+  return t <= 8 ? 4 : t <= 16 ? 8 : t <= 25 ? 5 : 8;
+}
+// Columns of B the warpgroups cover (Np >= pad8(D)).
+__host__ __device__ inline int tc_cols(int D) { return 8 * tc_tiles(D) * tc_groups(D); }
+constexpr int kTcMaxSlots = 8;
+// Shared memory without the ring: the activations (64 rows, pitch
+// act_pitch(D)), the values (pitch mma16::tile_pitch(D): a warp's float2
+// stores of its accumulator fragments meet no bank conflict, as the narrow
+// kernel's), per row a 4-float position delta and a kv index,
+// and six pad8(D)-wide rows of per-column constants (db1, gb0, gb1; the
+// batch item's query row, global logits and v_glob), zero from D on.
+__host__ __device__ inline size_t tc_fixed_bytes(int D) {
+  return (size_t)4 * rows::kRows * (rows::act_pitch(D) + mma16::tile_pitch(D) + 4) + 4 * rows::kRows +
+         24 * rows::pad8(D);
+}
+// Ring slots: as many as the block's share of the SM leaves room for, up to
+// kTcMaxSlots; a slot is a k-step's 16 Np floats and two mbarriers.
+__host__ __device__ inline int tc_slots(int D) {
+  const size_t budget = tc_groups(D) == 2 ? 233472 / 2 - 1024 : kMaxSmem;
+  const size_t per = (size_t)64 * tc_cols(D) + 16, n = (budget - tc_fixed_bytes(D)) / per;
+  return n < kTcMaxSlots ? (int)n : kTcMaxSlots;
+}
+size_t bcast_tc_smem_bytes(int D) {
+  return tc_fixed_bytes(D) + (size_t)tc_slots(D) * (64 * tc_cols(D) + 16);
+}
+
+// The accumulator fragments a thread holds (rows::for_each_elem's elements):
+// rows tc_row(0) and tc_row(1) of the tile, and per n-tile j the column pair
+// (tc_col(j), tc_col(j) + 1), elements 4 j + 2 h and 4 j + 2 h + 1 of row h.
+__device__ __forceinline__ int tc_row(int h) {
+  return ((threadIdx.x / 32) % 4) * 16 + (threadIdx.x % 32) / 4 + 8 * h;
+}
+template <int NW>
+__device__ __forceinline__ int tc_col(int j) {
+  return ((threadIdx.x / 128) * NW + j) * 8 + 2 * (threadIdx.x % 4);
+}
+__device__ __forceinline__ bool aligned8(const void* x) { return ((uintptr_t)x & 7) == 0; }
+// Columns c, c + 1 (c even) of a D-wide row, zero from D on; vec: one 8-byte
+// load (D even, the row 8-byte aligned).
+__device__ __forceinline__ float2 ld2(const float* x, int c, int D, bool vec) {
+  if (vec) return c < D ? __ldg(reinterpret_cast<const float2*>(x + c)) : make_float2(0.0f, 0.0f);
+  return make_float2(c < D ? __ldg(x + c) : 0.0f, c + 1 < D ? __ldg(x + c + 1) : 0.0f);
+}
+// act (pitch P) = acc + bias (shared, zero from D on), through a ReLU where
+// relu; columns D .. pad8(D) - 1 come out zero.
+template <int NW>
+__device__ __forceinline__ void tc_epilogue(const float (&acc)[4 * NW], const float* bias, int D,
+                                            float* act, int P, bool relu) {
+#pragma unroll
+  for (int j = 0; j < NW; ++j) {
+    const int c = tc_col<NW>(j);
+    if (c >= rows::pad8(D)) continue;
+    const float2 b2 = *reinterpret_cast<const float2*>(bias + c);
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      float x0 = acc[4 * j + 2 * h] + b2.x, x1 = acc[4 * j + 2 * h + 1] + b2.y;
+      if (relu) x0 = fmaxf(x0, 0.0f), x1 = fmaxf(x1, 0.0f);
+      *reinterpret_cast<float2*>(act + tc_row(h) * P + c) = make_float2(x0, x1);
+    }
+  }
+}
+
+// The broadcast path's rows on the tensor cores (3xTF32, rows_mma.cuh's ring
+// engine).  A block runs row tiles blockIdx.x, + gridDim.x, ... (tile: the
+// TQ = 64 / k queries from TQ (tile % per_b) of batch item tile / per_b, all
+// k slots of each: row r = t k + s; rows TQ k .. 63 are padding that no
+// output reads)
+// through the three products, the ring of the weights' k-steps running on
+// from tile to tile.  Per tile: the rows' neighbours and deltas; fc_delta's
+// 3-wide first layer in f32 FMA chains into the activations (columns D ..
+// pad8(D) - 1 zero); then each product into accumulators whose epilogue
+// writes the next product's input in place: u = (q - K[n]) + pos, the
+// values V[n] + pos beside it; the hidden layer; the logits.  The slot
+// softmax, the global slot (glob_logits_kernel's) last, is a pass over the
+// logits and values in shared memory, in slot order.
+template <int NW, int NWG>
+__device__ __forceinline__ void attn_bcast_tc(const Params& p) {
+  constexpr int R = rows::kRows;
+  extern __shared__ float4 smem4[];
+  const int D = p.D, M = p.M, k = p.k, Dp = rows::pad8(D), P = rows::act_pitch(D);
+  const int VP = mma16::tile_pitch(D), Np = 8 * NW * NWG, n_slots = tc_slots(D);
+  const int TQ = R / k, per_b = (p.Nq + TQ - 1) / TQ, tiles = p.B * per_b, n_steps = Dp / 8;
+  const int tid = threadIdx.x, nthr = 128 * NWG;  // the warpgroups; a producer warp beyond
+  float* ring = reinterpret_cast<float*>(smem4);  // (n_slots, 16 Np) weight k-steps
+  float* act = ring + (size_t)n_slots * 16 * Np;   // (R, P) MLP inputs, then the logits
+  float* vals = act + R * P;                       // (R, VP) values
+  float* dxs = vals + R * VP;                      // (R, 4) position deltas
+  int* nbr = reinterpret_cast<int*>(dxs + 4 * R);  // (R) kv index per row
+  float* cst = reinterpret_cast<float*>(nbr + R);  // (6, Dp) per-column constants
+  float *c_db1 = cst, *c_gb0 = cst + Dp, *c_gb1 = cst + 2 * Dp;
+  float *c_q = cst + 3 * Dp, *c_glog = cst + 4 * Dp, *c_vg = cst + 5 * Dp;
+  uint64_t* full = reinterpret_cast<uint64_t*>(cst + 6 * Dp);  // (n_slots) the ring's mbarriers
+  uint64_t* empty = full + n_slots;
+  const int my_tiles = ((int)blockIdx.x < tiles) ? (tiles - 1 - (int)blockIdx.x) / (int)gridDim.x + 1 : 0;
+  const rows::StepRing ring_s{ring, full, empty, p.wt, 16 * Np, n_slots, n_steps,
+                              3 * n_steps, my_tiles * 3 * n_steps, 4 * NWG};
+  if (tid == 0) rows::ring_init(ring_s);
+  for (int d = tid; d < Dp; d += blockDim.x) {
+    c_db1[d] = d < D ? __ldg(p.db1 + d) : 0.0f;
+    c_gb0[d] = d < D ? __ldg(p.gb0 + d) : 0.0f;
+    c_gb1[d] = d < D ? __ldg(p.gb1 + d) : 0.0f;
+  }
+  __syncthreads();
+  if (tid >= nthr) {  // the producer warp: one thread stages every k-step
+    if (tid == nthr) rows::ring_produce(ring_s);
+    return;
+  }
+
+  // fc_delta's first layer: a column d a thread, its weights loaded once
+  const int rstep = nthr / Dp, d = tid % Dp;
+  const bool in = d < D && tid < rstep * Dp;
+  const float w0 = in ? __ldg(p.dw0 + 3 * d) : 0.0f, w1 = in ? __ldg(p.dw0 + 3 * d + 1) : 0.0f;
+  const float w2 = in ? __ldg(p.dw0 + 3 * d + 2) : 0.0f, b0 = in ? __ldg(p.db0 + d) : 0.0f;
+  float acc[4 * NW];
+  int g = 0;  // the tile's first k-step in the ring's sequence
+  int cur_b = -1;  // the batch item whose constants c_q, c_glog, c_vg hold
+  for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x, g += 3 * n_steps) {
+    const int b = tile / per_b, t0 = (tile - b * per_b) * TQ;
+    const float* kv = p.kv_xyz + (size_t)b * M * 3;
+    // ---- neighbours and position deltas ------------------------------------
+    for (int r = tid; r < R; r += nthr) {
+      const int t = r / k, s = r - t * k, n = t0 + t;
+      const bool nb = t < TQ && n < p.Nq;
+      const int j = nb ? p.idx[((size_t)b * p.Nq + n) * k + s] : 0;
+      nbr[r] = j;
+      const float* xq = p.xyz_q + ((size_t)b * p.Nq + (nb ? n : 0)) * 3;
+#pragma unroll
+      for (int c = 0; c < 3; ++c) dxs[r * 4 + c] = nb ? __fsub_rn(xq[c], kv[3 * j + c]) : 0.0f;
+    }
+    rows::ring_sync(nthr);  // also: the last tile's softmax has read act and vals
+
+    // ---- fc_delta layer 0: a column a thread ---------------------------------
+    {
+      if (tid < rstep * Dp) {
+#pragma unroll 4
+        for (int r = tid / Dp; r < R; r += rstep) {
+          const float4 dx = *reinterpret_cast<const float4*>(dxs + r * 4);
+          act[r * P + d] = fmaxf(fmaf(dx.x, w0, fmaf(dx.y, w1, fmaf(dx.z, w2, b0))), 0.0f);
+        }
+      }
+      if (b != cur_b) {  // the batch item's constants (the last tile's softmax is done)
+        for (int e = tid; e < Dp; e += nthr) {
+          const bool in = e < D;
+          c_q[e] = in ? __ldg(p.q + b * p.q_sb + e) : 0.0f;
+          c_glog[e] = in ? __ldg(p.glog + (size_t)b * D + e) : 0.0f;
+          c_vg[e] = in ? __ldg(p.v_glob + (size_t)b * D + e) : 0.0f;
+        }
+        cur_b = b;
+      }
+    }
+    rows::ring_sync(nthr);
+
+    // ---- fc_delta layer 1 -> pos; u = (q - K[n]) + pos and V[n] + pos --------
+    // (a thread's two rows' K and V rows located once; columns D .. pad8(D)
+    // - 1 read as zeros and come out zero: B's columns there are zero)
+    rows::rows_mma_ring<NW>(act, P, ring_s, g, acc);
+    rows::ring_sync(nthr);  // every warpgroup has loaded its A fragments of act
+    {
+      const bool vec = D % 2 == 0 && aligned8(p.K) && aligned8(p.V);
+      const float* kr[2];
+      const float* vr[2];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const size_t row = ((size_t)b * M + nbr[tc_row(h)]) * D;
+        kr[h] = p.K + row, vr[h] = p.V + row;
+      }
+#pragma unroll
+      for (int j = 0; j < NW; ++j) {
+        const int c = tc_col<NW>(j);
+        if (c >= Dp) continue;
+        const float2 q2 = *reinterpret_cast<const float2*>(c_q + c);
+        const float2 b2 = *reinterpret_cast<const float2*>(c_db1 + c);
+        const float2 k2[2] = {ld2(kr[0], c, D, vec), ld2(kr[1], c, D, vec)};
+        const float2 v2[2] = {ld2(vr[0], c, D, vec), ld2(vr[1], c, D, vec)};
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const float p0 = acc[4 * j + 2 * h] + b2.x, p1 = acc[4 * j + 2 * h + 1] + b2.y;
+          const int r = tc_row(h);
+          *reinterpret_cast<float2*>(act + r * P + c) =
+              make_float2((q2.x - k2[h].x) + p0, (q2.y - k2[h].y) + p1);
+          *reinterpret_cast<float2*>(vals + r * VP + c) = make_float2(v2[h].x + p0, v2[h].y + p1);
+        }
+      }
+    }
+    rows::ring_sync(nthr);
+
+    // ---- fc_gamma ------------------------------------------------------------
+    rows::rows_mma_ring<NW>(act, P, ring_s, g + n_steps, acc);
+    rows::ring_sync(nthr);
+    tc_epilogue<NW>(acc, c_gb0, D, act, P, true);
+    rows::ring_sync(nthr);
+    rows::rows_mma_ring<NW>(act, P, ring_s, g + 2 * n_steps, acc);
+    rows::ring_sync(nthr);
+    tc_epilogue<NW>(acc, c_gb1, D, act, P, false);  // the logits
+    rows::ring_sync(nthr);
+
+    // ---- per-channel softmax over the slots, the global slot last: a
+    // channel a thread, queries tid / D, + nthr / D, ... ----------------------
+    const int qstep = nthr / D, ch = tid % D, tq = min(TQ, p.Nq - t0);
+    if (tid < qstep * D) {
+      const float lg = c_glog[ch], vg = c_vg[ch];
+      for (int t = tid / D; t < tq; t += qstep) {
+        const float* l = act + t * k * P + ch;
+        const float* v = vals + t * k * VP + ch;
+        float x[kBcastKMax], y[kBcastKMax];
+#pragma unroll
+        for (int s = 0; s < kBcastKMax; ++s) {
+          const int si = min(s, k - 1);
+          x[s] = l[si * P], y[s] = v[si * VP];
+        }
+        float mx = lg;
+#pragma unroll
+        for (int s = 0; s < kBcastKMax; ++s) mx = fmaxf(mx, x[s]);  // repeats change no max
+        float se = 0.0f, o = 0.0f;
+#pragma unroll
+        for (int s = 0; s < kBcastKMax; ++s) {
+          if (s >= k) break;
+          const float ex = expf(x[s] - mx);
+          se += ex;
+          o = fmaf(ex, y[s], o);
+        }
+        const float ex = expf(lg - mx);
+        se += ex;
+        o = fmaf(ex, vg, o);
+        p.out[((size_t)b * p.Nq + t0 + t) * D + ch] = o / se;
+      }
+    }
+  }
+}
+
+// The broadcast path's rows.  NW = 0: the FFMA engine, where a backward
+// follows (its bits are the row path's, which K2's recompute matches):
+// thread (tx, ty) owns query blockIdx.x * ny + ty of batch item blockIdx.y,
+// its rows 0 .. k-1 (RT >= k; rows k .. RT-1 idle) by channels 4 tx .. 4 tx
+// + 3.  NW > 0: the tensor-core engine where none does (attn_bcast_tc, NWG
+// warpgroups of NW n-tiles).
+template <int RT, int NW, int NWG>
+__global__ void __launch_bounds__(NW == 0 ? kBcastThreads : 128 * NWG + 32, NWG == 2 ? 2 : 1)
+    attn_bcast_kernel(const Params p) {
+  if constexpr (NW != 0) {
+    attn_bcast_tc<NW, NWG>(p);
+    return;
+  } else {
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
   const int D = p.D, M = p.M, k = p.k, nx = p.nx, ny = p.ny, dp = 4 * nx, P = ny * kRT + 4;
@@ -516,6 +820,7 @@ __global__ void __launch_bounds__(kBcastThreads, 1) attn_bcast_kernel(const Para
     o = fmaf(ex, p.v_glob[(size_t)b * D + d], o);
     p.out[((size_t)b * p.Nq + n) * D + d] = o / se;
   }
+  }
 }
 
 template <int RT>
@@ -523,15 +828,53 @@ cudaError_t launch_bcast(const Params& p, int device, cudaStream_t stream) {
   static bool opted_in[kMaxDevices];
   if (!opted_in[device]) {
     const cudaError_t err = cudaFuncSetAttribute(
-        attn_bcast_kernel<RT>, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
+        attn_bcast_kernel<RT, 0, 0>, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
     if (err != cudaSuccess) return failed(err);
     opted_in[device] = true;
   }
-  weights_in_out_kernel<<<264, 256, 0, stream>>>(p, 4 * p.nx, const_cast<float*>(p.wt));
+  weights_in_out_kernel<0><<<264, 256, 0, stream>>>(p, 4 * p.nx, const_cast<float*>(p.wt));
   glob_logits_kernel<0><<<p.B, kThreads, 0, stream>>>(p);
   const dim3 grid((p.Nq + p.ny - 1) / p.ny, p.B);
-  attn_bcast_kernel<RT><<<grid, p.nx * p.ny, bcast_smem_bytes(p.nx, p.ny), stream>>>(p);
+  attn_bcast_kernel<RT, 0, 0><<<grid, p.nx * p.ny, bcast_smem_bytes(p.nx, p.ny), stream>>>(p);
   return cudaGetLastError();
+}
+
+// The tensor-core broadcast path: the weights in the engine's order, the
+// global logits once per batch item, then one block an SM (two at NWG = 2)
+// running row tiles until they are done.
+template <int NW, int NWG>
+cudaError_t launch_bcast_tc(const Params& p, int device, cudaStream_t stream) {
+  static bool opted_in[kMaxDevices];
+  static int sms[kMaxDevices];
+  if (!opted_in[device]) {
+    cudaError_t err = cudaFuncSetAttribute(
+        attn_bcast_kernel<0, NW, NWG>, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
+    if (err == cudaSuccess)
+      err = cudaDeviceGetAttribute(&sms[device], cudaDevAttrMultiProcessorCount, device);
+    if (err != cudaSuccess) return failed(err);
+    opted_in[device] = true;
+  }
+  const int np = 8 * NW * NWG;
+  const size_t n = (size_t)6 * rows::pad8(p.D) * np;
+  const int blocks = (int)((n + 255) / 256 < 264 ? (n + 255) / 256 : 264);
+  weights_in_out_kernel<1><<<blocks, 256, 0, stream>>>(p, np, const_cast<float*>(p.wt));
+  glob_logits_kernel<0><<<p.B, kThreads, 0, stream>>>(p);
+  const int tq = rows::kRows / p.k;
+  const long long tiles = (long long)p.B * ((p.Nq + tq - 1) / tq);
+  const long long resident = (long long)(NWG == 2 ? 2 : 1) * sms[device];
+  const int grid = (int)(tiles < resident ? tiles : resident);
+  attn_bcast_kernel<0, NW, NWG><<<grid, 128 * NWG + 32, bcast_tc_smem_bytes(p.D), stream>>>(p);
+  return cudaGetLastError();
+}
+
+cudaError_t launch_bcast_tc(const Params& p, int device, cudaStream_t s) {
+  switch (tc_cols(p.D)) {
+    case 64: return launch_bcast_tc<4, 2>(p, device, s);
+    case 128: return launch_bcast_tc<8, 2>(p, device, s);
+    case 160: return launch_bcast_tc<5, 4>(p, device, s);
+    case 200: return launch_bcast_tc<5, 5>(p, device, s);
+    default: return launch_bcast_tc<8, 4>(p, device, s);
+  }
 }
 
 // The float32 attention kernels: the broadcast path or the row path by D.
@@ -829,13 +1172,22 @@ int nsdp_attention_bcast(int has_glob, long long q_sn, int k) {
 // Shared memory of the narrow mode's attn_mma16_kernel at D.
 long long nsdp_attention_narrow_smem(int D) { return (long long)mma16::smem_bytes(D); }
 
+// The tensor-core broadcast kernel at D: its shared memory, and the columns
+// Np of its weights' layout (wt holds 6 pad8(D) Np floats).
+long long nsdp_attention_bcast_tc_smem(int D) { return (long long)bcast_tc_smem_bytes(D); }
+int nsdp_attention_bcast_tc_cols(int D) { return tc_cols(D); }
+
 // idx: (B, Nq, k) int32 scratch for the neighbour indices, written here.
 // dw0, dw1, gw0, gw1: (out, in) float32 weights, contiguous.  mode: 0
-// float32, 1 bfloat16, 2 float16 operands of the MLPs.
+// float32, 1 bfloat16, 2 float16 operands of the MLPs; 3 float32 with the
+// broadcast path on the tensor cores (3xTF32), for a call no backward
+// follows.
 // mode 0: where the query is broadcast (q_sn == 0) with a global slot and
 // k <= 8 (the broadcast path, nsdp_attention_bcast), glog is (B, D) and wt
 // (3, D, 4 ceil(D / 4)) float32 scratch on the device, else both are null;
 // frag is null and round_v 0.
+// mode 3: only the broadcast path; glog as mode 0's, wt 6 pad8(D) Np float32
+// scratch (Np = nsdp_attention_bcast_tc_cols(D)); frag null, round_v 0.
 // mode 1, 2: frag is 3 frag_elems(D) 16-bit values of scratch
 // (rows_mma16.cuh), glog (B, D) float32 scratch where the query is broadcast
 // with a global slot, else null; wt is null; the kernels round the weights,
@@ -849,15 +1201,16 @@ int nsdp_fused_attention(
     int* idx, float* out, float* glog, float* wt, void* frag, int B, int Nq, int M, int D,
     int k, int mode, int round_v, int device, void* stream) {
   if (B < 1 || Nq < 1 || M < 1 || D < 1 || D > kDMax || k < 1 || k > kKMax || k > M ||
-      k + (k_glob ? 1 : 0) > kRows || mode < 0 || mode > 2 || device < 0 ||
+      k + (k_glob ? 1 : 0) > kRows || mode < 0 || mode > 3 || device < 0 ||
       device >= kMaxDevices)
     return (int)cudaErrorInvalidValue;
   if ((q == nullptr) != (K == nullptr) || (K == nullptr) != (V == nullptr) ||
       (k_glob == nullptr) != (v_glob == nullptr) || (k_glob != nullptr && q == nullptr))
     return (int)cudaErrorInvalidValue;
-  if (mode == 0) {
+  if (mode == 0 || mode == 3) {
     const bool bcast = nsdp_attention_bcast(k_glob != nullptr, q_sn, k);
-    if ((glog != nullptr) != bcast || (wt != nullptr) != bcast || frag != nullptr || round_v)
+    if ((glog != nullptr) != bcast || (wt != nullptr) != bcast || frag != nullptr || round_v ||
+        (mode == 3 && !bcast))
       return (int)cudaErrorInvalidValue;
   } else {
     const bool once = k_glob != nullptr && q_sn == 0;
@@ -875,6 +1228,7 @@ int nsdp_fused_attention(
   const Params p{xyz_q, kv_xyz, idx, q, q_sb, q_sn, K, V, k_glob, v_glob,
                  dw0, db0, dw1, db1, gw0, gb0, gw1, gb1, out, glog, wt,
                  static_cast<const uint2*>(frag), B, Nq, M, D, k, nx, ny, round_v};
+  if (mode == 3) return (int)launch_bcast_tc(p, device, s);
   if (mode == 0) return (int)launch_f32(p, glog != nullptr, device, s);
   uint2* f = static_cast<uint2*>(frag);
   return (int)(mode == 1 ? launch_narrow<1>(p, f, device, s) : launch_narrow<2>(p, f, device, s));

@@ -1,6 +1,8 @@
 // Row-block products on f32 CUDA cores, for the fused attention's forward
-// (attention.cu, K1); the backward's (K2) run on the tensor cores
-// (rows_mma.cuh).
+// (attention.cu, K1: the row path, and the decoder's broadcast path where a
+// backward follows); the backward's (K2) and the inference broadcast path's
+// run on the tensor cores (rows_mma.cuh).  Namespace gemm, beside
+// rows_mma.cuh's rows, which attention.cu includes too.
 //
 // A block of 256 threads owns kRows = 32 (query, slot) rows whose
 // activations live transposed in shared memory (D x kRP floats, 16-byte row
@@ -15,7 +17,7 @@
 
 #include <cuda_runtime.h>
 
-namespace rows {
+namespace gemm {
 
 constexpr int kNX = 64;               // threads across the channels
 constexpr int kNY = 4;                // thread groups across the rows
@@ -132,4 +134,4 @@ inline cudaError_t failed(cudaError_t err) {
   return err;
 }
 
-}  // namespace rows
+}  // namespace gemm

@@ -1,8 +1,12 @@
 // Row-tile products on Hopper's tensor cores (wgmma), for the fused
-// attention's backward (attention_bwd.cu, K2).  (K1, the forward, keeps the
-// f32 engine of rows_gemm.cuh: its output's rounding moves every later
-// activation, and the full-width step checks pin batch seeds chosen for
-// those bits; PERF.md.)
+// attention's backward (attention_bwd.cu, K2), and for the forward's (K1)
+// broadcast path where no backward follows (attention.cu's tensor-core
+// attn_bcast_kernel: serving, sessions, predict, validation; the ring
+// engine at the end of this file).  A forward that a backward follows keeps
+// the f32 FFMA engines (rows_gemm.cuh, the FFMA attn_bcast_kernel): its
+// output's rounding moves every later activation of the step, K2's FFMA
+// recompute must agree with it bit for bit, and the full-width step checks
+// pin batch seeds chosen for those bits (PERF.md).
 //
 // Contract: a block of NWG warpgroups (128 NWG threads) owns kRows = 64
 // (query, slot) rows -- one wgmma M -- whose activations live row-major in
@@ -227,6 +231,23 @@ struct Wgmma<4> {  // m64n32k8
 };
 
 template <>
+struct Wgmma<5> {  // m64n40k8
+  static __device__ __forceinline__ void mma(float (&d)[20], const uint32_t (&a)[4],
+                                             uint64_t desc_b, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %25, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n40k8.f32.tf32.tf32 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19}, "
+        "{%20, %21, %22, %23}, %24, p, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(scale_d));
+  }
+};
+
+template <>
 struct Wgmma<7> {  // m64n56k8
   static __device__ __forceinline__ void mma(float (&d)[28], const uint32_t (&a)[4],
                                              uint64_t desc_b, int scale_d) {
@@ -379,6 +400,104 @@ __device__ __forceinline__ void for_each_elem(int D, F&& f) {
 
 // Bit of element e in a per-thread 64-bit mask (4 NW <= 64).
 __device__ __forceinline__ uint64_t elem_bit(int e) { return 1ull << e; }
+
+// ---- the forward's shape: a ring of k-steps that runs on across products
+// and row tiles (attention.cu's tensor-core broadcast path, K1) ------------
+//
+// The same arithmetic and operands as rows_mma (3xTF32, one k-step's group
+// waited and added to the float32 running sum; A split from ldmatrix in
+// registers; B in the engine's split K-major order, Np = 8 NW NWG columns),
+// in a block that runs its products back to back over row tile after row
+// tile.  Their k-steps form one sequence g = 0, 1, ... through the cycle of
+// the block's weights (n_weights of n_steps k-steps each, laid out back to
+// back), which streams through a ring of n_slots slots.  A producer warp,
+// beside the block's NWG warpgroups, stages k-step g into slot g % n_slots
+// by one bulk copy (the TMA) completing on the slot's full mbarrier, once
+// every warp of the warpgroups has arrived on the slot's empty mbarrier,
+// done with k-step g - n_slots (its group has completed:
+// wgmma.wait_group).  No block barrier per k-step and no wait by a
+// warpgroup but for its k-step's weights: the warpgroups drift apart by up
+// to n_slots - 1 k-steps, one's group running while another adds, loads or
+// waits, and staging goes on through the row work between products, which
+// the warpgroups order among themselves by a named barrier (ring_sync).
+// The next k-step's A fragment loads while the group runs.
+
+struct StepRing {
+  float* slots;          // n_slots x slot floats of shared memory, 16-byte aligned
+  uint64_t* full;        // n_slots mbarriers: the producer's arrival and the bytes
+  uint64_t* empty;       // n_slots mbarriers: one arrival a consumer warp
+  const float* src;      // the cycle's weights in the engine's order, back to back
+  int slot;              // floats of a slot: 16 Np
+  int n_slots, n_steps, cycle;  // slots; k-steps a product; k-steps of the cycle
+  int total;             // k-steps the block runs
+  int warps;             // consumer warps (4 NWG)
+};
+
+// By one thread, then a block barrier: the mbarriers.
+__device__ __forceinline__ void ring_init(const StepRing& r) {
+  for (int s = 0; s < r.n_slots; ++s) {
+    asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(smem_addr(r.full + s)) : "memory");
+    asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_addr(r.empty + s)), "r"(r.warps)
+                 : "memory");
+  }
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+// The producer (one thread): every k-step of the block, each once its slot
+// is free.
+__device__ __forceinline__ void ring_produce(const StepRing& r) {
+  for (int g = 0; g < r.total; ++g) {
+    const int s = g % r.n_slots, round = g / r.n_slots;
+    if (round > 0) mbar_wait(r.empty + s, (round - 1) & 1);
+    bulk_load(r.slots + (size_t)s * r.slot, r.src + (size_t)(g % r.cycle) * r.slot, r.slot * 4,
+              r.full + s);
+  }
+}
+
+// The consumer warpgroups' block barrier (named barrier 1): the producer
+// warp takes no part.
+__device__ __forceinline__ void ring_sync(int consumers) {
+  asm volatile("bar.sync 1, %0;\n" ::"r"(consumers) : "memory");
+}
+
+// acc = act (kRows x pad8(D), pitch P, shared) times the B of k-steps g0 ..
+// g0 + n_steps - 1 of the ring.  No barrier: the caller orders act's writes
+// and reads around it with ring_sync.
+template <int NW>
+__device__ __forceinline__ void rows_mma_ring(const float* act, int P, const StepRing& r, int g0,
+                                              float (&acc)[4 * NW]) {
+  const int tid = threadIdx.x, wg = tid / 128, warp = (tid / 32) % 4, lane = tid % 32;
+  const int Np = r.slot / 16;
+  const float* a_src = act + (warp * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * P + (lane >> 4) * 4;
+  const int b_off = wg * NW * 64;
+  float step[4 * NW];
+#pragma unroll
+  for (int j = 0; j < 4 * NW; ++j) acc[j] = step[j] = 0.0f;
+  int s = g0 % r.n_slots;
+  unsigned parity = (g0 / r.n_slots) & 1;
+  uint32_t a[4], a_hi[4], a_lo[4];
+  ldmatrix_x4(a, a_src);
+  for (int kc = 0; kc < r.n_steps; ++kc) {
+#pragma unroll
+    for (int c = 0; c < 4; ++c) split_tf32(__uint_as_float(a[c]), a_hi[c], a_lo[c]);
+    mbar_wait(r.full + s, parity);
+    const float* b_hi = r.slots + (size_t)s * r.slot + b_off;
+    fence_regs(step);
+    wgmma_fence();
+    Wgmma<NW>::mma(step, a_lo, smem_desc(b_hi), 0);
+    Wgmma<NW>::mma(step, a_hi, smem_desc(b_hi + 8 * Np), 1);
+    Wgmma<NW>::mma(step, a_hi, smem_desc(b_hi), 1);
+    wgmma_commit();
+    if (kc + 1 < r.n_steps) ldmatrix_x4(a, a_src + (kc + 1) * 8);  // under the group
+    wgmma_wait0();
+    fence_regs(step);
+#pragma unroll
+    for (int j = 0; j < 4 * NW; ++j) acc[j] += step[j];
+    if (lane == 0)  // this warp is done with the slot
+      asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_addr(r.empty + s)) : "memory");
+    if (++s == r.n_slots) s = 0, parity ^= 1;
+  }
+}
 
 // A failed runtime call also sets the thread's last error; clear it, so the
 // next launch's cudaGetLastError() does not report this failure again.

@@ -28,7 +28,12 @@ The kernel (``csrc/attention.cu``, K1) replaces the TPU kernel
 on the card and how its design answers that.  A query broadcast over a
 batch item's queries (row stride 0, the decoder's) with a global slot and
 ``k <= 8`` takes the source's broadcast path, which computes the global
-slot once per batch item; every path gives the same bits.
+slot once per batch item.  Where a backward follows (an operand requires
+grad: :class:`_FusedAttention`) the broadcast path runs its FFMA engine,
+bit for bit the per-row path, which K2's recompute matches; where none
+does (serving, sessions, ``predict``, validation) it runs its 3xTF32
+tensor-core engine, float32-accurate but rounded otherwise
+(:func:`k1_path`; ``fused_vector_attention.bcast_tc_launches`` counts it).
 
 Gradients (counterpart of the custom VJPs ``knn_vector_attention`` and
 ``knn_vector_attention_proj``, ``attention_pallas.py:1086-1248``): when grad
@@ -77,6 +82,7 @@ from nsdp_tpu_torch.ops.knn import mask_penalty, select
 KMAX = 32  # most softmax slots (neighbours + global token) the kernel takes
 DMAX = 256  # widest channel count the kernel takes
 NARROW = {torch.bfloat16: 1, torch.float16: 2}  # the kernel's codes of the narrow modes
+BCAST_TC_MODE = 3  # the kernel's code of float32 with the broadcast path on the tensor cores
 
 # The narrow-operand mode of every attention in a context (None: float32),
 # entered by ``models.deformation``'s ``predict(compute_dtype=...)`` so that
@@ -179,6 +185,8 @@ _SIGNATURES = {
     )),
     "nsdp_attention_bcast": (ctypes.c_int, [ctypes.c_int, ctypes.c_longlong, ctypes.c_int]),
     "nsdp_attention_narrow_smem": (ctypes.c_longlong, [ctypes.c_int]),
+    "nsdp_attention_bcast_tc_smem": (ctypes.c_longlong, [ctypes.c_int]),
+    "nsdp_attention_bcast_tc_cols": (ctypes.c_int, [ctypes.c_int]),
 }
 _SIGNATURES_BWD = {
     "nsdp_fused_attention_bwd": (ctypes.c_int, (
@@ -237,17 +245,19 @@ def backward_ring_stages(D: int) -> int:
     return 7 if (wg_tiles(D), row_groups(D)) == (7, 4) else 5
 
 
-def weight_frags_plain(w: torch.Tensor, trans: bool) -> torch.Tensor:
+def weight_frags_plain(w: torch.Tensor, trans: bool, cols: Optional[int] = None) -> torch.Tensor:
     """A D x D (out, in) weight laid out as ``weight_frags_kernel`` writes
     it for the engine: the product's B operand (``B = w^T`` for ``x w^T``,
     ``B = w`` for ``dy w`` when ``trans``), zero-padded to pad8(D) x
-    tc_cols(D), split into its TF32 hi and lo parts, in wgmma's K-major
-    order without swizzle, as (k-step, part, column group g, k-half h, row
-    i, element x) float32 with ``[kc, q, g, h, i, x] = part q of B[8 kc + 4
-    h + x][8 g + i]``: per k-step and part, two 8 x 4 core matrices of 128
-    bytes per column group."""
+    ``cols`` (K2's tc_cols(D) when None), split into its TF32 hi and lo
+    parts, in wgmma's K-major order without swizzle, as (k-step, part,
+    column group g, k-half h, row i, element x) float32 with ``[kc, q, g,
+    h, i, x] = part q of B[8 kc + 4 h + x][8 g + i]``: per k-step and part,
+    two 8 x 4 core matrices of 128 bytes per column group.  K1's
+    tensor-core broadcast path lays out its three weights so
+    (``weights_in_out_kernel<1>``, ``cols = bcast_tc_cols(D)``)."""
     D = w.shape[0]
-    Dp, Np = pad8(D), tc_cols(D)
+    Dp, Np = pad8(D), tc_cols(D) if cols is None else cols
     B = torch.zeros((Dp, Np), dtype=torch.float32, device=w.device)
     B[:D, :D] = w if trans else w.t()
     parts = torch.stack(split_tf32(B))  # (2, Dp, Np)
@@ -280,6 +290,87 @@ def backward_smem_bytes(D: int) -> int:
     act = 2 * BWD_ROWS * (pad8(D) + 4)
     ring = backward_ring_stages(D) * (16 * tc_cols(D) + 2)  # slots, and an mbarrier each
     return 4 * (act + ring + 4 * BWD_ROWS) + 8 * BWD_ROWS
+
+
+# ---- K1's broadcast path on the tensor cores (csrc/attention.cu's
+# attn_bcast_kernel<0, NW, NWG>, rows_mma.cuh's ring engine), host side
+
+BCAST_KMAX = 8  # most neighbours of the broadcast path (nsdp_attention_bcast)
+BCAST_TC_MAX_SLOTS = 8  # most ring slots of the tensor-core broadcast kernel
+SM_SMEM = 233472  # shared memory of an sm_90 SM; a block reserves 1 KB of it
+
+
+def bcast_path(has_glob: bool, q_sn: int, k: int) -> bool:
+    """Whether a float32 call takes the broadcast path: a query broadcast
+    over the batch item's queries (row stride 0) with a global slot and
+    ``k <= 8`` (``attention.cu::nsdp_attention_bcast``)."""
+    return bool(has_glob) and q_sn == 0 and k <= BCAST_KMAX
+
+
+def k1_path(has_glob: bool, q_sn: int, k: int, compute_dtype=None,
+            differentiable: bool = False) -> str:
+    """The kernel a K1 call on the card runs: ``"narrow"`` (a narrow
+    ``compute_dtype``: ``attn_mma16_kernel``), ``"bcast_tc"`` (a broadcast
+    query that no backward follows: ``attn_bcast_kernel``'s 3xTF32
+    tensor-core engine), ``"bcast"`` (a broadcast query in a differentiable
+    call: its FFMA engine, whose bits K2's recompute matches) or ``"rows"``
+    (``attn_kernel``)."""
+    if compute_dtype is not None:
+        return "narrow"
+    if bcast_path(has_glob, q_sn, k):
+        return "bcast" if differentiable else "bcast_tc"
+    return "rows"
+
+
+def bcast_tc_shape(D: int):
+    """(NW, NWG) of the tensor-core broadcast kernel at width D
+    (``attention.cu::tc_tiles``, ``tc_groups``): NWG warpgroups of NW
+    n-tiles, covering pad8(D) with as little padding as its wgmma widths
+    allow."""
+    t = pad8(D) // 8
+    if t <= 8:
+        return 4, 2
+    if t <= 16:
+        return 8, 2
+    if t <= 20:
+        return 5, 4
+    if t <= 25:
+        return 5, 5
+    return 8, 4
+
+
+def bcast_tc_cols(D: int) -> int:
+    """Columns Np of the kernel's weight layout (``tc_cols``)."""
+    nw, nwg = bcast_tc_shape(D)
+    return 8 * nw * nwg
+
+
+def bcast_tc_weight_floats(D: int) -> int:
+    """Floats of its weight scratch: three weights, hi and lo, pad8(D) x Np."""
+    return 6 * pad8(D) * bcast_tc_cols(D)
+
+
+def bcast_tc_slots(D: int) -> int:
+    """Ring slots of the kernel (``tc_slots``): as many k-steps (16 Np
+    floats and two mbarriers each) as its share of the SM leaves room for
+    beside the rest, up to ``BCAST_TC_MAX_SLOTS``."""
+    budget = SM_SMEM // 2 - 1024 if bcast_tc_shape(D)[1] == 2 else MAX_SMEM
+    per = 64 * bcast_tc_cols(D) + 16
+    return min(BCAST_TC_MAX_SLOTS, (budget - _bcast_tc_fixed_bytes(D)) // per)
+
+
+def _bcast_tc_fixed_bytes(D: int) -> int:
+    """The kernel's shared memory without the ring: 64 rows of activations
+    (pitch pad8(D) + 4) and of values (``narrow_tile_pitch``), a 4-float
+    position delta and a kv index per row, six pad8(D)-wide rows of
+    per-column constants."""
+    return 4 * 64 * (pad8(D) + 4 + narrow_tile_pitch(D) + 4) + 4 * 64 + 24 * pad8(D)
+
+
+def bcast_tc_smem_bytes(D: int) -> int:
+    """Shared memory of the tensor-core broadcast kernel
+    (``attention.cu::bcast_tc_smem_bytes``)."""
+    return _bcast_tc_fixed_bytes(D) + bcast_tc_slots(D) * (64 * bcast_tc_cols(D) + 16)
 
 
 # ---- the 16-bit tensor-core engine of K1's narrow mode (csrc/rows_mma16.cuh),
@@ -429,12 +520,16 @@ class _Pointers:
 
 def _launch(xyz_q, kv_xyz, q_feats, K_a, V_a, delta_w0, delta_b0, delta_w1,
             delta_b1, gamma_w0, gamma_b0, gamma_w1, gamma_b1, k, k_glob,
-            v_glob, penalty, compute_dtype=None, round_values=True):
-    """K1 on the card -> (out (B, Nq, D), idx (B, Nq, k) int32).  The
-    narrow mode runs the kernels of ``csrc/rows_mma16.cuh``'s tensor-core
-    engine: they round the MLP weights (into fragment-order scratch
-    allocated here) and ``V_a`` themselves (not in projection mode, where
-    ``V_a`` is a float32 product, as in the plain version)."""
+            v_glob, penalty, compute_dtype=None, round_values=True, differentiable=False):
+    """K1 on the card -> (out (B, Nq, D), idx (B, Nq, k) int32), by
+    :func:`k1_path`.  The narrow mode runs the kernels of
+    ``csrc/rows_mma16.cuh``'s tensor-core engine: they round the MLP
+    weights (into fragment-order scratch allocated here) and ``V_a``
+    themselves (not in projection mode, where ``V_a`` is a float32 product,
+    as in the plain version).  A broadcast query runs its 3xTF32
+    tensor-core engine unless ``differentiable`` (the forward of
+    :class:`_FusedAttention`, whose output's bits K2's FFMA recompute must
+    match), which keeps the FFMA engine."""
     weights = (delta_w0, delta_b0, delta_w1, delta_b1, gamma_w0, gamma_b0, gamma_w1, gamma_b1)
     B, Nq, M, D = _check_operands(xyz_q, kv_xyz, q_feats, K_a, V_a, weights, k,
                                   k_glob, v_glob, penalty)
@@ -447,13 +542,15 @@ def _launch(xyz_q, kv_xyz, q_feats, K_a, V_a, delta_w0, delta_b0, delta_w1,
     q_ptr, q_sb, q_sn = ptr.query(q_feats)
     lib = _build.load("attention", _SIGNATURES)
     glog = wt = frag = None
-    if compute_dtype is None:
+    path = k1_path(k_glob is not None, q_sn, k, compute_dtype, differentiable)
+    if path in ("bcast", "bcast_tc"):
         # the decoder's broadcast query: scratch for its global slot's
-        # logits and an (in, out) copy of the three D x D weights
-        if lib.nsdp_attention_bcast(k_glob is not None, q_sn, k):
-            glog = torch.empty((B, D), dtype=torch.float32, device=dev)
-            wt = torch.empty((3, D, -(-D // 4) * 4), dtype=torch.float32, device=dev)
-    else:
+        # logits and the three D x D weights laid out for the engine (an
+        # (in, out) copy; the tensor cores' split K-major order)
+        glog = torch.empty((B, D), dtype=torch.float32, device=dev)
+        shape = (bcast_tc_weight_floats(D),) if path == "bcast_tc" else (3, D, -(-D // 4) * 4)
+        wt = torch.empty(shape, dtype=torch.float32, device=dev)
+    elif path == "narrow":
         frag = torch.empty(3 * weight_frag16_elems(D), dtype=compute_dtype, device=dev)
         if k_glob is not None and q_sn == 0:  # a broadcast query's global logits, once
             glog = torch.empty((B, D), dtype=torch.float32, device=dev)
@@ -463,13 +560,15 @@ def _launch(xyz_q, kv_xyz, q_feats, K_a, V_a, delta_w0, delta_b0, delta_w1,
         ptr.linear(delta_w0), ptr(delta_b0), ptr.linear(delta_w1), ptr(delta_b1),
         ptr.linear(gamma_w0), ptr(gamma_b0), ptr.linear(gamma_w1), ptr(gamma_b1),
         idx.data_ptr(), out.data_ptr(), ptr(glog), ptr(wt), ptr(frag), B, Nq, M, D, k,
-        NARROW.get(compute_dtype, 0), int(compute_dtype is not None and round_values),
-        dev.index or 0, _build.stream_of(xyz_q),
+        BCAST_TC_MODE if path == "bcast_tc" else NARROW.get(compute_dtype, 0),
+        int(compute_dtype is not None and round_values), dev.index or 0, _build.stream_of(xyz_q),
     )
     _build.check(lib, err, f"attention kernel (B={B}, Nq={Nq}, M={M}, D={D}, k={k})")
     fused_vector_attention.launches += 1
-    if compute_dtype is not None:
+    if path == "narrow":
         fused_vector_attention.narrow_launches += 1
+    elif path == "bcast_tc":
+        fused_vector_attention.bcast_tc_launches += 1
     return out, idx
 
 
@@ -612,7 +711,7 @@ class _FusedAttention(torch.autograd.Function):
         args = (xyz_q, kv_xyz, q_feats, K_a, V_a, delta_w0, delta_b0, delta_w1,
                 delta_b1, gamma_w0, gamma_b0, gamma_w1, gamma_b1)
         if xyz_q.device.type == "cuda":
-            out, idx = _launch(*args, k, k_glob, v_glob, penalty)
+            out, idx = _launch(*args, k, k_glob, v_glob, penalty, differentiable=True)
         else:
             idx = select(xyz_q, kv_xyz, k, penalty)[0]
             out = fused_vector_attention_plain(*args, k, k_glob, v_glob, idx=idx)
@@ -670,7 +769,8 @@ def fused_vector_attention(
       (B, Nq, D) float32 (narrow operands are widened first).  A CPU input
       runs the plain version; a CUDA input launches the kernel of
       ``csrc/attention.cu`` (counted in ``fused_vector_attention.launches``,
-      and a narrow mode's launch also in ``.narrow_launches``) or raises.
+      a narrow mode's launch also in ``.narrow_launches``, the broadcast
+      path's tensor-core engine also in ``.bcast_tc_launches``) or raises.
       With grad mode on and an operand that requires grad, the result is
       differentiable (module docstring); otherwise nothing is saved.
     """
@@ -723,3 +823,4 @@ def fused_vector_attention(
 
 fused_vector_attention.launches = 0
 fused_vector_attention.narrow_launches = 0
+fused_vector_attention.bcast_tc_launches = 0

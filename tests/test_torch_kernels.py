@@ -323,25 +323,135 @@ def test_attention_kernel_widths(mode, D, k, cuda, rng):
 def test_attention_kernel_broadcast_query_gives_the_same_bits(D, k, cuda, rng):
     """The decoder's query is one row per batch item, broadcast over the
     queries (row stride 0): its global slot is computed once per batch item.
-    The same query materialised row by row takes the per-row global slot;
-    both give the same bits, at Nq = 77 (not a multiple of a block's
-    queries) and at D = 130 (not a multiple of a thread's 4 channels)."""
+    In a differentiable call (an operand requires grad: ``_FusedAttention``,
+    the FFMA ``attn_bcast_kernel``) the same query materialised row by row
+    takes the per-row global slot; both give the same bits, at Nq = 77 (not
+    a multiple of a block's queries) and at D = 130 (not a multiple of a
+    thread's 4 channels).  (Where no backward follows, the broadcast query
+    takes the tensor-core engine: ``test_attention_kernel_broadcast_tensor_cores``.)"""
     a, w = _attention_case(rng, "global", False, B=2, M=300, D=D, k=k, nq=77)
     q_row = torch.as_tensor(a["q_feats"][:, :1], device=cuda)
     t = lambda x: torch.as_tensor(x, device=cuda)
     args = [t(a[key]) for key in ("xyz_q", "kv_xyz")]
-    rest = [t(a["K_a"]), t(a["V_a"]), *[t(x) for x in w]]
+    rest = [t(a["K_a"]), t(a["V_a"]), *[t(x).requires_grad_() for x in w]]
     kw = dict(k=k, k_glob=t(a["k_glob"]), v_glob=t(a["v_glob"]))
-    with torch.inference_mode():
+    f = port_attention.fused_vector_attention
+    with torch.enable_grad():
         bcast = q_row.expand(2, 77, D)
         assert bcast.stride(1) == 0
-        got = port_attention.fused_vector_attention(*args, bcast, *rest, **kw)
-        rows = port_attention.fused_vector_attention(*args, bcast.contiguous(), *rest, **kw)
-        ref = port_attention.fused_vector_attention(
-            *[x.cpu() for x in args], bcast.cpu(), *[x.cpu() for x in rest],
-            k=k, k_glob=kw["k_glob"].cpu(), v_glob=kw["v_glob"].cpu())
+        before = (f.launches, f.bcast_tc_launches)
+        got = f(*args, bcast, *rest, **kw)
+        rows = f(*args, bcast.contiguous(), *rest, **kw)
+        assert got.requires_grad and (f.launches, f.bcast_tc_launches) == (before[0] + 2, before[1])
+    with torch.inference_mode():
+        ref = f(*[x.cpu() for x in args], bcast.cpu(), *[x.detach().cpu() for x in rest],
+                k=k, k_glob=kw["k_glob"].cpu(), v_glob=kw["v_glob"].cpu())
     assert torch.equal(got, rows)
-    np.testing.assert_allclose(got.cpu().numpy(), ref.numpy(), rtol=1e-4, atol=1e-5)
+    np.testing.assert_allclose(got.detach().cpu().numpy(), ref.numpy(), rtol=1e-4, atol=1e-5)
+
+
+def _broadcast_case(rng, D, k, cuda, B=2, nq=77, M=300):
+    """A decoder call's arguments on the card: the query one broadcast row."""
+    a, w = _attention_case(rng, "global", False, B=B, M=M, D=D, k=k, nq=nq)
+    t = lambda x: torch.as_tensor(np.ascontiguousarray(x), device=cuda)
+    q = t(a["q_feats"][:, :1]).expand(B, nq, D)
+    args = [t(a["xyz_q"]), t(a["kv_xyz"]), q, t(a["K_a"]), t(a["V_a"]), *[t(x) for x in w]]
+    return args, dict(k=k, k_glob=t(a["k_glob"]), v_glob=t(a["v_glob"]))
+
+
+# the tensor-core broadcast path's relative L2 gap to float64 at most this
+# multiple of the FFMA path's on the same inputs (both float32-accurate; the
+# 3xTF32 products drop lo x lo and round per 8-deep k-step).  Readings of
+# this test's inputs on an NVIDIA H100 80GB HBM3 (tensor cores / FFMA, B =
+# 2, Nq = 77): (200, 7) 1.96e-7 / 2.77e-7; (130, 6) 1.75e-7 / 2.31e-7;
+# (36, 8) 1.44e-7 / 1.37e-7; (256, 7) 2.06e-7 / 3.14e-7; (120, 5) 1.67e-7 /
+# 2.15e-7: 0.66-1.05 x.
+BCAST_TC_GAP = 2.0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("D,k", [(200, 7), (130, 6), (36, 8), (256, 7), (120, 5)])
+def test_attention_kernel_broadcast_tensor_cores(D, k, cuda, rng):
+    """A broadcast query that no backward follows runs the 3xTF32
+    tensor-core engine (one launch in ``bcast_tc_launches``): against the
+    plain version in float64, its relative L2 gap is at most
+    ``BCAST_TC_GAP`` x the FFMA path's on the same inputs, at Nq = 77 (a
+    ragged last tile of 64 / k queries) and B = 2."""
+    args, kw = _broadcast_case(rng, D, k, cuda)
+    f = port_attention.fused_vector_attention
+    with torch.inference_mode():
+        before = (f.launches, f.bcast_tc_launches)
+        got = f(*args, **kw)
+        torch.cuda.synchronize()
+        assert (f.launches, f.bcast_tc_launches) == (before[0] + 1, before[1] + 1)
+        ffma, _ = port_attention._launch(*args, k, kw["k_glob"], kw["v_glob"], None,
+                                         differentiable=True)
+        f64 = lambda x: x.cpu().double()
+        ref = port_attention.fused_vector_attention_plain(
+            *map(f64, args), k, f64(kw["k_glob"]), f64(kw["v_glob"]))
+    gap_tc, gap_ffma = _rel(got, ref), _rel(ffma, ref)
+    assert torch.isfinite(got).all()
+    assert 0 < gap_tc <= BCAST_TC_GAP * gap_ffma, (gap_tc, gap_ffma)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("D,k,nq", [(200, 7, 5000), (120, 5, 77)])
+def test_attention_kernel_broadcast_tensor_cores_bits(D, k, nq, cuda, rng):
+    """The tensor-core engine gives the same bits on a repeat and captured
+    in a CUDA graph as eager: each row tile sums its k-steps in one order,
+    whichever block runs it."""
+    args, kw = _broadcast_case(rng, D, k, cuda, nq=nq, M=100)
+    f = port_attention.fused_vector_attention
+    with torch.inference_mode():
+        eager = f(*args, **kw)
+        again = f(*args, **kw)
+        stream = torch.cuda.Stream()
+        stream.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(stream):
+            f(*args, **kw)  # warm on the side stream
+        torch.cuda.current_stream().wait_stream(stream)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            captured = f(*args, **kw)
+        graph.replay()
+        torch.cuda.synchronize()
+    assert torch.equal(eager, again) and torch.equal(eager, captured)
+
+
+@pytest.mark.gpu
+def test_attention_kernel_broadcast_counter(cuda, rng):
+    """``bcast_tc_launches`` counts the calls that take the tensor-core
+    engine: a broadcast query under ``no_grad``, not one under autograd
+    (whose forward is the FFMA engine's), nor a query given row by row."""
+    args, kw = _broadcast_case(rng, 120, 7, cuda, nq=50)
+    f = port_attention.fused_vector_attention
+    before = (f.launches, f.bcast_tc_launches)
+    with torch.no_grad():
+        f(*args, **kw)
+        f(*args[:2], args[2].contiguous(), *args[3:], **kw)
+    assert (f.launches, f.bcast_tc_launches) == (before[0] + 2, before[1] + 1)
+    leaf = args[2].detach().requires_grad_()
+    out = f(*args[:2], leaf, *args[3:], **kw)
+    out.sum().backward()
+    torch.cuda.synchronize()
+    assert (f.launches, f.bcast_tc_launches) == (before[0] + 3, before[1] + 1)
+    assert leaf.grad is not None and torch.isfinite(leaf.grad).all()
+
+
+@pytest.mark.gpu
+def test_broadcast_tensor_core_mirrors(cuda):
+    """The tensor-core broadcast kernel's shared memory and weight columns
+    equal the wrapper's mirrors of them (``bcast_tc_smem_bytes``,
+    ``bcast_tc_cols``), which the CPU tests hold under the card's budget."""
+    from nsdp_tpu_torch.ops import _build
+
+    lib = _build.load("attention", port_attention._SIGNATURES)
+    for D in (1, 12, 36, 37, 64, 120, 128, 130, 160, 168, 200, 208, 256):
+        assert lib.nsdp_attention_bcast_tc_smem(D) == port_attention.bcast_tc_smem_bytes(D)
+        assert lib.nsdp_attention_bcast_tc_cols(D) == port_attention.bcast_tc_cols(D)
+    for has_glob, q_sn, k in ((1, 0, 7), (1, 0, 8), (1, 0, 9), (0, 0, 7), (1, 200, 7)):
+        assert bool(lib.nsdp_attention_bcast(has_glob, q_sn, k)) == port_attention.bcast_path(
+            has_glob, q_sn, k)
 
 
 @pytest.mark.gpu

@@ -11,7 +11,10 @@ is emulated -- each mma's sum taken in float64 and rounded to float32 once
 (``ops/attention.py::weight_frags_plain``), at the decoder's shapes, and
 held against float64 beside the float32 product and a single TF32 product.
 The wrapper's sizing helpers and the row kernel's shared-memory budget and
-tiles are checked here too.
+tiles are checked here too.  K1's broadcast path runs the same arithmetic
+where no backward follows (``attn_bcast_kernel``'s tensor-core engine, its
+weights laid out at ``bcast_tc_cols(D)`` columns); its three products are
+emulated the same way, inside the path.
 """
 
 import numpy as np
@@ -20,6 +23,7 @@ import torch
 
 from nsdp_tpu_torch.ops import attention as port_attention
 from nsdp_tpu_torch.ops.attention import pad8, split_tf32, tf32_round, weight_frags_plain
+from nsdp_tpu_torch.ops.knn import select
 
 
 def _mlp_rows(D: int, seed: int) -> np.ndarray:
@@ -179,3 +183,65 @@ def test_row_tile_budget_and_tiles():
     # decoder (k 7 + the global slot), begin blocks (k 10), other encoder sites (k 16)
     assert [port_attention.backward_tile_queries(s) for s in (8, 10, 16)] == [8, 6, 4]
     assert port_attention.backward_weight_floats(200) == 4 * 2 * 200 * 224 + 2 * 200 * 200
+
+
+@pytest.mark.parametrize("D", [36, 130, 200])
+def test_broadcast_path_weight_layout(D):
+    """K1's tensor-core broadcast path lays out B = w^T at its own column
+    count (``bcast_tc_cols``; no padding at D = 200), in the engine's order."""
+    rng = np.random.RandomState(D + 1)
+    w = torch.from_numpy(rng.randn(D, D).astype(np.float32))
+    Np = port_attention.bcast_tc_cols(D)
+    wfrag = weight_frags_plain(w, False, Np)
+    assert wfrag.shape == (pad8(D) // 8, 2, Np // 8, 2, 8, 4)
+    assert 3 * wfrag.numel() == port_attention.bcast_tc_weight_floats(D)
+    B = torch.zeros((pad8(D), Np))
+    B[:D, :D] = w.t()
+    hi, lo = split_tf32(B)
+    parts = _unpack(wfrag)
+    assert torch.equal(parts[0], hi) and torch.equal(parts[1], lo)
+
+
+def _bcast_tc_emulated(xyz_q, kv_xyz, q_row, K, V, w, k_glob, v_glob, idx):
+    """K1's broadcast path as its tensor-core kernel computes it (batch of
+    one): fc_delta's first layer, the slot softmax and the global slot's
+    logits in float32, the three D x D products by ``_engine_product`` on
+    the weights at ``bcast_tc_cols(D)`` columns."""
+    dw0, db0, dw1, db1, gw0, gb0, gw1, gb1 = w  # (in, out)
+    D, k = dw1.shape[0], idx.shape[-1]
+    Np = port_attention.bcast_tc_cols(D)
+    product = lambda x, wi: _engine_product(x, weight_frags_plain(wi.t().contiguous(), False, Np))[:, :D]
+    n = idx[0].reshape(-1)
+    dx = (xyz_q[0][:, None, :] - kv_xyz[0][idx[0]]).reshape(-1, 3)
+    pos = product(torch.relu(dx @ dw0 + db0), dw1) + db1
+    u = (q_row[0, 0] - K[0][n]) + pos
+    value = (V[0][n] + pos).reshape(-1, k, D)
+    logits = (product(torch.relu(product(u, gw0) + gb0), gw1) + gb1).reshape(-1, k, D)
+    lg = torch.relu((q_row[0, 0] - k_glob[0]) @ gw0 + gb0) @ gw1 + gb1
+    logits = torch.cat([logits, lg.expand(logits.shape[0], 1, D)], 1)
+    value = torch.cat([value, v_glob[0].expand(value.shape[0], 1, D)], 1)
+    e = torch.exp(logits - logits.amax(1, keepdim=True))
+    return ((e * value).sum(1) / e.sum(1))[None]
+
+
+@pytest.mark.parametrize("D,k", [(200, 7), (130, 6), (36, 8), (256, 7), (120, 5)])
+def test_broadcast_path_emulation_is_as_accurate_as_float32(D, k):
+    """The tensor-core broadcast path, emulated, within twice the plain
+    float32 version's relative L2 gap to float64 (the rule its kernel is
+    held to on the card, ``tests/test_torch_kernels.py``)."""
+    rng = np.random.RandomState(D * 10 + k)
+    t = lambda *s, c=1.0: torch.from_numpy((rng.randn(*s) * c).astype(np.float32))
+    nq, M, inv = 30, 60, D ** -0.5
+    xyz_q, kv_xyz, q_row, K, V = t(1, nq, 3), t(1, M, 3), t(1, 1, D), t(1, M, D), t(1, M, D)
+    w = [t(3, D, c=0.3), t(D, c=0.1), t(D, D, c=inv), t(D, c=0.1), t(D, D, c=inv), t(D, c=0.1),
+         t(D, D, c=inv), t(D, c=0.1)]
+    k_glob, v_glob = t(1, D), t(1, D)
+    idx = select(xyz_q, kv_xyz, k)[0]
+    q = q_row.expand(1, nq, D)
+    ops = (xyz_q, kv_xyz, q, K, V, *w)
+    plain = lambda cast: port_attention.fused_vector_attention_plain(
+        *[cast(x) for x in ops], k, cast(k_glob), cast(v_glob), idx=idx)
+    ref = plain(lambda x: x.double())
+    gap_f32 = _rel(plain(lambda x: x), ref)
+    gap_tc = _rel(_bcast_tc_emulated(xyz_q, kv_xyz, q_row, K, V, w, k_glob, v_glob, idx), ref)
+    assert gap_f32 > 0 and gap_tc <= 2 * gap_f32, (gap_tc, gap_f32)
