@@ -61,9 +61,10 @@ and cannot be captured.  Captures keep ``torch.cuda.graph``'s default
 ``"global"`` error mode, in which a CUDA call unsafe during a capture
 breaks it whatever thread makes it.  ProcessGroupNCCL's watchdog thread
 queries the events of earlier eager collectives, yet captures begun while
-such work was pending did not break on one NCCL rank
-(``probe_capture.py``'s ``nccl-kept``, 40 of 40; ``chip_smoke.py``'s
-phase 7b, ``capture_stress``), so no capture takes a laxer mode.
+such work was pending did not break on one NCCL rank (40 of 40 on an
+H100, recorded in ``CHANGES.md`` with the grouped step's capture;
+``tests/test_torch_card.py``'s ``capture_stress`` holds 20), so no
+capture takes a laxer mode.
 
 All programs of one :class:`Graphs` share one memory pool (``pool=`` of
 ``torch.cuda.graph``).  That is safe because they replay one at a time on
@@ -75,8 +76,7 @@ the model keeps one :class:`Graphs` for all its programs.  A ``Graphs``
 never drops a program's graph: the caching allocator refuses a capture
 into a pool whose graphs were all destroyed while the pool still holds
 memory (its ``use_count > 0`` internal assert, with or without
-collectives: ``probe_capture.py``'s ``pool-dropped`` and
-``nccl-dropped``).
+collectives: recorded in ``CHANGES.md`` with the one-pool change).
 """
 
 from typing import Any, Callable, Dict, Optional, Sequence, Tuple

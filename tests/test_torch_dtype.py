@@ -437,7 +437,7 @@ def test_remat_recompute_takes_the_forward_batchnorm_group(monkeypatch):
     import torch.distributed as dist
 
     import nsdp_tpu_torch.nn.blocks as blocks
-    from tests.test_torch_parallel import _free_port
+    from tests.torch_parallel_runner import _free_port
 
     calls = []
     reduce = blocks.all_reduce_sum

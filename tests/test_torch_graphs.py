@@ -8,15 +8,18 @@ overwrites, and that the captured-contract steps (with a gloo group too)
 are the eager steps bit for bit.  The ``gpu`` tests hold the captured
 programs against the eager path on the card, at a small size: serving,
 the train step, the evaluation programs, a gloo group's rule and one NCCL
-rank.  The module imports nothing of JAX, so it also runs on the card:
+rank; and, at the published widths, the kernels each replay launches (its
+graph's kernel nodes) against one evaluation's or one step's.  The module
+imports nothing of JAX, so it also runs on the card:
 
     python -m pytest --noconftest -m gpu tests/test_torch_graphs.py
 """
 
 import contextlib
 import copy
+import os
 import re
-import socket
+import warnings
 
 import numpy as np
 import pytest
@@ -24,16 +27,43 @@ import torch
 import torch.distributed as dist
 import yaml
 
+from nsdp_tpu_torch import graphs as port_graphs
 from nsdp_tpu_torch.graphs import Graphs
 from nsdp_tpu_torch.models import build_model, init_random
+from nsdp_tpu_torch.ops import attention as port_attention
+from nsdp_tpu_torch.ops import fps as port_fps
+from nsdp_tpu_torch.ops import gather as port_gather
+from nsdp_tpu_torch.ops import knn as port_knn
 from nsdp_tpu_torch.serving import DeformationService
 from nsdp_tpu_torch.training import make_steps, optimizer_factory
+from nsdp_tpu_torch.utils.config import load_config
+from tests.torch_parallel_runner import _free_port
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 ENC_KW = dict(npoints_per_layer=[32, 16, 8], nneighbor=6, nneighbor_reduced=4,
               nfinal_transformers=1, d_transformer=16, d_reduced=12, full_SA=True)
 DEC_KW = dict(dim_inp=16, dim=10, nneigh=5, hidden_dim=8, out_dim=3)
 PNPP_KW = dict(npoints_per_layer=[32, 16, 8], nneighbor=6, nfinal_transformers=1,
                d_transformer=16)
+
+
+def shipped_config(name):
+    """A shipped ``configs/deform4d/<name>.yaml`` at its published widths,
+    or an ablation built from one as the JAX package's tests build theirs:
+    A, ``arbitrary.yaml`` with the ``pointnet++`` encoder; B,
+    ``forward.yaml`` with that encoder and the ``interp`` decoder."""
+    cfg = load_config(os.path.join(REPO, "configs", "deform4d",
+                                   {"A": "arbitrary", "B": "forward"}.get(name, name) + ".yaml"))
+    if name in ("A", "B"):
+        model = cfg["model"]
+        model["encoder"] = "pointnet++"
+        for key in ("nneighbor_reduced", "d_reduced", "full_SA"):
+            model["encoder_kwargs"].pop(key)
+        if name == "B":
+            model["decoder"] = "interp"
+            model["decoder_kwargs"].pop("nneigh")
+    return cfg
 
 
 def config(model_type="arbitrary", encoder="pointransformer", **model):
@@ -72,23 +102,27 @@ def _services(cfg, device, buckets=(64,)):
     return captured, eager
 
 
-def _batches(seed, n, B=2, N=32, Q=12, masked=False):
+def train_batch(rng, B=2, N=32, Q=12, masked=False):
+    """Source and target surfaces with a handle mask, space samples and
+    their targets (``__graft_entry__._example_batch``'s layout), drawn from
+    ``rng``; ``masked`` pads each item's last 5 surface rows
+    (``surface_valid_mask``)."""
+    src, tgt = rng.randn(2, B, N, 3).astype(np.float32)
+    handle = (rng.rand(B, N, 1) > 0.5).astype(np.float32)
+    batch = {"surface_samples_inputs": np.concatenate([src, tgt * handle, handle], -1),
+             "space_samples_src": rng.randn(B, Q, 3).astype(np.float32),
+             "space_samples_tgt": rng.randn(B, Q, 3).astype(np.float32)}
+    if masked:
+        valid = np.ones((B, N), np.float32)
+        valid[:, -5:] = 0.0
+        batch["surface_samples_inputs"] *= valid[..., None]
+        batch["surface_valid_mask"] = valid
+    return batch
+
+
+def _batches(seed, n, **kw):
     rng = np.random.RandomState(seed)
-    out = []
-    for _ in range(n):
-        src = rng.randn(B, N, 3).astype(np.float32)
-        handle = (rng.rand(B, N, 1) > 0.5).astype(np.float32)
-        batch = {"surface_samples_inputs": np.concatenate(
-                     [src, rng.randn(B, N, 3).astype(np.float32) * handle, handle], -1),
-                 "space_samples_src": rng.randn(B, Q, 3).astype(np.float32),
-                 "space_samples_tgt": rng.randn(B, Q, 3).astype(np.float32)}
-        if masked:
-            valid = np.ones((B, N), np.float32)
-            valid[:, -5:] = 0.0
-            batch["surface_samples_inputs"] *= valid[..., None]
-            batch["surface_valid_mask"] = valid
-        out.append(batch)
-    return out
+    return [train_batch(rng, **kw) for _ in range(n)]
 
 
 def _trainer(cfg, device, graphs, nan_guard=False):
@@ -297,12 +331,6 @@ def test_unfetched_loss_is_the_callers():
     held = [captured["train_step"](b, 1e-3, fetch=False) for b in batches]
     want = [eager["train_step"](b, 1e-3) for b in batches]
     assert [float(x) for x in held] == want and len(set(want)) == 3
-
-
-def _free_port() -> int:
-    with socket.socket() as s:
-        s.bind(("localhost", 0))
-        return s.getsockname()[1]
 
 
 @contextlib.contextmanager
@@ -514,6 +542,30 @@ def test_captured_replicas_equal_eager_on_the_card(cuda, rng):
     assert all(p.graph is not None for g in cap.graphs for p in g.programs.values())
 
 
+def rel_err(a, ref) -> float:
+    """Relative L2 error ``||a - ref|| / ||ref||``, in float64."""
+    a, ref = a.double(), ref.double()
+    return float(torch.linalg.vector_norm(a - ref) / torch.linalg.vector_norm(ref))
+
+
+def _hold_step(runs):
+    """Three steps from one state, each (loss, model, optimizer): a
+    replayed one, an eager one and a second eager one.  The first two's
+    loss and every buffer bit for bit; each parameter, buffer and gradient
+    bit for bit or, where K2's float64 atomics reorder, its relative gap to
+    the eager step's at most 4 times the two eager steps' own (floor
+    1e-4)."""
+    (loss, model, _), (loss_e, eager, _), _ = runs
+    assert loss == loss_e
+    for a, b in zip(model.buffers(), eager.buffers()):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+    (c, cg, _), (e, eg, _), (e2, eg2, _) = (_state(m, o) for _, m, o in runs)
+    for i, (got, want, again) in enumerate([*zip(c, e, e2), *zip(cg, eg, eg2)]):
+        assert (got is None) == (want is None), i
+        if got is not None and not torch.equal(got, want):
+            assert rel_err(got, want) <= max(4 * rel_err(again, want), 1e-4), i
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("model_type", ["forward", "arbitrary"])
 def test_captured_step_equals_eager_on_the_card(cuda, model_type):
@@ -530,18 +582,8 @@ def test_captured_step_equals_eager_on_the_card(cuda, model_type):
     for m, o, _ in twins:
         m.load_state_dict(model.state_dict())
         o.load_state_dict(copy.deepcopy(opt.state_dict()))
-    losses = [s["train_step"](batches[2], 1e-3) for s in (steps, twins[0][2], twins[1][2])]
-    assert losses[0] == losses[1]
-    for a, b in zip(model.buffers(), twins[0][0].buffers()):
-        torch.testing.assert_close(a, b, rtol=0, atol=0)
-    (c, _, _), (e, _, _), (e2, _, _) = (_state(m, o) for m, o, _ in [(model, opt, 0), *twins])
-    for got, want, again in [*zip(c[0], e[0], e2[0]), *zip(c[1], e[1], e2[1])]:
-        if not torch.equal(got, want):
-            gap = float(torch.linalg.vector_norm((got - want).double())
-                        / torch.linalg.vector_norm(want.double()))
-            noise = float(torch.linalg.vector_norm((again - want).double())
-                          / torch.linalg.vector_norm(want.double()))
-            assert gap <= max(4 * noise, 1e-4)
+    _hold_step([(s["train_step"](batches[2], 1e-3), m, o)
+                for m, o, s in [(model, opt, steps), *twins]])
 
 
 def _assert_evaluation_on_the_card(steps, eager, batches):
@@ -651,17 +693,166 @@ def test_nccl_rank_captured_equals_eager_on_the_card(cuda, model_type):
         for m, o, _ in twins:
             m.load_state_dict(model.state_dict())
             o.load_state_dict(copy.deepcopy(opt.state_dict()))
-        losses = [s["train_step"](batches[2], 1e-3) for s in (steps, twins[0][2], twins[1][2])]
-        assert losses[0] == losses[1]
-        for a, b in zip(model.buffers(), twins[0][0].buffers()):
-            torch.testing.assert_close(a, b, rtol=0, atol=0)
-        (c, _, _), (e, _, _), (e2, _, _) = (_state(m, o) for m, o, _ in [(model, opt, 0), *twins])
-        for got, want, again in [*zip(c[0], e[0], e2[0]), *zip(c[1], e[1], e2[1])]:
-            if not torch.equal(got, want):
-                gap = float(torch.linalg.vector_norm((got - want).double())
-                            / torch.linalg.vector_norm(want.double()))
-                noise = float(torch.linalg.vector_norm((again - want).double())
-                              / torch.linalg.vector_norm(want.double()))
-                assert gap <= max(4 * noise, 1e-4)
+        _hold_step([(s["train_step"](batches[2], 1e-3), m, o)
+                    for m, o, s in [(model, opt, steps), *twins]])
         twins[0][0].load_state_dict(model.state_dict())
         _assert_evaluation_on_the_card(steps, twins[0][2], _batches(24, 2, masked=True))
+
+
+# ------------------------------------------------- the kernels of a replay
+
+# the kernel that marks one launch of each wrapper among a graph's kernel
+# nodes: K1 (its selection, in every mode), K2 (its row kernel), K3 (any
+# variant), K4, the row gather
+LAUNCH_KERNELS = (("knn_kernel",), ("bwd_rows_kernel",),
+                  ("fps_kernel", "fps_cluster_kernel", "fps_global_kernel"),
+                  ("knn_split_kernel",), ("gather_rows_kernel",))
+# (K1, K2, K3, K4, gather) launches of a full evaluation, an edit session
+# and a drag: the shipped model, and A's two pointnet++ encoders (FPS, K4
+# and the gather at each of 2 levels) and three crossatten decodes
+SERVE_LAUNCHES = {
+    "arbitrary": {"deform": (17, 0, 4, 0, 0), "session": (9, 0, 2, 0, 0), "drag": (8, 0, 2, 0, 0)},
+    "A": {"deform": (3, 0, 4, 4, 4), "session": (2, 0, 2, 2, 2), "drag": (1, 0, 2, 2, 2)},
+}
+# of a train step: a shipped net runs its begin block, 2 set abstraction
+# rounds x 2 levels, 2 transformer_downs and its decoder
+STEP_LAUNCHES = {"forward": (8, 8, 2, 0, 0), "backward": (8, 8, 2, 0, 0),
+                 "arbitrary": (17, 17, 4, 0, 0), "A": (3, 3, 4, 4, 4), "B": (0, 0, 2, 2, 2)}
+
+
+def launch_counters():
+    """Launches so far of (K1, K2, K3, K4, the row gather), by the wrappers."""
+    return (port_attention.fused_vector_attention.launches,
+            port_attention.fused_vector_attention_backward.launches,
+            port_fps.furthest_point_sample.launches, port_knn.knn.launches,
+            port_gather.gather_rows.launches)
+
+
+def launched_since(before):
+    """(K1, K2, K3, K4, gather) launches by the wrappers since ``before``."""
+    return tuple(a - b for a, b in zip(launch_counters(), before))
+
+
+def short_name(mangled: str) -> str:
+    """``attn_bcast_kernel<0, 8, 2>`` from a mangled kernel name: its
+    length-prefixed names read in turn up to the one ending in
+    ``_kernel``, then that name's integer template arguments; the name as
+    given where none ends so."""
+    i = 3 if mangled.startswith("_ZN") else 2 if mangled.startswith("_Z") else 0
+    while True:
+        m = re.match(r"\d+", mangled[i:])
+        if m is None:
+            return mangled
+        i += m.end()
+        name, i = mangled[i:i + int(m.group())], i + int(m.group())
+        if name.endswith("_kernel"):
+            args = re.match(r"I((?:Li-?\d+E)+)E", mangled[i:])
+            return name + (f"<{', '.join(re.findall(r'Li(-?\d+)E', args.group(1)))}>"
+                           if args else "")
+
+
+def graph_launches(program, directory):
+    """(K1, K2, K3, K4, gather) launches of one replay of a captured
+    program: its graph's kernel nodes, read from the Graphviz dump of the
+    node list that ``graphs.KEEP_GRAPHS`` keeps."""
+    path = os.path.join(directory, "graph.dot")
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")  # torch announces each dump
+        program.graph.debug_dump(path)
+    with open(path) as f:
+        nodes = re.split(r'^\s*"graph_\d+_node_\d+"\s*\[', f.read(), flags=re.M)[1:]
+    names = [short_name(m.group()).split("<")[0] for m in
+             (re.search(r"_Z\w+", node) for node in nodes if "KERNEL" in node) if m]
+    assert names, "no kernel node in the dump of a captured graph"
+    return tuple(sum(n in kinds for n in names) for kinds in LAUNCH_KERNELS)
+
+
+def replayed(graphs_list, fn, directory):
+    """-> (``fn()``, the launches of the replays it made): the kernel
+    nodes of each program of ``graphs_list`` whose calls moved, once a
+    call.  The wrappers run at no replay; a call that made a program, or
+    that ran one eagerly or captured it, fails."""
+    before = [(p, p.calls, p.graph is not None) for g in graphs_list for p in g.programs.values()]
+    counters = launch_counters()
+    out = fn()
+    assert launch_counters() == counters
+    assert len(before) == sum(len(g.programs) for g in graphs_list)
+    launches = np.zeros(5, int)
+    for p, calls, captured in before:
+        if p.calls != calls:
+            assert captured, "a call expected to replay ran eagerly or captured"
+            launches += (p.calls - calls) * np.array(graph_launches(p, directory))
+    return out, tuple(int(x) for x in launches)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", sorted(SERVE_LAUNCHES))
+def test_serving_replays_launch_one_evaluation_on_the_card(cuda, name, monkeypatch, tmp_path):
+    """The shipped model and ablation A served at their published widths
+on the service's default buckets: ``warmup`` runs the wrappers at each
+program's throw-away eager run and its capture (plain and masked, every
+bucket), and then every deform (one request a bucket, a padded-partial
+cloud among them), edit session and drag (Q = 20,000) replays exactly the
+kernels of one evaluation, one canonicalisation and one deform
+(``SERVE_LAUNCHES``); a drag gives the full deform's answer with the same
+conditioning."""
+    monkeypatch.setattr(port_graphs, "KEEP_GRAPHS", True)
+    want = SERVE_LAUNCHES[name]
+    svc = DeformationService(shipped_config(name), device=cuda)
+    rng = np.random.RandomState(0)
+    surf = rng.randn(5000, 3).astype(np.float32)
+    handle = (surf[:, 2] > 0.8).astype(np.float32)[:, None]
+    tgt = (surf + np.float32(0.25)) * handle
+    inputs = np.concatenate([surf, tgt, handle], -1)
+    pm = np.ones(5000, np.float32)
+    pm[-500:] = 0.0  # a padded-partial cloud: padded rows at the origin
+    requests = [(3000, None), (10000, None), (20000, pm), (65536, None)]
+    queries = {q: rng.uniform(-1.3, 1.3, (q, 3)).astype(np.float32) for q, _ in requests}
+    before = launch_counters()
+    svc.warmup(5000)
+    per_entry = [sum(x) for x in zip(*want.values())]
+    assert launched_since(before) == tuple(4 * len(svc.buckets) * x for x in per_entry)
+    assert {svc._bucket(q) for q, _ in requests} == set(svc.buckets)
+    for q, mask in requests:
+        inp = inputs if mask is None else inputs * mask[:, None]
+        out, got = replayed(svc.graphs, lambda: svc.deform(queries[q], inp, point_mask=mask),
+                            tmp_path)
+        assert got == want["deform"] and out.shape == (q, 3) and np.isfinite(out).all(), q
+    pts = queries[20000]
+    session, got = replayed(svc.graphs, lambda: svc.edit_session(pts, surf), tmp_path)
+    assert got == want["session"]
+    for scale in (1.0, 0.5):
+        out, got = replayed(svc.graphs, lambda: session.drag(tgt * scale, handle), tmp_path)
+        assert got == want["drag"] and out.shape == (20000, 3) and np.isfinite(out).all()
+    full = svc.deform(pts, np.concatenate([surf, tgt * np.float32(0.5), handle], -1))
+    np.testing.assert_allclose(out, full, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", sorted(STEP_LAUNCHES))
+def test_step_replays_launch_one_step_on_the_card(cuda, name, monkeypatch, tmp_path):
+    """The shipped nets and both ablations at their published widths
+    (N = 5000): the eager first step and the capture each run the wrappers
+    for one step, and a replay launches exactly one step's kernels
+    (``STEP_LAUNCHES``); a replayed validation batch, the step's forward
+    half."""
+    monkeypatch.setattr(port_graphs, "KEEP_GRAPHS", True)
+    cfg = shipped_config(name)
+    model = init_random(build_model(cfg, device=cuda), 0)
+    _, opt = optimizer_factory(cfg["training"], model.parameters())
+    steps = make_steps(model, cfg["model"]["type"], opt, device=cuda)
+    batches = _batches(31, 3, N=5000, Q=1024)
+    if cfg["model"]["decoder"] == "interp":  # its weights underflow beyond ~2 from every anchor
+        for b in batches:
+            b["space_samples_src"] = b["surface_samples_inputs"][:, :1024, :3] * np.float32(1.05)
+    for batch in batches[:2]:  # the eager first step, then the capture
+        before = launch_counters()
+        steps["train_step"](batch, 1e-3)
+        assert launched_since(before) == STEP_LAUNCHES[name]
+    loss, got = replayed([steps["train_step"].graphs],
+                         lambda: steps["train_step"](batches[2], 1e-3), tmp_path)
+    assert got == STEP_LAUNCHES[name] and np.isfinite(loss)
+    validate = lambda: steps["validate_step"](batches[1])
+    validate(), validate()  # the signature's eager first call, then its capture
+    _, got = replayed([steps["validate_step"].graphs], validate, tmp_path)
+    assert got == (STEP_LAUNCHES[name][0], 0, *STEP_LAUNCHES[name][2:])

@@ -633,10 +633,12 @@ def _knn_case(rng, B, Nq, M, masked):
 @pytest.mark.parametrize("B,Nq,M,k,masked", [
     (1, 500, 5000, 16, False), (8, 100, 500, 16, False), (2, 300, 3000, 10, True),
     (1, 77, 64, 7, False), (2, 40, 300, 32, True), (1, 200, 20000, 16, False),
+    (8, 5000, 5000, 10, True),
 ])
 def test_knn_kernel_matches_plain(B, Nq, M, k, masked, cuda, rng):
-    """Indices and distances bit for bit, one launch per call; the last
-    case streams a cloud larger than shared memory holds."""
+    """Indices and distances bit for bit, one launch per call; the sixth
+    case streams a cloud larger than shared memory holds, the last is the
+    JAX package's unfused begin block at the training batch."""
     q, kv, mask = _knn_case(rng, B, Nq, M, masked)
     t = lambda a: None if a is None else torch.from_numpy(a).to(cuda)
     before = port_knn.knn.launches

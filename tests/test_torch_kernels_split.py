@@ -141,7 +141,7 @@ def test_fps_range_split_at_a_cluster_size_matches_jax():
 
 
 @pytest.mark.parametrize("site,B,Nq,M,w,two", [
-    ("probe", 1, 1, 32, 1, False),  # knn_round_ms's calibration query
+    ("probe", 1, 1, 32, 1, False),  # one query against 32 points, one a lane
     ("sa_level0", 1, 500, 5000, 2, True),
     ("sa_level1", 1, 100, 500, 4, False),
     ("sa_level0_b8", 8, 500, 5000, 1, True),
@@ -150,10 +150,12 @@ def test_fps_range_split_at_a_cluster_size_matches_jax():
     ("large_cloud", 1, 2000, 20000, 1, True),
 ])
 def test_knn_geometry_at_the_sites(site, B, Nq, M, w, two):
-    """Warps a query and the bound pass at ``chip_smoke.py``'s K4 sites on
-    an H100 (132 SMs): one warp where the queries are 4 an SM or more or
-    the cloud is small, more where so few queries would leave the card
-    idle; the bound pass where each lane scans 32 points or more."""
+    """Warps a query and the bound pass at K4's sites (the set
+    abstraction's grouping at serving's B = 1 and training's B = 8, the
+    begin block's 5000 x 5000, a 20,000-point cloud) on an H100 (132
+    SMs): one warp where the queries are 4 an SM or more or the cloud is
+    small, more where so few queries would leave the card idle; the bound
+    pass where each lane scans 32 points or more."""
     assert port_knn.split_warps(B, Nq, M, sms=132) == w
     assert port_knn.two_pass(M, w) is two
 

@@ -17,8 +17,9 @@ order) and held
   interpret mode, within ``tests/test_torch_dtype.py``'s limits: 1/4 of
   JAX's own narrow-vs-float32 gap at self sites, 3/4 at cross sites (where
   JAX rounds its split delta and the port ``dx`` itself);
-* against the port's plain narrow version at the shipped widths by
-  ``chip_smoke.py``'s phase-2 rule: 1/4 of that version's gap to float32.
+* against the port's plain narrow version at the shipped widths by the
+  rule the card is held to (``tests/test_torch_card.py``'s
+  ``K1_NARROW_SHARE``): 1/4 of that version's gap to float32.
 
 The kernel's tiling (whole queries in 64-row blocks) and the wrapper's
 mirror of its shared memory are checked too.
@@ -233,7 +234,7 @@ def test_kernel_emulation_matches_jax(mode, exact_self, dtype, D, k, bound):
 ])
 def test_kernel_emulation_holds_phase2_rule(mode, D, k, dtype):
     """At the shipped widths the emulated kernel is within 1/4 of the plain
-    narrow version's gap to float32 (``chip_smoke.py``'s
+    narrow version's gap to float32 (``tests/test_torch_card.py``'s
     ``K1_NARROW_SHARE``): the tensor cores' per-k-step sums are no worse a
     match for the plain version than the rule the card is held to."""
     rng = np.random.RandomState(D + k)

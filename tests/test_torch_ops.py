@@ -81,7 +81,11 @@ def test_mask_penalty_is_finite():
 
 
 def _port_sources():
-    return sorted((REPO / "nsdp_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
+    """The port's modules, and the tests that run on the card, where the
+    JAX package is not installed (and the ranks those tests start)."""
+    on_card = ("test_torch_kernels.py", "test_torch_graphs.py", "test_torch_card.py",
+               "torch_parallel_runner.py")
+    return sorted((REPO / "nsdp_tpu_torch").rglob("*.py")) + [REPO / "tests" / n for n in on_card]
 
 
 def _imported_modules(path):

@@ -3,7 +3,7 @@
 
 Ranks are real processes (``tests/torch_parallel_runner.py``) on gloo,
 launched with torchrun's environment on a free port, each launch within
-``TIMEOUT`` and every process killed on any failure path (as
+the runner's ``TIMEOUT`` and every process killed on any failure path (as
 ``tests/test_multihost_2proc.py:42-93`` launches its pair).  Held:
 
 * synced ``BatchNorm`` of 2 ranks against ``nsdp_tpu``'s
@@ -28,10 +28,6 @@ launched with torchrun's environment on a free port, each launch within
 
 import json
 import os
-import socket
-import subprocess
-import sys
-import threading
 
 import jax
 import jax.numpy as jnp
@@ -51,9 +47,8 @@ from nsdp_tpu_torch.serving import DeformationService
 from nsdp_tpu_torch.utils.padding import pad_batch
 from tests.test_torch_train_cli import LINES_TOL, _progress, _weight_file
 from tests.torch_parallel_runner import CAPTURED_RUNS, _model, _state
+from tests.torch_parallel_runner import launch as _launch
 
-REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-TIMEOUT = 120  # seconds for one launch of the ranks
 BN_TOL = dict(rtol=1e-5, atol=1e-5)
 # float64: a step's parts agree to ~1e-13; the gradient terms that a
 # non-differentiable all-reduce drops are 1e-3 or more of a gradient
@@ -63,63 +58,6 @@ F64_TOL = dict(rtol=1e-9, atol=1e-11)
 # gradients that vanish analytically: a fraction of the largest gradient)
 F32_TOL = dict(rel=1e-4, floor=1e-6)
 LR = 1e-3
-
-
-def _free_port() -> int:
-    with socket.socket() as s:
-        s.bind(("localhost", 0))
-        return s.getsockname()[1]
-
-
-def _launch_once(role, outdir, world, args=()):
-    """``world`` ranks of the runner (one: no distributed environment) to
-    completion -> their outputs.  The pipes are drained concurrently and
-    every process is killed on any failure path: a rank left in a
-    collective would wait out gloo's timeout."""
-    port = _free_port()
-    procs = []
-    for r in range(world):
-        env = {k: v for k, v in os.environ.items()
-               if k not in ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR", "MASTER_PORT")}
-        if world > 1:
-            env.update(RANK=str(r), WORLD_SIZE=str(world), LOCAL_RANK=str(r),
-                       MASTER_ADDR="localhost", MASTER_PORT=str(port))
-        env.update(OMP_NUM_THREADS="1")
-        procs.append(subprocess.Popen(
-            [sys.executable, "-m", "tests.torch_parallel_runner", role, str(outdir), *args],
-            cwd=REPO, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
-    outs = [""] * world
-
-    def drain(r):
-        outs[r] = procs[r].stdout.read()
-        procs[r].wait()
-
-    threads = [threading.Thread(target=drain, args=(r,), daemon=True) for r in range(world)]
-    try:
-        for t in threads:
-            t.start()
-        for t in threads:
-            t.join(timeout=TIMEOUT)
-        if any(t.is_alive() for t in threads):
-            raise subprocess.TimeoutExpired(procs[0].args, TIMEOUT)
-        for r, p in enumerate(procs):
-            assert p.returncode == 0, f"rank {r} failed (rc={p.returncode}):\n{outs[r][-4000:]}"
-    finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-    return outs
-
-
-def _launch(role, outdir, world, args=()):
-    """:func:`_launch_once`, once more on a fresh port if the store's port
-    was taken between its probe and its bind."""
-    try:
-        return _launch_once(role, outdir, world, args)
-    except AssertionError as e:
-        if "address already in use" not in str(e).lower():
-            raise
-        return _launch_once(role, outdir, world, args)
 
 
 # ---------------------------------------------------------------- inputs

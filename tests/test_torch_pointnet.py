@@ -2,9 +2,9 @@
 mode: the ``pointnet++`` encoder, the ``interp`` decoder, the pointnet2 API
 layer, and the weight carry-over of the two ablation configurations.
 
-The configurations are built as ``chip_smoke.py`` builds them, from a
-shipped config with only the module swapped (``ablation``); here at small
-widths.  A (encoder ablation): ``pointnet++`` + ``crossatten``, type
+The configurations are built as ``tests/test_torch_graphs.py``'s
+``shipped_config`` builds them at the published widths, from a shipped
+config with only the module swapped (``ablation``); here at small widths.  A (encoder ablation): ``pointnet++`` + ``crossatten``, type
 ``arbitrary``; B (decoder ablation): ``pointnet++`` + ``interp``, type
 ``forward``.
 """

@@ -1,7 +1,9 @@
-"""One rank of ``tests/test_torch_parallel.py``'s multi-process runs.
+"""One rank of the multi-process runs of ``tests/test_torch_parallel.py``
+and ``tests/test_torch_card.py``, and :func:`launch`, which starts them.
 
     python -m tests.torch_parallel_runner parts OUTDIR
     python -m tests.torch_parallel_runner cli OUTDIR TRAIN_ARGS...
+    python -m tests.torch_parallel_runner card OUTDIR DTYPE [TRAIN_ARGS...]
 
 The launching test sets torchrun's environment (``RANK``, ``WORLD_SIZE``,
 ``LOCAL_RANK``, ``MASTER_ADDR``, ``MASTER_PORT``), or none for one process.
@@ -24,15 +26,31 @@ the last index is drawn, so a rank that assembles half of each batch would
 otherwise see other items than one process assembling all of it.  It
 writes ``OUTDIR/writes<r>.json``: how often this rank wrote the run's
 files.
+
+``card`` is a rank sharing the one card with the others: it joins a gloo
+group on ``cuda:0`` and takes two stage-2 steps of the shipped model in
+DTYPE through ``make_steps(group=...)`` on its rows (``float32`` through
+the kernels, ``float64`` through the plain path, :class:`plain_on_card`).
+It writes to ``OUTDIR/card<r>.pt`` the launches of each step, its state
+after each and, of the first, the canonicalised points and their
+gradients (``FlowArbitrary.canonicalize``'s outputs).  Given TRAIN_ARGS it
+then runs ``cli`` on the same group (``--device cuda:0`` among them).
 """
 
+import contextlib
 import json
 import os
+import socket
+import subprocess
 import sys
+import threading
 
 import numpy as np
 import torch
 import torch.distributed as dist
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+TIMEOUT = 120  # seconds for one launch of the ranks on the CPU
 
 
 # the step runs that ``parts`` also takes on the captured contract
@@ -193,6 +211,142 @@ def cli(outdir, argv):
         json.dump(writes, f)
 
 
+class plain_on_card:
+    """Within this context the model's attention and FPS take their plain
+    PyTorch versions on CUDA tensors too, so that a model in float64 runs
+    on the card.  The neighbours are selected in float32 from the float32
+    coordinates, as K1 selects them, and FPS picks in float32 as K3 does,
+    so every selection is the card's."""
+
+    def __enter__(self):
+        from nsdp_tpu_torch.nn import blocks
+        from nsdp_tpu_torch.ops import attention, fps
+        from nsdp_tpu_torch.ops.knn import mask_penalty, select
+
+        def attend(xyz_q, kv_xyz, q_feats, K_a, V_a, *weights, k, k_glob=None, v_glob=None,
+                   kv_mask=None):
+            k = min(k, kv_xyz.shape[1])
+            penalty = None if kv_mask is None else mask_penalty(kv_mask.float())
+            idx = select(xyz_q.float(), kv_xyz.float(), k, penalty)[0]
+            return attention.fused_vector_attention_plain(
+                xyz_q, kv_xyz, q_feats, K_a, V_a, *weights, k, k_glob, v_glob, idx=idx)
+
+        self.saved = blocks.fused_vector_attention, blocks.furthest_point_sample
+        blocks.fused_vector_attention = attend
+        blocks.furthest_point_sample = fps.furthest_point_sample_plain
+        return self
+
+    def __exit__(self, *exc):
+        from nsdp_tpu_torch.nn import blocks
+
+        blocks.fused_vector_attention, blocks.furthest_point_sample = self.saved
+
+
+def card(outdir, dtype, argv):
+    from nsdp_tpu_torch import parallel
+    from nsdp_tpu_torch.models import build_model, init_random
+    from nsdp_tpu_torch.ops import attention, fps
+    from nsdp_tpu_torch.training import make_steps, optimizer_factory
+    from nsdp_tpu_torch.utils.config import load_config
+    from tests.test_torch_graphs import train_batch
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo")
+    dtype = getattr(torch, dtype)
+    cfg = load_config(os.path.join(REPO, "configs", "deform4d", "arbitrary.yaml"))
+    model = init_random(build_model(cfg, device="cuda"), 2, out_scale=0.01).to(dtype)
+    schedule, opt = optimizer_factory(cfg["training"], model.parameters())
+    steps = make_steps(model, "arbitrary", opt, device="cuda", group=dist.group.WORLD)
+    counters = lambda: (attention.fused_vector_attention.launches,
+                        attention.fused_vector_attention_backward.launches,
+                        fps.furthest_point_sample.launches)
+    canonicalize, record, cot = model.canonicalize, {}, [None, None]
+
+    def recording(*args, **kwargs):
+        out = canonicalize(*args, **kwargs)
+        for i, t in enumerate(out):
+            t.register_hook(lambda g, i=i: cot.__setitem__(i, g.detach().cpu()))
+        record["cano"] = [t.detach().cpu() for t in out]
+        return out
+
+    rng, out = np.random.RandomState(7), {"launches": [], "losses": []}
+    with plain_on_card() if dtype == torch.float64 else contextlib.nullcontext():
+        for i in range(2):
+            batch = train_batch(rng, 8, 5000, 5000)
+            model.canonicalize = recording if i == 0 else canonicalize
+            before = counters()
+            out["losses"].append(steps["train_step"](parallel.local_slice(batch, 8),
+                                                     schedule.get_learning_rate(0)))
+            out["launches"].append(tuple(a - b for a, b in zip(counters(), before)))
+            out[f"step{i + 1}"] = {k: v.cpu() for k, v in _state(model, opt).items()}
+    out["step1"].update(cano=record["cano"], cot=cot)
+    torch.save(out, _rank_file(outdir, "card") + ".pt")
+    if argv:
+        cli(outdir, argv)
+    if dist.is_initialized():
+        dist.destroy_process_group()
+
+
+def _free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def _launch_once(role, outdir, world, args, timeout):
+    port = _free_port()
+    procs = []
+    for r in range(world):
+        env = {k: v for k, v in os.environ.items()
+               if k not in ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR", "MASTER_PORT")}
+        if world > 1:
+            env.update(RANK=str(r), WORLD_SIZE=str(world), LOCAL_RANK=str(r),
+                       MASTER_ADDR="localhost", MASTER_PORT=str(port))
+        env.update(OMP_NUM_THREADS="1")
+        procs.append(subprocess.Popen(
+            [sys.executable, "-m", "tests.torch_parallel_runner", role, str(outdir), *args],
+            cwd=REPO, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    outs = [""] * world
+
+    def drain(r):
+        outs[r] = procs[r].stdout.read()
+        procs[r].wait()
+
+    threads = [threading.Thread(target=drain, args=(r,), daemon=True) for r in range(world)]
+    try:
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=timeout)
+        if any(t.is_alive() for t in threads):
+            raise subprocess.TimeoutExpired(procs[0].args, timeout)
+        for r, p in enumerate(procs):
+            assert p.returncode == 0, f"rank {r} failed (rc={p.returncode}):\n{outs[r][-4000:]}"
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+    return outs
+
+
+def launch(role, outdir, world, args=(), timeout=TIMEOUT):
+    """``world`` ranks of this runner (one: no distributed environment) to
+    completion, each within ``timeout`` seconds -> their outputs.  The
+    pipes are drained concurrently and every process is killed on any
+    failure path: a rank left in a collective would wait out gloo's
+    timeout.  Once more on a fresh port if the store's port was taken
+    between its probe and its bind."""
+    try:
+        return _launch_once(role, outdir, world, args, timeout)
+    except AssertionError as e:
+        if "address already in use" not in str(e).lower():
+            raise
+        return _launch_once(role, outdir, world, args, timeout)
+
+
 if __name__ == "__main__":
     role, outdir, *rest = sys.argv[1:]
-    parts(outdir) if role == "parts" else cli(outdir, rest)
+    {"parts": lambda: parts(outdir), "cli": lambda: cli(outdir, rest),
+     "card": lambda: card(outdir, rest[0], rest[1:])}[role]()
