@@ -58,15 +58,30 @@
 //     at D = 256, against 227 KB of shared memory), so bwd_rows_kernel
 //     writes the operand rows X and Y of each to a workspace (rows of
 //     pad8(D) floats, and 4 for the position delta), and one wgrad_kernel
-//     launch reduces all four [X | 1]^T Y on the tensor cores in 3xTF32:
-//     64 x 64 output tiles, split over row chunks into partials that
-//     wgrad_sum_kernel adds in a fixed order, compensated (deterministic),
-//     the rows streaming through a 4-deep cp.async ring, so that several
-//     chunks' loads are in flight.  The column of ones beside X makes the
-//     bias gradient the tile's last row.
+//     launch reduces all four [X | 1]^T Y, then wgrad_sum_kernel adds its
+//     per-split partials in a fixed order, compensated (deterministic; no
+//     atomics).  Each D-wide reduction runs transposed, Y^T [X | 1], on
+//     3xTF32 wgmma.m64nNk8: A = Y^T split in registers from staged rows, B =
+//     [X | 1] (the ones column gives the bias row) split into hi and lo and
+//     laid out K-major in shared memory per 32-row chunk, since tf32 wgmma
+//     reads only K-major operands there.  A block is a producer warpgroup
+//     (one thread stages each chunk of Y and X by two TMA boxes on a ring of
+//     four slots; three warps split) and two consumer warpgroups (64 Y
+//     columns each, N = 64-104 [X | 1] columns, two accumulator chains of
+//     half N), which split their share of chunk i + 2 under chunk i's
+//     products, issue in turn and chain a chunk's four k-steps in the
+//     accumulators; chunk sums are added 16 at a time into the running sum.
+//     The 4-wide [dx | 1] job runs in the same launch on the CUDA cores.
+//     Row splits give one block an SM in one wave.  What bounds it: the SMs'
+//     issue slots -- splitting B (~10 instructions an element on one warp a
+//     sub-partition) and the consumers' own work around the products -- not
+//     the tensor cores (a chunk ~2,200 cycles at the decoder against ~1,250
+//     of tensor work) nor the bytes (PERF.md).
 
+#include <cuda.h>
 #include <cuda_runtime.h>
 
+#include <algorithm>
 #include <cstdint>
 
 #include "rows_mma.cuh"
@@ -77,12 +92,6 @@ using namespace rows;
 
 constexpr int kKMax = 32;  // largest k, and most slots (k and the global slot)
 constexpr int kDMax = 256; // largest channel width
-constexpr int kWT = 64;    // output tile edge of the weight-gradient reduction
-constexpr int kWR = 32;    // rows per staged chunk of the reduction
-constexpr int kWP = kWT + 8;  // staged row pitch, 8 mod 32: fragment loads meet no conflicts
-constexpr int kWStages = 4;   // staged chunks in flight
-constexpr size_t kWSmemBytes = (size_t)kWStages * 2 * kWR * kWP * sizeof(float);
-
 // Workspace arrays, each (R, pad8(D)) with R = B * Nq * S rows in (b, query,
 // slot) order, followed by the (R, 4) position deltas.
 enum { kWsHd, kWsDpos, kWsU, kWsDzg, kWsHg, kWsDl, kWsDzd, kWsArrays };
@@ -463,153 +472,331 @@ __global__ void __launch_bounds__(128 * NWG, NWG == 2 ? 2 : 1) bwd_rows_kernel(c
 }
 
 // ---- weight gradients: [X | 1]^T Y on the tensor cores ------------------------
+//
+// Each D-wide reduction C = [X | 1]^T Y runs as its transpose C^T = Y^T
+// [X | 1] on wgmma.m64nNk8 in 3xTF32: A = Y^T from registers (64 Y columns a
+// warpgroup), B = [X | 1] from shared memory, N of its columns, so that the
+// column of ones (the bias gradient, C's last row) sits in N, which takes
+// any multiple of 8.  A block owns one job's Y columns [m0, m0 + kWM) (two
+// consumer warpgroups of 64) by [X | 1] columns [n0, n0 + 8 NW) (NW =
+// wgrad_width(D)) over one row split.  The 4-wide [dx | 1] job (`light`
+// blocks of the same launch) runs on the CUDA cores: a consumer thread per Y
+// column and row parity, four fmaf a row.
+//
+// A producer warpgroup feeds them.  Its first thread stages each kWK-row
+// chunk of the block's Y and X columns into a raw slot, a 2-D box of each
+// by the TMA (a tensor map per array, zero past its rows and columns, so no
+// edge needs a test), on the slot's full mbarrier.  Splitting B -- X's rows
+// into TF32 hi and lo, with the ones column, in the K-major core-matrix
+// order wgmma reads (weight_frags_kernel's, per chunk), into a split slot
+// -- is ~10 instructions an element in dependent chains: the producer's
+// warps 1-3 alone took ~2,300 cycles a chunk (one warp a sub-partition
+// hides no latency), so the consumers' eight warps take a share too, of
+// chunk i + 2 while chunk i's products run.  The consumers load their A
+// fragments from the raw Y rows and split them in registers, then chain
+// the chunk's four k-steps, three products each, in two accumulators (the
+// two halves of N: the tensor cores overlap independent chains; one chain
+// ran at ~75 cycles an m64n104k8 against ~57 for two), and wait once a
+// chunk.  Chunk sums are added up apart 16 at a time and each 16's into the
+// running sum (Kahan's four operations per element and chunk were the
+// consumers' largest share of issue slots).  Empty mbarriers hand the
+// slots back; the two warpgroups issue their chunks' products in turn
+// (turn mbarriers), so that one's adds and loads run under the other's
+// products.  The producer warpgroup gives up registers (setmaxnreg) for the
+// consumers' accumulators.
+constexpr int kWK = 32;           // workspace rows per staged chunk: four k-steps
+constexpr int kWM = 128;          // Y columns of a block: two consumer warpgroups of 64
+constexpr int kWYP = kWM + 8;     // staged Y row pitch, 8 mod 32: A-fragment loads meet no conflicts
+constexpr int kWRaw = 4;          // raw chunk slots
+constexpr int kWSplit = 3;        // split chunk slots
+constexpr int kWFold = 16;        // chunks summed apart before the running sum takes them
+constexpr int kWThreads = 384;    // a producer warpgroup and two consumer warpgroups
+constexpr int kWSplitters = 96 + 256;  // the producer's warps 1-3 and the consumers' 8
+// Registers a thread after setmaxnreg: 128 kWProducerRegs + 256 kWConsumerRegs
+// may not pass the 384 x 168 the block was launched with, or the consumers'
+// setmaxnreg.inc waits for registers that never come.
+constexpr int kWProducerRegs = 56, kWConsumerRegs = 224;
+static_assert(128 * kWProducerRegs + 256 * kWConsumerRegs <= kWThreads * 168, "register split");
 
-// One of the four reductions: X (R, xp) with Dx live columns, Y (R, yp),
-// into rows [out_row, out_row + Dx + 1) of the (3 D + 7, D) output.
-struct WgradJob {
-  const float* X;
-  const float* Y;
-  int xp, Dx, out_row, tiles_m;
-};
-struct WgradParams {
-  WgradJob job[4];
-  int yp, Dy, tiles_n, R, chunk, out_rows;
-  float* partial;  // (splits, out_rows, Dy)
-};
-
-// partial[z] = [X | 1]^T Y over rows [z * chunk, (z + 1) * chunk) for one
-// 64 x 64 output tile (blockIdx.x counts the tiles of the four jobs).  The
-// rows arrive kWR at a time through a kWStages-deep cp.async ring (rows past
-// the end and columns past the array zero-filled), so several chunks' loads
-// are in flight while one is reduced.  Warp (wm, wn) owns 32 x 16 of the
-// tile: 2 x 2 mma tiles, 3xTF32 with both operands split as they are
-// loaded.  A sum runs over up to ~10^5 rows per chunk, so each 8-row k-step
-// is summed apart into its kWR-row chunk's sum, and each chunk's into the
-// running sum with Kahan's compensation.
-__global__ void __launch_bounds__(kThreads, 2) wgrad_kernel(const WgradParams p) {
-  extern __shared__ float4 wsmem4[];
-  float* wsmem = reinterpret_cast<float*>(wsmem4);  // kWStages x (xs, ys), each kWR x kWP
-  int tile = blockIdx.x;
-  WgradJob job = p.job[3];
-#pragma unroll
-  for (int q = 0; q < 3; ++q) {
-    const int n = p.job[q].tiles_m * p.tiles_n;
-    if (tile < n) {
-      job = p.job[q];
-      break;
-    }
-    tile -= n;
-  }
-  const float* X = job.X;
-  const float* Y = job.Y;
-  const int xp = job.xp;
-  const int m0 = (tile / p.tiles_n) * kWT, n0 = (tile % p.tiles_n) * kWT;
-  const int r_begin = blockIdx.y * p.chunk, r_end = min(p.R, r_begin + p.chunk);
-  const int n_chunks = r_end > r_begin ? (r_end - r_begin + kWR - 1) / kWR : 0;
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32, g = lane / 4, t = lane % 4;
-  const int wm = warp / 4, wn = warp % 4;
-
-  // a thread's two 16-byte pieces of each operand in a chunk: row e / 16,
-  // columns 4 (e % 16) ...
-  auto stage = [&](int i) {
-    if (i < n_chunks) {
-      float* xs = wsmem + (i % kWStages) * 2 * kWR * kWP;
-      float* ys = xs + kWR * kWP;
-#pragma unroll
-      for (int u = 0; u < 2; ++u) {
-        const int e = tid + u * kThreads, rr = e / 16, c = (e % 16) * 4, r = r_begin + i * kWR + rr;
-        const bool xv = r < r_end && m0 + c < xp, yv = r < r_end && n0 + c < p.yp;
-        cp_async16_zfill(xs + rr * kWP + c, xv ? X + (size_t)r * xp + m0 + c : X, xv);
-        cp_async16_zfill(ys + rr * kWP + c, yv ? Y + (size_t)r * p.yp + n0 + c : Y, yv);
-      }
-    }
-    cp_async_commit();
-  };
-
-  float acc[2][2][4], comp[2][2][4];
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 2; ++j)
-#pragma unroll
-      for (int c = 0; c < 4; ++c) acc[i][j][c] = comp[i][j][c] = 0.0f;
-  // [X | 1]: this thread's A columns m and m + 8 of each m-tile that are the ones column
-  bool ones[2][2];
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int h = 0; h < 2; ++h) ones[i][h] = m0 + wm * 32 + i * 16 + g + 8 * h == job.Dx;
-
-#pragma unroll
-  for (int i = 0; i < kWStages - 1; ++i) stage(i);
-  for (int it = 0; it < n_chunks; ++it) {
-    cp_async_wait<kWStages - 2>();
-    __syncthreads();  // chunk it has landed; every warp is done with chunk it - 1
-    stage(it + kWStages - 1);
-    const float* xs = wsmem + (it % kWStages) * 2 * kWR * kWP;
-    const float* ys = xs + kWR * kWP;
-    float step[2][2][4];
-#pragma unroll
-    for (int i = 0; i < 2; ++i)
-#pragma unroll
-      for (int j = 0; j < 2; ++j)
-#pragma unroll
-        for (int c = 0; c < 4; ++c) step[i][j][c] = 0.0f;
-#pragma unroll 1
-    for (int k0 = 0; k0 < kWR; k0 += 8) {
-      uint32_t a_hi[2][4], a_lo[2][4], b_hi[2][2], b_lo[2][2];
-#pragma unroll
-      for (int i = 0; i < 2; ++i) {  // A[m][kk] = [X | 1][kk][m]
-        const int m = wm * 32 + i * 16 + g;
-        split_tf32(ones[i][0] ? 1.0f : xs[(k0 + t) * kWP + m], a_hi[i][0], a_lo[i][0]);
-        split_tf32(ones[i][1] ? 1.0f : xs[(k0 + t) * kWP + m + 8], a_hi[i][1], a_lo[i][1]);
-        split_tf32(ones[i][0] ? 1.0f : xs[(k0 + t + 4) * kWP + m], a_hi[i][2], a_lo[i][2]);
-        split_tf32(ones[i][1] ? 1.0f : xs[(k0 + t + 4) * kWP + m + 8], a_hi[i][3], a_lo[i][3]);
-      }
-#pragma unroll
-      for (int j = 0; j < 2; ++j) {  // B[kk][n] = Y[kk][n]
-        const int n = wn * 16 + j * 8 + g;
-        split_tf32(ys[(k0 + t) * kWP + n], b_hi[j][0], b_lo[j][0]);
-        split_tf32(ys[(k0 + t + 4) * kWP + n], b_hi[j][1], b_lo[j][1]);
-      }
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-#pragma unroll
-        for (int j = 0; j < 2; ++j) {  // each k-step summed apart (rows_mma.cuh)
-          float t8[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-          mma_3xtf32(t8, a_hi[i], a_lo[i], b_hi[j][0], b_hi[j][1], b_lo[j][0], b_lo[j][1]);
-#pragma unroll
-          for (int c = 0; c < 4; ++c) step[i][j][c] += t8[c];
-        }
-    }
-#pragma unroll
-    for (int i = 0; i < 2; ++i)
-#pragma unroll
-      for (int j = 0; j < 2; ++j)
-#pragma unroll
-        for (int c = 0; c < 4; ++c) kahan_add(acc[i][j][c], comp[i][j][c], step[i][j][c]);
-  }
-  cp_async_wait<0>();
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 2; ++j)
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        const int m = m0 + wm * 32 + i * 16 + g + 8 * (c >> 1);
-        const int n = n0 + wn * 16 + j * 8 + 2 * t + (c & 1);
-        if (m <= job.Dx && n < p.Dy)
-          p.partial[((size_t)blockIdx.y * p.out_rows + job.out_row + m) * p.Dy + n] = acc[i][j][c];
-      }
+// The [X | 1] width (8-column groups) of a block of the D-wide jobs: of the
+// widths the kernel is built for, the one that pads pad8(D + 1) least, the
+// widest of equals.
+int wgrad_width(int D) {
+  const int groups = pad8(D + 1) / 8;
+  const auto padded = [groups](int nw) { return (groups + nw - 1) / nw * nw; };
+  return padded(8) < std::min(padded(11), padded(13)) ? 8 : padded(11) < padded(13) ? 11 : 13;
 }
 
-// out[e] = sum_z partial[z][e], in a fixed order, compensated.
-__global__ void wgrad_sum_kernel(const float* __restrict__ partial, int splits, int n,
+// Shared memory of wgrad_kernel<NW>: raw slots (kWK Y rows of pitch kWYP,
+// then kWK X rows of pitch N), split slots (kWK rows x N, hi and lo), the
+// full and empty mbarriers of each, and the consumers' two turn mbarriers.
+template <int NW>
+struct WgradSmem {
+  static constexpr int N = 8 * NW;
+  static constexpr int kRaw = kWK * (kWYP + N);
+  static constexpr int kSplit = kWK * 2 * N;
+  static constexpr size_t kBytes =
+      (size_t)(kWRaw * kRaw + kWSplit * kSplit) * sizeof(float) + (2 * (kWRaw + kWSplit) + 2) * 8;
+};
+
+// The four reductions: job 0 [dx | 1] (light), then the three D-wide ones.
+// A job's X (R, xp) has Dx live columns; its Y is (R, pad8(D)).  Their
+// tensor maps stage kWK-row boxes (Y: kWYP columns from m0; X: N columns
+// from n0, or dx's 4), zero past the arrays; the partial sums of job q lie
+// at partial_offset(q, ...), (splits, Dx + 1, D).
+struct WgradParams {
+  CUtensorMap xmap[4], ymap[4];
+  float* partial;
+  int R, D;
+  int groups, tiles;               // kWM-column groups of Y; N-column tiles of a D-wide [X | 1]
+  int splits, rows;                // row splits of the D-wide jobs, rows a split (kWK multiples)
+  int splits0, rows0;              // the same for [dx | 1]
+};
+
+__host__ __device__ __forceinline__ size_t partial_offset(int q, int D, int splits, int splits0) {
+  return q == 0 ? 0 : (size_t)splits0 * 4 * D + (size_t)(q - 1) * splits * (D + 1) * D;
+}
+
+// The 2-D box at (column c0, row c1) of map into dst, counted on bar.
+__device__ __forceinline__ void tma_box(void* dst, const CUtensorMap* map, int c0, int c1,
+                                        uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.tile.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%2, %3}], [%4];\n" ::"r"(smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(smem_addr(bar))
+      : "memory");
+}
+
+// Rows [4 kq, 4 kq + 4) of a chunk's B = [X | 1] columns n0 ..., split, for
+// each (column, kq) of this thread: xs holds X's box (pitch NB); columns past
+// Dx zero, column Dx ones (rows past the array meet zero rows of Y); part q
+// of B[8 kc + 4 h + e][8 g + i] at kc 16 NB + q 8 NB + g 64 + h 32 + i 4 + e.
+template <int NB, int kBatch>
+__device__ __forceinline__ void wgrad_split_chunk(const float* xs, float* out, int n0, int Dx, int th) {
+  constexpr int kItems = NB * (kWK / 4);
+  constexpr int kIters = (kItems + kWSplitters - 1) / kWSplitters;
+#pragma unroll
+  for (int j0 = 0; j0 < kIters; j0 += kBatch) {
+    // a batch's loads first: the stores that follow may not pass them
+    float v[kBatch][4];
+#pragma unroll
+    for (int j = 0; j < kBatch; ++j) {
+      const int e = th + (j0 + j) * kWSplitters, n = e % NB, kq = e / NB, gn = n0 + n;
+      const bool live = j0 + j < kIters && (kItems % kWSplitters == 0 || e < kItems);
+#pragma unroll
+      for (int x = 0; x < 4; ++x)
+        v[j][x] = live && gn < Dx ? xs[(4 * kq + x) * NB + n] : gn == Dx ? 1.0f : 0.0f;
+    }
+#pragma unroll
+    for (int j = 0; j < kBatch; ++j) {
+      const int e = th + (j0 + j) * kWSplitters, n = e % NB, kq = e / NB;
+      if (j0 + j >= kIters || (kItems % kWSplitters != 0 && e >= kItems)) break;
+      uint32_t hi[4], lo[4];
+#pragma unroll
+      for (int x = 0; x < 4; ++x) split_tf32(v[j][x], hi[x], lo[x]);
+      float* o = out + (kq / 2) * 16 * NB + (n / 8) * 64 + (kq % 2) * 32 + (n % 8) * 4;
+      *reinterpret_cast<uint4*>(o) = make_uint4(hi[0], hi[1], hi[2], hi[3]);
+      *reinterpret_cast<uint4*>(o + 8 * NB) = make_uint4(lo[0], lo[1], lo[2], lo[3]);
+    }
+  }
+}
+
+// partial[z] = [X | 1]^T Y over row split z for one block's columns; see above.
+template <int NW>
+__global__ void __launch_bounds__(kWThreads, 1) wgrad_kernel(const __grid_constant__ WgradParams p) {
+  using L = WgradSmem<NW>;
+  constexpr int N = L::N;
+  extern __shared__ __align__(128) float4 wsmem4[];
+  float* raw = reinterpret_cast<float*>(wsmem4);
+  float* split = raw + kWRaw * L::kRaw;
+  uint64_t* raw_full = reinterpret_cast<uint64_t*>(split + kWSplit * L::kSplit);
+  uint64_t* raw_empty = raw_full + kWRaw;
+  uint64_t* split_full = raw_empty + kWRaw;
+  uint64_t* split_empty = split_full + kWSplit;
+  uint64_t* turn = split_empty + kWSplit;  // turn[w]: consumer warpgroup w may issue
+
+  // the block's job q, Y columns [m0, m0 + kWM), [X | 1] columns [n0, n0 + N) and rows
+  const int heavy = 3 * p.groups * p.tiles;
+  int b = blockIdx.x, z, q, n0, rows;
+  const bool light = b >= heavy * p.splits;
+  if (!light) {
+    z = b / heavy;
+    b -= z * heavy;
+    q = 1 + b / (p.groups * p.tiles);
+    n0 = (b % p.tiles) * N;
+    b = (b / p.tiles) % p.groups;
+    rows = p.rows;
+  } else {
+    b -= heavy * p.splits;
+    z = b / p.groups;
+    b -= z * p.groups;
+    q = n0 = 0;
+    rows = p.rows0;
+  }
+  const int D = p.D, Dx = q == 0 ? 3 : D, m0 = b * kWM, r0 = z * rows, r1 = min(p.R, r0 + rows);
+  const int n_chunks = r1 > r0 ? (r1 - r0 + kWK - 1) / kWK : 0;
+  float* partial = p.partial + partial_offset(q, D, p.splits, p.splits0) + (size_t)z * (Dx + 1) * D;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  if (tid == 0) {
+    mbar_init(raw_full, kWRaw);
+    mbar_init(raw_empty, kWRaw, light ? 8 : 8 + 3);  // the consumers' warps, and the splitters'
+    mbar_init(split_full, kWSplit, 3 + 8);
+    mbar_init(split_empty, kWSplit, 8);
+    mbar_init(turn, 2, 4);
+  }
+  __syncthreads();
+
+  if (tid < 128) {  // the producer warpgroup
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kWProducerRegs) : "memory");
+    if (tid == 0) {  // stage chunk i: a box of Y's rows and one of X's
+      const int bytes = kWK * (kWYP + (light ? 4 : N)) * 4;
+      for (int i = 0; i < n_chunks; ++i) {
+        const int s = i % kWRaw;
+        if (i >= kWRaw) mbar_wait(raw_empty + s, (i / kWRaw - 1) & 1);
+        float* ys = raw + s * L::kRaw;
+        mbar_expect_tx(raw_full + s, bytes);
+        tma_box(ys, &p.ymap[q], m0, r0 + i * kWK, raw_full + s);
+        tma_box(ys + kWK * kWYP, &p.xmap[q], n0, r0 + i * kWK, raw_full + s);
+      }
+    } else if (warp > 0 && !light) {  // split chunk i's [X | 1] into the K-major hi / lo order
+      for (int i = 0; i < n_chunks; ++i) {
+        const int s = i % kWRaw, c = i % kWSplit;
+        mbar_wait(raw_full + s, (i / kWRaw) & 1);
+        if (i >= kWSplit) mbar_wait(split_empty + c, (i / kWSplit - 1) & 1);
+        wgrad_split_chunk<N, 2>(raw + s * L::kRaw + kWK * kWYP, split + c * L::kSplit, n0, Dx, tid - 32);
+        fence_proxy_async();
+        __syncwarp();
+        if (lane == 0) {
+          mbar_arrive(split_full + c);
+          mbar_arrive(raw_empty + s);
+        }
+      }
+    }
+  } else if (light) {  // [dx | 1]^T Y on the CUDA cores: Y column c / 2, rows of parity c % 2
+    const int c2 = tid - 128, col = c2 / 2, half = c2 % 2;
+    float sum[4] = {0.0f, 0.0f, 0.0f, 0.0f}, comp[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+    for (int i = 0; i < n_chunks; ++i) {
+      const int s = i % kWRaw;
+      mbar_wait(raw_full + s, (i / kWRaw) & 1);
+      const float* ys = raw + s * L::kRaw;
+      const float* xs = ys + kWK * kWYP;
+      float part[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+#pragma unroll 4
+      for (int k = half; k < kWK; k += 2) {
+        const float y = ys[k * kWYP + col];
+        const float4 d = *reinterpret_cast<const float4*>(xs + 4 * k);
+        part[0] = fmaf(d.x, y, part[0]);
+        part[1] = fmaf(d.y, y, part[1]);
+        part[2] = fmaf(d.z, y, part[2]);
+        part[3] += y;
+      }
+      __syncwarp();
+      if (lane == 0) mbar_arrive(raw_empty + s);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) kahan_add(sum[j], comp[j], part[j]);
+    }
+#pragma unroll
+    for (int j = 0; j < 4; ++j) sum[j] += __shfl_xor_sync(0xffffffffu, sum[j], 1);
+    if (half == 0 && m0 + col < D)
+#pragma unroll
+      for (int n = 0; n < 4; ++n) partial[(size_t)n * D + m0 + col] = sum[n];
+  } else {  // two consumer warpgroups: Y columns m0 + 64 (wg - 1) ...
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kWConsumerRegs) : "memory");
+    const int g = lane / 4, t = lane % 4, cw = tid / 128 - 1;
+    const int col = 64 * cw + 16 * (warp % 4) + g;  // A rows col, col + 8
+    constexpr int NA = (NW + 1) / 2, NB = NW - NA;  // n-tiles of the two chains
+    float acc_a[4 * NA], acc_b[4 * NB], part[4 * NW], sum[4 * NW];
+#pragma unroll
+    for (int j = 0; j < 4 * NW; ++j) part[j] = sum[j] = 0.0f;
+#pragma unroll
+    for (int j = 0; j < 4 * NA; ++j) acc_a[j] = 0.0f;
+#pragma unroll
+    for (int j = 0; j < 4 * NB; ++j) acc_b[j] = 0.0f;
+    // this thread's share of chunk j's split, once its raw rows have landed
+    // and both warpgroups are done with its split slot's last chunk
+    const auto split_share = [&](int j) {
+      const int s = j % kWRaw, c = j % kWSplit;
+      mbar_wait(raw_full + s, (j / kWRaw) & 1);
+      if (j >= kWSplit) mbar_wait(split_empty + c, (j / kWSplit - 1) & 1);
+      wgrad_split_chunk<N, 1>(raw + s * L::kRaw + kWK * kWYP, split + c * L::kSplit, n0, Dx, tid - 32);
+      fence_proxy_async();
+      __syncwarp();
+      if (lane == 0) mbar_arrive(split_full + c);
+    };
+    for (int j = 0; j < 2 && j < n_chunks; ++j) split_share(j);
+    for (int i = 0; i < n_chunks; ++i) {
+      const int s = i % kWRaw, c = i % kWSplit;
+      mbar_wait(split_full + c, (i / kWSplit) & 1);
+      mbar_wait(raw_full + s, (i / kWRaw) & 1);
+      const float* ys = raw + s * L::kRaw + t * kWYP + col;
+      uint32_t a_hi[kWK / 8][4], a_lo[kWK / 8][4];
+#pragma unroll
+      for (int kk = 0; kk < kWK / 8; ++kk) {  // A[m][k] = Y[8 kk + k][m0 + m]
+        const float* y = ys + 8 * kk * kWYP;
+        split_tf32(y[0], a_hi[kk][0], a_lo[kk][0]);
+        split_tf32(y[8], a_hi[kk][1], a_lo[kk][1]);
+        split_tf32(y[4 * kWYP], a_hi[kk][2], a_lo[kk][2]);
+        split_tf32(y[4 * kWYP + 8], a_hi[kk][3], a_lo[kk][3]);
+      }
+      __syncwarp();
+      if (lane == 0) mbar_arrive(raw_empty + s);
+      const float* bs = split + c * L::kSplit;
+      // the warpgroups issue in turn, 0 then 1 each chunk, so that one's
+      // adds and loads run under the other's products
+      if (cw == 1 || i > 0) mbar_wait(turn + cw, (cw == 0 ? i - 1 : i) & 1);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kWK / 8; ++kk) {  // two chains, the columns' halves, interleaved
+        const float* b_hi = bs + kk * 16 * N;
+        Wgmma<NA>::mma(acc_a, a_lo[kk], smem_desc(b_hi), kk > 0);
+        Wgmma<NB>::mma(acc_b, a_lo[kk], smem_desc(b_hi + 64 * NA), kk > 0);
+        Wgmma<NA>::mma(acc_a, a_hi[kk], smem_desc(b_hi + 8 * N), 1);
+        Wgmma<NB>::mma(acc_b, a_hi[kk], smem_desc(b_hi + 8 * N + 64 * NA), 1);
+        Wgmma<NA>::mma(acc_a, a_hi[kk], smem_desc(b_hi), 1);
+        Wgmma<NB>::mma(acc_b, a_hi[kk], smem_desc(b_hi + 64 * NA), 1);
+      }
+      wgmma_commit();
+      __syncwarp();
+      if (lane == 0) mbar_arrive(turn + 1 - cw);
+      if (i + 2 < n_chunks) split_share(i + 2);  // under the products
+      wgmma_wait0();
+      fence_regs(acc_a);
+      fence_regs(acc_b);
+      __syncwarp();
+      if (lane == 0) mbar_arrive(split_empty + c);
+#pragma unroll
+      for (int j = 0; j < 4 * NW; ++j) part[j] += j < 4 * NA ? acc_a[j] : acc_b[j - 4 * NA];
+      if (i % kWFold == kWFold - 1 || i == n_chunks - 1) {
+#pragma unroll
+        for (int j = 0; j < 4 * NW; ++j) {
+          sum[j] += part[j];
+          part[j] = 0.0f;
+        }
+      }
+    }
+    // C[n][m] = C^T[m][n]: the D fragment's rows col (+ 8), columns 8 j + 2 t (+ 1)
+#pragma unroll
+    for (int j = 0; j < NW; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int m = m0 + col + 8 * (e >> 1), n = n0 + 8 * j + 2 * t + (e & 1);
+        if (m < D && n <= Dx) partial[(size_t)n * D + m] = sum[4 * j + e];
+      }
+  }
+}
+
+// wgrads[e] = the sum over its job's row splits of the partials, in a fixed
+// order, compensated.
+__global__ void wgrad_sum_kernel(const float* __restrict__ partial, int D, int splits, int splits0,
                                  float* __restrict__ out) {
   const int e = blockIdx.x * blockDim.x + threadIdx.x;
-  if (e >= n) return;
+  if (e >= (3 * D + 7) * D) return;
+  const int o = e / D, d = e - o * D;
+  const int q = o < 4 ? 0 : 1 + (o - 4) / (D + 1), r = o < 4 ? o : (o - 4) % (D + 1);
+  const int rows = q == 0 ? 4 : D + 1, n = q == 0 ? splits0 : splits;
+  const float* src = partial + partial_offset(q, D, splits, splits0) + (size_t)r * D + d;
   float sum = 0.0f, comp = 0.0f;
-  for (int z = 0; z < splits; ++z) kahan_add(sum, comp, partial[(size_t)z * n + e]);
+  for (int z = 0; z < n; ++z) kahan_add(sum, comp, src[(size_t)z * rows * D]);
   out[e] = sum;
 }
 
@@ -636,42 +823,92 @@ cudaError_t launch_rows(const Params& p, int device, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-// wgrads (3 D + 7, D) = the four [X | 1]^T Y, each X's rows followed by
-// its bias row, over R workspace rows, in `splits` row chunks.
-cudaError_t weight_gradients(const float* ws, int R, int D, int splits, float* partial,
-                             float* wgrads, int device, cudaStream_t stream) {
-  const int Dp = pad8(D);
-  const size_t RD = (size_t)R * Dp;
-  WgradParams w{};
-  const float* X[4] = {ws + kWsArrays * RD, ws + kWsHd * RD, ws + kWsU * RD, ws + kWsHg * RD};
-  const float* Y[4] = {ws + kWsDzd * RD, ws + kWsDpos * RD, ws + kWsDzg * RD, ws + kWsDl * RD};
-  const int Dx[4] = {3, D, D, D};
-  int out_row = 0, tiles = 0;
-  w.tiles_n = (D + kWT - 1) / kWT;
-  for (int q = 0; q < 4; ++q) {
-    w.job[q] = {X[q], Y[q], q == 0 ? 4 : Dp, Dx[q], out_row, (Dx[q] + 1 + kWT - 1) / kWT};
-    out_row += Dx[q] + 1;
-    tiles += w.job[q].tiles_m * w.tiles_n;
+// cuTensorMapEncodeTiled, looked up through the runtime (no link to libcuda).
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// A 2-D float32 map of `cols` columns (row pitch `pitch` floats) by R rows, in
+// boxes of box columns by kWK rows, zero past the array.
+cudaError_t encode_rows(CUtensorMap* map, const float* base, int cols, int pitch, int R, int box) {
+  static EncodeTiled encode = nullptr;
+  if (encode == nullptr) {
+    void* fn = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    const cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &fn, cudaEnableDefault, &found);
+    if (err != cudaSuccess) return failed(err);
+    if (found != cudaDriverEntryPointSuccess || fn == nullptr) return cudaErrorNotSupported;
+    encode = reinterpret_cast<EncodeTiled>(fn);
   }
-  w.yp = Dp;
-  w.Dy = D;
-  w.R = R;
-  w.chunk = ((R + splits - 1) / splits + kWR - 1) / kWR * kWR;
-  w.out_rows = out_row;
-  w.partial = partial;
+  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)R};
+  const cuuint64_t strides[1] = {(cuuint64_t)pitch * sizeof(float)};
+  const cuuint32_t boxes[2] = {(cuuint32_t)box, (cuuint32_t)kWK}, unit[2] = {1, 1};
+  const CUresult res = encode(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2, const_cast<float*>(base), dims,
+                              strides, boxes, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                              CU_TENSOR_MAP_SWIZZLE_NONE, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return res == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+template <int NW>
+cudaError_t launch_wgrad(const WgradParams& w, int blocks, int device, cudaStream_t stream) {
   static bool opted_in[kMaxDevices];
   if (!opted_in[device]) {
     const cudaError_t err = cudaFuncSetAttribute(
-        wgrad_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kWSmemBytes);
+        wgrad_kernel<NW>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)WgradSmem<NW>::kBytes);
     if (err != cudaSuccess) return failed(err);
     opted_in[device] = true;
   }
-  wgrad_kernel<<<dim3(tiles, splits), kThreads, kWSmemBytes, stream>>>(w);
-  cudaError_t err = cudaGetLastError();
+  wgrad_kernel<NW><<<blocks, kWThreads, WgradSmem<NW>::kBytes, stream>>>(w);
+  return cudaGetLastError();
+}
+
+size_t wgrad_smem_bytes(int D) {
+  switch (wgrad_width(D)) {
+    case 8: return WgradSmem<8>::kBytes;
+    case 11: return WgradSmem<11>::kBytes;
+    default: return WgradSmem<13>::kBytes;
+  }
+}
+
+// wgrads (3 D + 7, D) = the four [X | 1]^T Y, each X's rows followed by its
+// bias row, over R workspace rows: the D-wide jobs in `splits` row splits,
+// [dx | 1] in splits0; partial holds D (4 splits0 + 3 (D + 1) splits) floats.
+cudaError_t weight_gradients(const float* ws, int R, int D, int splits, int splits0,
+                             float* partial, float* wgrads, int device, cudaStream_t stream) {
+  const int Dp = pad8(D), NW = wgrad_width(D);
+  const size_t RD = (size_t)R * Dp;
+  const auto rows = [R](int n) { return ((R + n - 1) / n + kWK - 1) / kWK * kWK; };
+  WgradParams w{};
+  const int X[4] = {kWsArrays, kWsHd, kWsU, kWsHg}, Y[4] = {kWsDzd, kWsDpos, kWsDzg, kWsDl};
+  for (int q = 0; q < 4; ++q) {
+    cudaError_t err = encode_rows(&w.ymap[q], ws + Y[q] * RD, Dp, Dp, R, kWYP);
+    if (err == cudaSuccess)
+      err = q == 0 ? encode_rows(&w.xmap[q], ws + X[q] * RD, 4, 4, R, 4)
+                   : encode_rows(&w.xmap[q], ws + X[q] * RD, Dp, Dp, R, 8 * NW);
+    if (err != cudaSuccess) return err;
+  }
+  w.partial = partial;
+  w.R = R;
+  w.D = D;
+  w.groups = (D + kWM - 1) / kWM;
+  w.tiles = (pad8(D + 1) / 8 + NW - 1) / NW;
+  w.splits = splits;
+  w.rows = rows(splits);
+  w.splits0 = splits0;
+  w.rows0 = rows(splits0);
+  const int blocks = w.groups * (3 * w.tiles * splits + splits0);
+  cudaError_t err;
+  switch (NW) {
+    case 8: err = launch_wgrad<8>(w, blocks, device, stream); break;
+    case 11: err = launch_wgrad<11>(w, blocks, device, stream); break;
+    default: err = launch_wgrad<13>(w, blocks, device, stream); break;
+  }
   if (err != cudaSuccess) return err;
-  const int n = out_row * D;
-  wgrad_sum_kernel<<<(n + kThreads - 1) / kThreads, kThreads, 0, stream>>>(partial, splits, n,
-                                                                            wgrads);
+  const int n = (3 * D + 7) * D;
+  wgrad_sum_kernel<<<(n + kThreads - 1) / kThreads, kThreads, 0, stream>>>(partial, D, splits,
+                                                                            splits0, wgrads);
   return cudaGetLastError();
 }
 
@@ -684,10 +921,15 @@ const char* nsdp_error_string(int err) { return cudaGetErrorString((cudaError_t)
 // Bytes of shared memory bwd_rows_kernel takes at width D.
 long long nsdp_attention_bwd_smem(int D) { return (long long)rows_smem_bytes(D); }
 
+// Bytes of shared memory wgrad_kernel takes at width D, and its [X | 1]
+// width (8-column groups).
+long long nsdp_wgrad_smem(int D) { return (long long)wgrad_smem_bytes(D); }
+int nsdp_wgrad_width(int D) { return wgrad_width(D); }
+
 // dw0, dw1, gw0, gw1: (out, in) weights, contiguous.  dkv_xyz, dK, dV and
 // dglob are float64 and must be zeroed; wfrag holds 4 frag_floats(D) +
 // 2 pad8(D)^2 floats, ws B * Nq * S * (7 pad8(D) + 4) and partial
-// splits * (3 D + 7) * D.
+// D (4 splits0 + 3 (D + 1) splits): the weight gradients' row splits.
 // wgrads (3 D + 7, D) receives, in the (in, out) layout, [ddw0 (3 rows) |
 // ddb0 | ddw1 (D) | ddb1 | dgw0 (D) | dgb0 | dgw1 (D) | dgb1].
 int nsdp_fused_attention_bwd(
@@ -698,9 +940,9 @@ int nsdp_fused_attention_bwd(
     const float* gw0, const float* gb0, const float* gw1, const float* gb1,
     const float* g, float* dxyz_q, double* dkv_xyz, float* dq, double* dK, double* dV,
     double* dglob, float* wfrag, float* ws, float* partial, float* wgrads,
-    int B, int Nq, int M, int D, int k, int splits, int device, void* stream) {
+    int B, int Nq, int M, int D, int k, int splits, int splits0, int device, void* stream) {
   if (B < 1 || Nq < 1 || M < 1 || D < 1 || D > kDMax || k < 1 || k > kKMax || k > M ||
-      k + (k_glob ? 1 : 0) > kKMax || splits < 1 || device < 0 || device >= kMaxDevices)
+      k + (k_glob ? 1 : 0) > kKMax || splits < 1 || splits0 < 1 || device < 0 || device >= kMaxDevices)
     return (int)cudaErrorInvalidValue;
   const bool featured = q != nullptr;
   if ((K != nullptr) != featured || (V != nullptr) != featured || (dq != nullptr) != featured ||
@@ -734,7 +976,7 @@ int nsdp_fused_attention_bwd(
   }
   if (err != cudaSuccess) return (int)err;
   const int R = B * Nq * (k + (k_glob ? 1 : 0));
-  return (int)weight_gradients(ws, R, D, splits, partial, wgrads, device, s);
+  return (int)weight_gradients(ws, R, D, splits, splits0, partial, wgrads, device, s);
 }
 
 }  // extern "C"

@@ -1,6 +1,8 @@
 // Row-tile products on Hopper's tensor cores (wgmma), for the fused
-// attention's backward (attention_bwd.cu, K2), and for the forward's (K1)
-// broadcast path where no backward follows (attention.cu's tensor-core
+// attention's backward (attention_bwd.cu, K2: its row kernel; its
+// weight-gradient reduction takes the Wgmma shapes, the mbarrier and bulk
+// copy helpers and the TF32 split, and lays out its own operands), and for
+// the forward's (K1) broadcast path where no backward follows (attention.cu's tensor-core
 // attn_bcast_kernel: serving, sessions, predict, validation; the ring
 // engine at the end of this file).  A forward that a backward follows keeps
 // the f32 FFMA engines (rows_gemm.cuh, the FFMA attn_bcast_kernel): its
@@ -110,39 +112,6 @@ __device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) 
   lo = tf32_rna(x - __uint_as_float(hi));
 }
 
-// mma.sync, for the weight gradients' reduction (attention_bwd.cu's wgrad_kernel).
-__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, {%4, %5, %6, %7},"
-      " {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// 3xTF32: d += a b, with a and b given as their hi and lo parts.
-__device__ __forceinline__ void mma_3xtf32(float (&d)[4], const uint32_t (&a_hi)[4],
-                                           const uint32_t (&a_lo)[4], uint32_t b0_hi,
-                                           uint32_t b1_hi, uint32_t b0_lo, uint32_t b1_lo) {
-  mma_tf32(d, a_lo, b0_hi, b1_hi);
-  mma_tf32(d, a_hi, b0_lo, b1_lo);
-  mma_tf32(d, a_hi, b0_hi, b1_hi);
-}
-
-// 16 bytes from gmem if valid, else 16 zero bytes (gmem is not read).
-__device__ __forceinline__ void cp_async16_zfill(void* smem, const void* gmem, bool valid) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(gmem),
-               "r"(valid ? 16 : 0)
-               : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
 __device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const float* p) {
   const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(p));
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
@@ -156,22 +125,35 @@ __device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const float* p) {
 __device__ __forceinline__ unsigned smem_addr(const void* p) {
   return static_cast<unsigned>(__cvta_generic_to_shared(p));
 }
-// n mbarriers of one arrival each; by one thread, then a block barrier.
-__device__ __forceinline__ void mbar_init(uint64_t* bar, int n) {
+// n mbarriers of `count` arrivals each; by one thread, then a block barrier.
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int n, int count = 1) {
   for (int s = 0; s < n; ++s)
-    asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(smem_addr(bar + s)) : "memory");
+    asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_addr(bar + s)), "r"(count)
+                 : "memory");
   asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
 }
-// bytes (a multiple of 16) from src to dst, completing on bar's current phase.
-__device__ __forceinline__ void bulk_load(void* dst, const void* src, int bytes, uint64_t* bar) {
+// bytes expected on bar's current phase, with this thread's arrival.
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, int bytes) {
   asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_addr(bar)),
                "r"(bytes)
                : "memory");
+}
+// bytes (a multiple of 16) from src to dst, counted on bar (mbar_expect_tx).
+__device__ __forceinline__ void bulk_copy(void* dst, const void* src, int bytes, uint64_t* bar) {
   asm volatile(
       "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::"r"(
           smem_addr(dst)),
       "l"(src), "r"(bytes), "r"(smem_addr(bar))
       : "memory");
+}
+// bytes (a multiple of 16) from src to dst, completing on bar's current phase.
+__device__ __forceinline__ void bulk_load(void* dst, const void* src, int bytes, uint64_t* bar) {
+  mbar_expect_tx(bar, bytes);
+  bulk_copy(dst, src, bytes, bar);
+}
+// This thread's arrival on bar.
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_addr(bar)) : "memory");
 }
 // Until bar's phase of the given parity has completed.
 __device__ __forceinline__ void mbar_wait(uint64_t* bar, unsigned parity) {
@@ -181,6 +163,10 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, unsigned parity) {
       "@!done bra LAB_WAIT;\n}\n" ::"r"(smem_addr(bar)),
       "r"(parity)
       : "memory");
+}
+// This thread's shared-memory writes, seen by the tensor cores' reads that follow.
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
 // ---- wgmma ---------------------------------------------------------------
@@ -248,6 +234,23 @@ struct Wgmma<5> {  // m64n40k8
 };
 
 template <>
+struct Wgmma<6> {  // m64n48k8
+  static __device__ __forceinline__ void mma(float (&d)[24], const uint32_t (&a)[4],
+                                             uint64_t desc_b, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %29, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n48k8.f32.tf32.tf32 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23}, "
+        "{%24, %25, %26, %27}, %28, p, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(scale_d));
+  }
+};
+
+template <>
 struct Wgmma<7> {  // m64n56k8
   static __device__ __forceinline__ void mma(float (&d)[28], const uint32_t (&a)[4],
                                              uint64_t desc_b, int scale_d) {
@@ -282,7 +285,6 @@ struct Wgmma<8> {  // m64n64k8
         : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(scale_d));
   }
 };
-
 
 // Up to six weights laid out per launch.  B[k][n] = w[n][k] (trans = 0,
 // x w^T, a forward layer) or w[k][n] (trans = 1, dy w, an input gradient),
@@ -435,12 +437,8 @@ struct StepRing {
 
 // By one thread, then a block barrier: the mbarriers.
 __device__ __forceinline__ void ring_init(const StepRing& r) {
-  for (int s = 0; s < r.n_slots; ++s) {
-    asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(smem_addr(r.full + s)) : "memory");
-    asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_addr(r.empty + s)), "r"(r.warps)
-                 : "memory");
-  }
-  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  mbar_init(r.full, r.n_slots);
+  mbar_init(r.empty, r.n_slots, r.warps);
 }
 
 // The producer (one thread): every k-step of the block, each once its slot
@@ -494,7 +492,7 @@ __device__ __forceinline__ void rows_mma_ring(const float* act, int P, const Ste
 #pragma unroll
     for (int j = 0; j < 4 * NW; ++j) acc[j] += step[j];
     if (lane == 0)  // this warp is done with the slot
-      asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_addr(r.empty + s)) : "memory");
+      mbar_arrive(r.empty + s);
     if (++s == r.n_slots) s = 0, parity ^= 1;
   }
 }

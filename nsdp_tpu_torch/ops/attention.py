@@ -70,7 +70,7 @@ mode has kernels of its own on the tensor cores (``csrc/rows_mma16.cuh``,
 import contextlib
 import ctypes
 from contextvars import ContextVar
-from typing import Optional
+from typing import List, Optional, Tuple
 
 import torch
 from torch.autograd.function import once_differentiable
@@ -191,9 +191,11 @@ _SIGNATURES = {
 _SIGNATURES_BWD = {
     "nsdp_fused_attention_bwd": (ctypes.c_int, (
         [ctypes.c_void_p] * 4 + [ctypes.c_longlong] * 2 + [ctypes.c_void_p] * 23
-        + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+        + [ctypes.c_int] * 8 + [ctypes.c_void_p]
     )),
     "nsdp_attention_bwd_smem": (ctypes.c_longlong, [ctypes.c_int]),
+    "nsdp_wgrad_smem": (ctypes.c_longlong, [ctypes.c_int]),
+    "nsdp_wgrad_width": (ctypes.c_int, [ctypes.c_int]),
 }
 
 
@@ -434,25 +436,79 @@ def weight_frags16_plain(w: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     return torch.stack([B[k, n], B[k + 1, n], B[k + 8, n], B[k + 9, n]], dim=-1)
 
 
-def _backward_tiles(D: int) -> int:
-    """64 x 64 output tiles of K2's one weight-gradient launch: [dx | 1]^T
-    (4 rows) and three [X | 1]^T (D + 1 rows), each D wide."""
-    n = -(-D // 64)
-    return n + 3 * -(-(D + 1) // 64) * n
+# ---- K2's weight-gradient reduction (csrc/attention_bwd.cu's wgrad_kernel),
+# host side
+
+WGRAD_ROWS = 32  # workspace rows of a staged chunk: four k-steps
+WGRAD_COLS = 128  # Y columns of a block: two consumer warpgroups of 64
+WGRAD_WIDTHS = (8, 11, 13)  # [X | 1] widths (8-column groups) the kernel is built for
+WGRAD_MIN_ROWS = 256  # fewest rows of a row split
 
 
-def _backward_splits(rows: int, D: int, sms: int) -> int:
-    """Row chunks of K2's weight-gradient reduction on a card of ``sms``
-    SMs: at most two whole waves of its blocks (two resident an SM; a
-    partial last wave cost ~10% at the decoder), each chunk at least 256
-    rows."""
-    return max(1, min(-(-rows // 256), 4 * sms // _backward_tiles(D)))
+def wgrad_width(D: int) -> int:
+    """[X | 1] width (8-column groups) of a block of K2's D-wide
+    weight-gradient jobs (``attention_bwd.cu::wgrad_width``): of the built
+    widths, the one that pads pad8(D + 1) least, the widest of equals."""
+    groups = pad8(D + 1) // 8
+    return min(reversed(WGRAD_WIDTHS), key=lambda nw: -(-groups // nw) * nw)
 
 
-def backward_partial_floats(splits: int, D: int) -> int:
-    """Floats of K2's weight-gradient partials: a (3 D + 7, D) sum per
-    row chunk."""
-    return splits * (3 * D + 7) * D
+def _backward_tiles(D: int) -> List[Tuple[int, int, int, int]]:
+    """The blocks of one row split of K2's weight-gradient reduction, in
+    launch order, as (job, m0, n0, width): the transposed product Y^T [X | 1]
+    at Y columns [m0, m0 + 128) by [X | 1] columns [n0, n0 + width); the
+    three D-wide jobs (1-3) first, then [dx | 1] (job 0, width 8)."""
+    width = 8 * wgrad_width(D)
+    groups = range(0, D, WGRAD_COLS)
+    heavy = [(q, m0, n0, width) for q in (1, 2, 3) for m0 in groups
+             for n0 in range(0, pad8(D + 1), width)]
+    return heavy + [(0, m0, 0, 8) for m0 in groups]
+
+
+def _backward_splits(rows: int, D: int, sms: int) -> Tuple[int, int]:
+    """Row splits of K2's weight-gradient reduction on a card of ``sms``
+    SMs, (the D-wide jobs', [dx | 1]'s): one block an SM, one wave, the
+    SMs shared as the blocks' work (a row of [dx | 1] takes ~3/5 of a
+    D-wide block's time: the best of the splits timed on an H100 at the
+    begin blocks, D = 120); each split at least 256 rows (but a lone one)."""
+    tiles = _backward_tiles(D)
+    light = sum(job == 0 for job, *_ in tiles)
+    heavy = len(tiles) - light
+    cap = max(1, rows // WGRAD_MIN_ROWS)
+    splits = max(1, min(cap, 5 * sms // (5 * heavy + 3 * light)))
+    return splits, max(1, min(cap, (sms - heavy * splits) // light))
+
+
+def backward_partial_floats(splits: Tuple[int, int], D: int) -> int:
+    """Floats of K2's weight-gradient partials: per row split a (D + 1, D)
+    sum of each D-wide job, and a (4, D) sum of [dx | 1] per split of its."""
+    s, s0 = splits
+    return D * (3 * (D + 1) * s + 4 * s0)
+
+
+def wgrad_smem_bytes(D: int) -> int:
+    """Shared memory of K2's weight-gradient kernel (``WgradSmem``): four
+    raw slots of 32 Y rows (pitch 136) and 32 X rows (pitch N), three split
+    slots of 32 x N floats hi and lo, an 8-byte mbarrier per slot for each
+    of full and empty, and the two consumer warpgroups' turns."""
+    n = 8 * wgrad_width(D)
+    return 4 * (4 * WGRAD_ROWS * (WGRAD_COLS + 8 + n) + 3 * WGRAD_ROWS * 2 * n) + (2 * (4 + 3) + 2) * 8
+
+
+def wgrad_chunk_plain(x: torch.Tensor, n0: int, width: int) -> torch.Tensor:
+    """A staged chunk of B = [X | 1] as K2's weight-gradient reduction lays
+    it out for wgmma (``wgrad_split_chunk``): ``x`` holds the chunk's rows
+    of X's live columns (up to 32 rows; the rows past them are zero); B's
+    columns n0 .. n0 + width - 1 of [x | 1] (zeros past the ones), split
+    into TF32 hi and lo, in :func:`weight_frags_plain`'s K-major order,
+    (k-step, part, column group g, k-half h, column i, row e) with
+    ``[kc, q, g, h, i, e] = part q of B[8 kc + 4 h + e][8 g + i]``."""
+    rows, dx = x.shape
+    B = torch.zeros((WGRAD_ROWS, max(n0 + width, dx + 1)), dtype=torch.float32, device=x.device)
+    B[:rows, :dx] = x
+    B[:rows, dx] = 1.0
+    parts = torch.stack(split_tf32(B[:, n0:n0 + width].contiguous()))  # (2, 32, width)
+    return parts.reshape(2, WGRAD_ROWS // 8, 2, 4, width // 8, 8).permute(1, 0, 4, 2, 5, 3).contiguous()
 
 
 def _check_operands(xyz_q, kv_xyz, q_feats, K_a, V_a, weights, k, k_glob, v_glob,
@@ -632,7 +688,7 @@ def _launch_bwd(xyz_q, kv_xyz, q_feats, K_a, V_a, delta_w0, delta_b0, delta_w1,
             ptr.linear(gamma_w0), ptr(gamma_b0), ptr.linear(gamma_w1), ptr(gamma_b1),
             ptr(g), dxyz_q.data_ptr(), dkv_xyz.data_ptr(), ptr(dq), ptr(dK), ptr(dV),
             ptr(dglob), wfrag.data_ptr(), ws.data_ptr(), partial.data_ptr(), wgrads.data_ptr(),
-            B, Nq, M, D, k, splits, xyz_q.device.index or 0, _build.stream_of(xyz_q),
+            B, Nq, M, D, k, *splits, xyz_q.device.index or 0, _build.stream_of(xyz_q),
         )
         _build.check(lib, err, f"attention backward kernel (B={B}, Nq={Nq}, M={M}, D={D}, k={k})")
         fused_vector_attention_backward.launches += 1

@@ -130,7 +130,7 @@ def trainer(cfg, device, seed=0, group=None, graphs=None):
 # broadcast engine <RT, 0, 0> on neither
 TENSOR_CORE_KERNELS = [
     ("attention_bwd", "bwd_rows_kernel", None, "HGMMA"),
-    ("attention_bwd", "wgrad_kernel", None, "HMMA"),
+    ("attention_bwd", "wgrad_kernel", None, "HGMMA"),
     ("attention", "attn_mma16_kernel", None, "HMMA"),
     ("attention", "attn_bcast_kernel", "tc", "HGMMA"),
     ("attention", "attn_bcast_kernel", "ffma", None),

@@ -544,6 +544,76 @@ def test_backward_shared_memory_mirror(cuda):
 
 
 @pytest.mark.gpu
+def test_weight_gradient_shared_memory_mirror(cuda):
+    """K2's weight-gradient kernel's [X | 1] width and shared memory equal the
+    wrapper's mirrors, which the CPU tests hold to a block an SM, and its
+    ptxas report shows no spills and at most 255 registers a thread."""
+    import re
+
+    from nsdp_tpu_torch.ops import _build
+
+    lib = _build.load("attention_bwd", port_attention._SIGNATURES_BWD)
+    for D in range(1, 257):
+        assert lib.nsdp_wgrad_width(D) == port_attention.wgrad_width(D), D
+        assert lib.nsdp_wgrad_smem(D) == port_attention.wgrad_smem_bytes(D), D
+    found = {}
+    for part in _build.build_log("attention_bwd").split("Compiling entry function")[1:]:
+        m = re.search(r"wgrad_kernelILi(\d+)E", part.split("'")[1])
+        if m:
+            found[int(m.group(1))] = part
+    assert sorted(found) == sorted(port_attention.WGRAD_WIDTHS), sorted(found)
+    for part in found.values():
+        assert "0 bytes spill stores, 0 bytes spill loads" in part, part
+        assert int(re.search(r"Used (\d+) registers", part).group(1)) <= 255, part
+
+
+# (mode, D, k, B, M, nq): the cells' widths (120 pos-only k 10, 200 with the
+# global slot k 7, 256 k 16), D 8 and 130; R = 1 row and R = 24, below one
+# 32-row chunk; the others' last chunk is ragged (R = 6020, 1232, 816)
+WGRAD_CASES = [
+    ("pos_only", 120, 10, 2, 301, 0), ("global", 200, 7, 2, 300, 77), ("table", 256, 16, 2, 301, 0),
+    ("table", 8, 10, 2, 301, 0), ("global", 130, 7, 2, 300, 51), ("pos_only", 200, 1, 1, 1, 0),
+    ("global", 120, 7, 1, 20, 3),
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode,D,k,B,M,nq", WGRAD_CASES)
+def test_weight_gradients_against_float64(mode, D, k, B, M, nq, cuda, rng):
+    """K2's eight fc_delta / fc_gamma weight and bias gradients (the
+    weight-gradient reduction's output) against the plain version in
+    float64: each within twice the float32 plain version's relative L2
+    error (floor 1e-6); one that vanishes analytically (gamma_b1; with a
+    single slot, fc_gamma's four) within 1e-4 of the largest one's scale;
+    two calls give the same bits, one launch each."""
+    a, w = _attention_case(rng, mode, False, B=B, M=M, D=D, k=k, nq=nq)
+    if M == 1:  # a lone kv point is its own neighbour: move the query off it
+        a["xyz_q"] = a["xyz_q"] + np.float32(0.5)
+    t = lambda x: None if x is None else torch.as_tensor(x, device=cuda)
+    ops = [t(a.get(n)) for n in ("xyz_q", "kv_xyz", "q_feats", "K_a", "V_a")] + [t(x) for x in w]
+    ops += [t(a.get("k_glob")), t(a.get("v_glob"))]
+    idx = port_attention._launch(*ops[:13], k, ops[13], ops[14], None)[1]
+    g = t(rng.randn(B, a["xyz_q"].shape[1], D).astype(np.float32))
+    before = port_attention.fused_vector_attention_backward.launches
+    got = port_attention.fused_vector_attention_backward(*ops, idx, g)[5:13]
+    again = port_attention.fused_vector_attention_backward(*ops, idx, g)[5:13]
+    torch.cuda.synchronize()
+    assert port_attention.fused_vector_attention_backward.launches == before + 2
+    assert all(torch.equal(x, y) for x, y in zip(got, again))
+    cpu = [None if x is None else x.cpu() for x in ops]
+    f32 = port_attention.fused_vector_attention_bwd_plain(*cpu, idx.cpu(), g.cpu())[5:13]
+    f64 = port_attention.fused_vector_attention_bwd_plain(
+        *[None if x is None else x.double() for x in cpu], idx.cpu(), g.cpu().double())[5:13]
+    scale = max(float(z.abs().max()) for z in f64)
+    for name, x, y, z in zip(WEIGHTS, got, f32, f64):
+        if float(z.abs().max()) <= 1e-9 * scale:  # gamma_b1; with one slot, all of fc_gamma's
+            assert float(x.abs().max()) <= 1e-4 * scale, name
+        else:
+            err, err_f32 = _rel(x, z), _rel(y, z)
+            assert err <= max(2 * err_f32, 1e-6), f"{name}: {err:.3g} against float32's {err_f32:.3g}"
+
+
+@pytest.mark.gpu
 def test_attention_backward_ffma_masks_match_plain(cuda, rng):
     """The row kernel's fc_delta and fc_gamma ReLU masks, read from its
     workspace (the hidden rows it hands the weight gradients), equal the

@@ -146,15 +146,18 @@ def test_backward_sizing():
     assert [pad8(d) for d in (1, 8, 36, 120, 130, 200, 256)] == [8, 8, 40, 120, 136, 200, 256]
     assert port_attention.backward_workspace_floats(8, 5000, 7, 200, True) == 8 * 5000 * 8 * 1404
     assert port_attention.backward_workspace_floats(2, 10, 5, 36, False) == 2 * 10 * 5 * 284
-    assert port_attention.backward_partial_floats(11, 200) == 11 * 607 * 200
-    # decoder: 4 + 3 * 4 * 4 = 52 output tiles; two waves of 2 blocks per SM of 132
-    assert port_attention._backward_tiles(200) == 52
-    assert port_attention._backward_splits(8 * 5000 * 8, 200, 132) == 10
-    assert port_attention._backward_splits(8 * 5000 * 8, 200, 114) == 8
-    assert port_attention._backward_splits(8 * 5000 * 8, 120, 132) == 37  # 14 tiles
-    assert port_attention._backward_splits(1000, 200, 132) == 4  # chunks of >= 256 rows
-    assert port_attention._backward_splits(10, 120, 132) == 1
-    assert port_attention._backward_tiles(256) == 4 + 3 * 5 * 4
+    # a split's partials: three (D + 1, D) sums and [dx | 1]'s (4, D) per split of its
+    assert port_attention.backward_partial_floats((10, 6), 200) == 200 * (3 * 201 * 10 + 4 * 6)
+    # decoder: two 128-column groups of Y by two 104-wide tiles of [X | 1], three
+    # jobs, then [dx | 1]'s two blocks: 12 + 2 blocks a split, one an SM, the
+    # SMs shared as the blocks' work (a [dx | 1] block's row ~3/5 of the others')
+    assert len(port_attention._backward_tiles(200)) == 14
+    assert port_attention._backward_splits(8 * 5000 * 8, 200, 132) == (10, 6)  # 120 + 12 blocks
+    assert port_attention._backward_splits(8 * 5000 * 8, 200, 114) == (8, 9)
+    assert port_attention._backward_splits(8 * 5000 * 10, 120, 132) == (20, 12)  # 6 + 1 blocks
+    assert port_attention._backward_splits(1000, 200, 132) == (3, 3)  # splits of >= 256 rows
+    assert port_attention._backward_splits(10, 120, 132) == (1, 1)
+    assert len(port_attention._backward_tiles(256)) == 3 * 2 * 3 + 2  # 88-wide tiles of 257 columns
 
 
 def test_row_tile_budget_and_tiles():
@@ -183,6 +186,133 @@ def test_row_tile_budget_and_tiles():
     # decoder (k 7 + the global slot), begin blocks (k 10), other encoder sites (k 16)
     assert [port_attention.backward_tile_queries(s) for s in (8, 10, 16)] == [8, 6, 4]
     assert port_attention.backward_weight_floats(200) == 4 * 2 * 200 * 224 + 2 * 200 * 200
+
+
+def test_weight_gradient_budget_and_tiles():
+    """K2's weight-gradient reduction at every width: its blocks (Y^T [X | 1]
+    tiles of 128 Y columns by a built [X | 1] width; 8 for [dx | 1]) cover
+    each job's (Dx + 1) x D output once, so the (3 D + 7) x D one; its
+    shared memory fits a block's 227 KB and leaves no room for a second
+    block; and on an H100's 132 SMs its blocks take one wave and its
+    partials stay under 6 MiB (before: 4.9 MB at the decoder, 6.5 MB at the
+    begin blocks), each split at least 256 rows but a lone one."""
+    for D in range(1, 257):
+        nw = port_attention.wgrad_width(D)
+        assert nw in port_attention.WGRAD_WIDTHS
+        assert -(-pad8(D + 1) // (8 * nw)) * nw <= min(-(-pad8(D + 1) // (8 * w)) * w
+                                                       for w in port_attention.WGRAD_WIDTHS)
+        cover = [np.zeros((dx + 1, D), dtype=int) for dx in (3, D, D, D)]
+        tiles = port_attention._backward_tiles(D)
+        for job, m0, n0, width in tiles:
+            assert width == (8 if job == 0 else 8 * nw) and m0 < D and n0 <= (3 if job == 0 else D)
+            cover[job][n0:n0 + width, m0:m0 + port_attention.WGRAD_COLS] += 1
+        assert all((c == 1).all() for c in cover), D
+        assert [job for job, *_ in tiles] == sorted(job for job, *_ in tiles if job) + [0] * -(-D // 128)
+        smem = port_attention.wgrad_smem_bytes(D)
+        assert 228 * 1024 < 2 * (smem + 1024) and smem <= port_attention.MAX_SMEM, (D, smem)
+        light = -(-D // 128)
+        for rows in (1, 255, 300, 4096, 12800, 10 ** 6):
+            splits, splits0 = port_attention._backward_splits(rows, D, 132)
+            assert (len(tiles) - light) * splits + light * splits0 <= 132, (D, rows)
+            assert 4 * port_attention.backward_partial_floats((splits, splits0), D) <= 6 * 2 ** 20
+            for s in (splits, splits0):
+                assert s == 1 or rows // s >= port_attention.WGRAD_MIN_ROWS, (D, rows, s)
+    # 104 / 88 / 64 wide at the training sites' widths: no padding column
+    assert [8 * port_attention.wgrad_width(d) for d in (200, 256, 120)] == [104, 88, 64]
+    assert port_attention.wgrad_smem_bytes(200) == 4 * (4 * 32 * (136 + 104) + 3 * 32 * 208) + 128
+
+
+def _unpack_chunk(chunk: torch.Tensor) -> torch.Tensor:
+    """The hi and lo parts of a staged chunk's B, (2, 32, width), read back
+    one core matrix at a time."""
+    width = 8 * chunk.shape[2]
+    B = torch.zeros((2, 32, width), dtype=torch.float32)
+    for kc in range(4):
+        for q in range(2):
+            for g in range(width // 8):
+                for h in range(2):
+                    B[q, 8 * kc + 4 * h:8 * kc + 4 * h + 4, 8 * g:8 * g + 8] = chunk[kc, q, g, h].t()
+    return B
+
+
+@pytest.mark.parametrize("D,rows,n0", [(200, 32, 104), (200, 13, 0), (256, 32, 176), (3, 7, 0), (130, 1, 88)])
+def test_weight_gradient_chunk_layout(D, rows, n0):
+    """A staged chunk of B = [X | 1], as the reduction's splitting warps lay
+    it out: the TF32 hi and lo parts of [X | 1]'s columns n0 .. n0 + width
+    (ones after X's D, zeros beyond, rows past the chunk's zero), in wgmma's
+    K-major core matrices without swizzle -- per k-step the hi part, then the
+    lo part, each 8 columns (rows of a core matrix, 16 bytes apart) by 4 k,
+    k-halves 128 bytes apart and column groups 256 bytes apart."""
+    rng = np.random.RandomState(D + rows)
+    x = torch.from_numpy(rng.randn(rows, D).astype(np.float32))
+    width = 8 if D == 3 else 8 * port_attention.wgrad_width(D)
+    chunk = port_attention.wgrad_chunk_plain(x, n0, width)
+    assert chunk.shape == (4, 2, width // 8, 2, 8, 4)
+    B = torch.zeros((32, n0 + width + D + 1))
+    B[:rows, :D] = x
+    B[:rows, D] = 1.0
+    hi, lo = split_tf32(B[:, n0:n0 + width].contiguous())
+    parts = _unpack_chunk(chunk)
+    assert torch.equal(parts[0], hi) and torch.equal(parts[1], lo)
+    # part q of B[8 kc + 4 h + e][8 g + i] at kc 16 N + q 8 N + g 64 + h 32 + i 4 + e
+    flat = chunk.reshape(-1)
+    kc, g, h, i, e = 2, width // 8 - 1, 1, 6, 3  # B[23][width - 2]
+    for q, part in enumerate((hi, lo)):
+        assert float(flat[kc * 16 * width + q * 8 * width + g * 64 + h * 32 + i * 4 + e]) == float(part[23, width - 2])
+
+
+def _wgrad_emulated(X: torch.Tensor, Y: torch.Tensor, splits: int, terms: int = 3) -> torch.Tensor:
+    """[X | 1]^T Y as the reduction computes it: per row split and 32-row
+    chunk, Y^T [X | 1] by wgmma k-steps chained in the accumulator (a_lo
+    b_hi, a_hi b_lo, a_hi b_hi per k-step, each product's sum rounded to
+    float32 once; ``terms = 1``: a_hi b_hi alone), the chunks' sums added
+    up apart 16 at a time and each 16's into the split's sum, then the
+    splits' sums in order, compensated (wgrad_sum_kernel)."""
+    R, D = X.shape
+    per = -(-(-(-R // splits)) // 32) * 32
+    kahan = lambda s, c, x: (lambda y: (lambda t: (t, (t - s) - y))(s + y))(x - c)
+    total = comp_total = torch.zeros((D + 1, Y.shape[1]))
+    for z in range(splits):
+        s = part = torch.zeros((Y.shape[1], D + 1))
+        rows = range(z * per, min(R, (z + 1) * per), 32)
+        for i, r in enumerate(rows):
+            chunk = port_attention.wgrad_chunk_plain(X[r:r + 32], 0, pad8(D + 1))
+            b_hi, b_lo = _unpack_chunk(chunk)[:, :, :D + 1]
+            a = torch.zeros((Y.shape[1], 32))
+            a[:, :min(32, R - r)] = Y[r:r + 32].t()
+            a_hi, a_lo = split_tf32(a)
+            steps = ((a_lo, b_hi), (a_hi, b_lo), (a_hi, b_hi)) if terms == 3 else ((a_hi, b_hi),)
+            acc = torch.zeros_like(s)
+            for kc in range(4):
+                k = slice(8 * kc, 8 * kc + 8)
+                for lhs, rhs in steps:
+                    acc = (acc.double() + lhs[:, k].double() @ rhs[k].double()).float()
+            part = part + acc
+            if i % 16 == 15 or i == len(rows) - 1:
+                s, part = s + part, torch.zeros_like(part)
+        total, comp_total = kahan(total, comp_total, s.t())
+    return total
+
+
+@pytest.mark.parametrize("D,R", [(200, 3000), (120, 2500), (256, 1100), (200, 30000)])
+def test_weight_gradient_emulation_is_as_accurate_as_float32(D, R):
+    """The reduction's arithmetic, emulated at the cells' widths over their
+    row splits on 132 SMs (at R = 30,000, ~94 chunks a split), within twice
+    the float32 product's relative L2 error against float64, [X | 1]^T Y
+    with X ReLU activations and Y gradients; a single TF32 product is not
+    (why both operands split)."""
+    rng = np.random.RandomState(D)
+    X = torch.from_numpy(np.concatenate([_mlp_rows(D, s) for s in range(-(-R // 64))])[:R])
+    Y = torch.from_numpy(rng.randn(R, D).astype(np.float32))
+    X1 = torch.cat([X, torch.ones((R, 1))], dim=1)
+    ref = X1.double().t() @ Y.double()
+    err_f32 = _rel(X1.t() @ Y, ref)
+    splits = port_attention._backward_splits(R, D, 132)[0]
+    assert splits > 1
+    err_3x = _rel(_wgrad_emulated(X, Y, splits), ref)
+    err_1x = _rel(_wgrad_emulated(X, Y, splits, terms=1), ref)
+    assert err_3x <= 2 * err_f32, (err_3x, err_f32)
+    assert err_1x > 2 * err_f32 and err_1x > 100 * err_3x, (err_1x, err_3x, err_f32)
 
 
 @pytest.mark.parametrize("D", [36, 130, 200])
