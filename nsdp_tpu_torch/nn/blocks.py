@@ -185,8 +185,12 @@ class BatchNorm(nn.BatchNorm1d):
     ``dtype`` (flax's ``BatchNorm(dtype=)``, ``nsdp_tpu/nn/blocks.py:148-199``):
     the statistics and the normalisation are taken in the parameters'
     float32 (all-reduced sums included), the output is cast to ``dtype``
-    (None: the input's dtype).
+    (None: the input's dtype).  ``BatchNorm.widened_bytes`` counts the
+    bytes of narrow input taken to float32, at the call (a replay of a
+    captured call adds nothing).
     """
+
+    widened_bytes = 0
 
     def __init__(self, features: int, device=None, dtype=None):
         super().__init__(features, eps=1e-5, momentum=0.1, device=device)
@@ -198,6 +202,7 @@ class BatchNorm(nn.BatchNorm1d):
         # it did not make before (a step's launches are queued by the host)
         out = lambda y: y if y.dtype == out_dtype else y.to(out_dtype)
         if x.dtype != self.weight.dtype:
+            BatchNorm.widened_bytes += x.numel() * x.element_size()
             x = x.to(self.weight.dtype)
         if not self.training:
             inv = torch.rsqrt(self.running_var + self.eps)

@@ -827,6 +827,10 @@ def fused_vector_attention(
       ``csrc/attention.cu`` (counted in ``fused_vector_attention.launches``,
       a narrow mode's launch also in ``.narrow_launches``, the broadcast
       path's tensor-core engine also in ``.bcast_tc_launches``) or raises.
+      ``fused_vector_attention.widened_bytes`` counts the bytes of the
+      narrow operands widened to float32 (an expanded view by its
+      elements, which the widening lays out whole), at the call, so a
+      replay of a captured call adds nothing.
       With grad mode on and an operand that requires grad, the result is
       differentiable (module docstring); otherwise nothing is saved.
     """
@@ -841,9 +845,14 @@ def fused_vector_attention(
                                "run it under torch.no_grad() or torch.inference_mode()")
     # a narrow model's activations, widened (autograd takes each gradient
     # back to its operand's type); the weights are float32 parameters
-    xyz_q, kv_xyz, q_feats, K_a, V_a, k_glob, v_glob, kv_feats = [
-        t.float() if t is not None and t.dtype in NARROW else t
-        for t in (xyz_q, kv_xyz, q_feats, K_a, V_a, k_glob, v_glob, kv_feats)]
+    narrow_operands = [t for t in (xyz_q, kv_xyz, q_feats, K_a, V_a, k_glob, v_glob, kv_feats)
+                       if t is not None and t.dtype in NARROW]
+    if narrow_operands:
+        fused_vector_attention.widened_bytes += sum(t.numel() * t.element_size()
+                                                    for t in narrow_operands)
+        xyz_q, kv_xyz, q_feats, K_a, V_a, k_glob, v_glob, kv_feats = [
+            t.float() if t is not None and t.dtype in NARROW else t
+            for t in (xyz_q, kv_xyz, q_feats, K_a, V_a, k_glob, v_glob, kv_feats)]
     pos_only = q_feats is None
     if k_glob is not None and pos_only:
         raise ValueError("global token requires query features")
@@ -880,3 +889,4 @@ def fused_vector_attention(
 fused_vector_attention.launches = 0
 fused_vector_attention.narrow_launches = 0
 fused_vector_attention.bcast_tc_launches = 0
+fused_vector_attention.widened_bytes = 0

@@ -32,7 +32,7 @@ from torch import nn
 
 from nsdp_tpu_torch import resolve_device
 from nsdp_tpu_torch.graphs import Graphs
-from nsdp_tpu_torch.nn.blocks import BatchNorm, bn_sync
+from nsdp_tpu_torch.nn.blocks import BatchNorm, Dense, bn_sync
 from nsdp_tpu_torch.parallel.dist import all_reduce_flat, capturable
 from nsdp_tpu_torch.training.optim import set_learning_rate
 from nsdp_tpu_torch.utils.padding import predict_padded
@@ -176,6 +176,11 @@ def make_steps(model: nn.Module, model_type: str, optimizer: torch.optim.Optimiz
     all_bns = _batch_norms(model)
     cano_bns = _batch_norms(model.model_canonicalize.encoder) if arbitrary else []
     params = list(model.parameters())
+    # the train step's span detail: the model type, then the compute dtype
+    # where one is set (a float32 model's spans read as before)
+    narrow = sorted({str(m.dtype).split(".")[-1] for m in model.modules()
+                     if isinstance(m, (Dense, BatchNorm)) and m.dtype is not None})
+    step_detail = " ".join([model_type, *narrow])
     # captured, the gradients live in buffers of their own, outside the
     # programs' pool: each train step writes them, so ``.grad`` outlives the
     # calls of every other program of the pool
@@ -238,7 +243,7 @@ def make_steps(model: nn.Module, model_type: str, optimizer: torch.optim.Optimiz
         return loss, grads, saved_all
 
     def train_step(batch: Dict[str, Any], lr: float, fetch: bool = True):
-        with span("train.step", model_type):
+        with span("train.step", step_detail):
             with span("train.inputs"):
                 args = step_inputs(batch)
             if not model.training:  # as the eager forward leaves it (a replay sets no mode)

@@ -13,10 +13,10 @@ shared no-op context, reading no clock and allocating nothing.
 hands back (and forgets) what was recorded: each span's name, start and
 end (``time.perf_counter_ns``, the host's monotonic clock), its parent
 span, the request id that every span of one top-level call shares, and a
-detail (a captured program's name, a train step's model type); each
-count with the request open when it was made.  Recording is host work
-alone: it adds no CUDA call, no synchronisation and no copy.  The spans
-(``nsdp_tpu_torch``):
+detail (a captured program's name, a train step's model type and
+compute dtype); each count with the request open when it was made.
+Recording is host work alone: it adds no CUDA call, no synchronisation
+and no copy.  The spans (``nsdp_tpu_torch``):
 
 * ``serve.deform``, ``serve.open``, ``serve.drag`` -- a
   ``DeformationService.deform``, ``edit_session``, ``EditSession.drag``
@@ -32,8 +32,9 @@ alone: it adds no CUDA call, no synchronisation and no copy.  The spans
   static buffers, its graph's replay, an eager call, a capture, each with
   the program's name as its detail;
 * ``train.step`` (a root, with the model type as its detail: ``forward``,
-  ``backward`` or ``arbitrary``), ``train.inputs``, ``train.optimizer``,
-  ``train.loss`` -- a ``train_step`` call, its batch's tensors, the
+  ``backward`` or ``arbitrary``, then the compute dtype where the model
+  has one, as in ``arbitrary bfloat16``), ``train.inputs``,
+  ``train.optimizer``, ``train.loss`` -- a ``train_step`` call, its batch's tensors, the
   learning rate set and ``optimizer.step()``, the loss read or copied.
 """
 

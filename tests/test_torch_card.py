@@ -1028,6 +1028,34 @@ def test_bf16_train_steps_on_the_card(cuda, name):
 
 
 @pytest.mark.gpu
+def test_bf16_captured_stage2_step_equals_eager_on_the_card(cuda):
+    """The shipped stage-2 net with ``compute_dtype: bfloat16`` at B = 2
+    (N = Q = 5000), captured: from one state a replayed step against two
+    eager ones, held as the float32 step is (``_hold_step``): the loss and
+    every BatchNorm buffer bit for bit (the forward's kernels and cuBLAS's
+    bfloat16 products run in a fixed order); each gradient and parameter
+    bit for bit or, where K2's float64 atomics reorder its sums (a float32
+    gradient that may then round to another bfloat16 on its way back to a
+    narrow operand), within 4 times the two eager steps' own relative gap,
+    floor 1e-4."""
+    cfg = with_model("arbitrary", compute_dtype="bfloat16")
+    model, schedule, opt, steps = trainer(cfg, cuda)
+    twins = [trainer(cfg, cuda, graphs=False) for _ in range(2)]
+    lr = schedule.get_learning_rate(0)
+    rng = np.random.RandomState(13)
+    batches = [train_batch(rng, 2, 5000, 5000) for _ in range(3)]
+    steps["train_step"](batches[0], lr)  # the eager warm-up
+    steps["train_step"](batches[1], lr)  # the capture, replayed once
+    assert steps["train_step"].graphs.summary()["replays"] == 1
+    for m, _, o, _ in twins:
+        m.load_state_dict(model.state_dict())
+        o.load_state_dict(copy.deepcopy(opt.state_dict()))
+    _hold_step([(s["train_step"](batches[2], lr), m, o)
+                for m, o, s in [(model, opt, steps), *[(m, o, s) for m, _, o, s in twins]]])
+    assert steps["train_step"].graphs.summary()["replays"] == 2
+
+
+@pytest.mark.gpu
 def test_bf16_stage1_converges_on_the_card(cuda):
     """``scripts/check_precision_convergence.py``'s run on the card: 40
     stage-1 Adam steps (5e-4) at B = 8 on one batch from one seeded init,

@@ -175,6 +175,25 @@ def test_train_step_span_names_the_model_type(model_type):
     assert {s.detail for s in spans if s.name.startswith("train.") and s is not root} == {None}
 
 
+@pytest.mark.parametrize("compute_dtype,detail", [(None, "arbitrary"), ("float32", "arbitrary"),
+                                                  ("bfloat16", "arbitrary bfloat16")])
+def test_train_step_span_names_the_compute_dtype(compute_dtype, detail):
+    """The ``train.step`` detail carries the model's compute dtype where
+    one is set, so a trace tells bfloat16 steps from float32 ones; a
+    float32 model's detail is the model type alone, as before."""
+    model_cfg = dict(CONFIG["model"])
+    if compute_dtype is not None:
+        model_cfg["compute_dtype"] = compute_dtype
+    model = init_random(build_model({**CONFIG, "model": model_cfg}, device="cpu"), 0)
+    _, opt = optimizer_factory(CONFIG["training"], model.parameters())
+    step = make_steps(model, "arbitrary", opt, device="cpu")["train_step"]
+    profiling.start_tracing()
+    step(batch(np.random.RandomState(5)), 1e-3)
+    spans, _ = profiling.drain()
+    (root,) = by_name(spans)["train.step"]
+    assert root.detail == detail
+
+
 def test_threads_keep_their_own_roots():
     profiling.start_tracing()
     with profiling.span("outer"):
